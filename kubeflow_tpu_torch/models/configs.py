@@ -1,0 +1,96 @@
+"""Decoder configuration for the PyTorch port.
+
+A copy of the reference package's `TransformerConfig` (field for field,
+so a config prints and compares the same on both sides) and the two
+presets the serving slice runs: `LLAMA2_7B` and the test config `TINY`.
+The port keeps its own copy rather than importing the reference package.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 32_000
+    num_layers: int = 32
+    embed_dim: int = 4096
+    num_heads: int = 32
+    num_kv_heads: int = 32
+    head_dim: int = 128
+    mlp_dim: int = 11_008
+    max_seq_len: int = 4096
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    dtype: str = "bfloat16"          # activation/compute dtype
+    param_dtype: str = "float32"     # master weights
+    weight_dtype: str = ""           # decode-time weight format: "" keeps
+                                     # param_dtype; "int8" / "int4" build
+                                     # quantized layers (models.quant)
+    attention_impl: str = "auto"     # auto | flash | xla | ring
+    remat: bool = True               # per-layer checkpointing (training)
+    scan_layers: bool = True         # stacked "layers" param layout
+    tie_embeddings: bool = False
+    logits_softcap: float = 0.0      # gemma-style tanh softcap; 0 = off
+    loss_chunks: int = 0             # >0: chunked cross-entropy
+    remat_policy: str = "nothing"    # nothing|dots|attn|none
+    flash_block_q: int = 0           # flash attention tile sizes; 0 = the
+    flash_block_k: int = 0           # kernel's defaults
+    moe_experts: int = 0             # >0: MLPs become MoE
+    moe_top_k: int = 2               # experts per token
+    moe_capacity_factor: float = 1.25
+    moe_mlp_dim: int = 0             # per-expert hidden; 0 = mlp_dim
+    moe_aux_weight: float = 0.01     # load-balance loss weight
+    decode: bool = False             # set by models.generate.decode_config:
+                                     # a cfg carrying it keeps its explicit
+                                     # fused_projections/staged_kv choices
+    staged_kv: bool = False          # decode KV writes through an 8-row
+                                     # stage; the port writes the cache in
+                                     # place either way (models.transformer)
+    fused_projections: bool = False  # one qkv + one gate_up matmul per
+                                     # layer instead of five
+    moe_dispatch: str = "einsum"     # einsum | hybrid | sort
+
+    def with_(self, **kw) -> "TransformerConfig":
+        return replace(self, **kw)
+
+    @property
+    def num_params(self) -> int:
+        """Parameter count (embed + per-layer attn/mlp/norms + final norm
+        [+ untied output head]); MoE multiplies the MLP by the expert count
+        and adds the router."""
+        d, l = self.embed_dim, self.num_layers
+        attn = d * self.num_heads * self.head_dim * 2  # q + out
+        attn += d * self.num_kv_heads * self.head_dim * 2  # k + v
+        if self.moe_experts > 0:
+            expert_mlp = 3 * d * (self.moe_mlp_dim or self.mlp_dim)
+            mlp = self.moe_experts * expert_mlp + d * self.moe_experts
+        else:
+            mlp = 3 * d * self.mlp_dim  # gate, up, down
+        norms = 2 * d
+        per_layer = attn + mlp + norms
+        embed = self.vocab_size * d
+        head = 0 if self.tie_embeddings else self.vocab_size * d
+        return embed + l * per_layer + d + head
+
+
+LLAMA2_7B = TransformerConfig()
+
+# test config: tiny but structurally identical (GQA, two layers)
+TINY = TransformerConfig(
+    vocab_size=256,
+    num_layers=2,
+    embed_dim=64,
+    num_heads=4,
+    num_kv_heads=2,
+    head_dim=16,
+    mlp_dim=128,
+    max_seq_len=128,
+    dtype="float32",
+    param_dtype="float32",
+)
+
+PRESETS = {"llama2-7b": LLAMA2_7B, "tiny": TINY}
+
+__all__ = ["LLAMA2_7B", "PRESETS", "TINY", "TransformerConfig"]

@@ -1,0 +1,215 @@
+"""Quantized weight streaming for decode: int8 and nibble-packed int4.
+
+Decode reads every matmul weight once per token step, so fewer bytes per
+weight lower its floor.  The port keeps the reference package's stored
+layouts (kubeflow_tpu/models/quant.py), so a quantized tree converts
+leaf for leaf:
+
+- int8: `kernel_q` int8 in the dense kernel's own layout [contract...,
+  features...] and a per-output-channel `kernel_scale` bf16 of shape
+  [1..., features...].  `Int8Linear` multiplies them out at the matmul.
+- int4: `kernel_q4` [K/2, N] int8 (byte i holds contract row 2i in its
+  low nibble and row 2i+1 in its high nibble) and `kernel_scale`
+  [K/64, 1, N] bf16, one scale per 64 contract rows and column.
+  `Int4Linear` runs the Hopper kernel of ops/int4_matmul.py on a CUDA
+  tensor and the plain version on a CPU tensor.
+
+The quantizers work on the reference's param tree layout (nested dicts
+of tensors, models/convert.py) and give bytes identical to the reference's
+numpy quantizers, on either device.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from math import prod
+from typing import Sequence, Union
+
+import torch
+from torch import nn
+
+from ..ops.int4_matmul import int4_matmul, int4_matmul_reference
+
+INT4_GROUP = 64  # contract rows per int4 scale
+
+
+def _as_tuple(v) -> tuple:
+    return tuple(v) if isinstance(v, (tuple, list)) else (v,)
+
+
+class Int8Linear(nn.Module):
+    """The port of Int8DenseGeneral: a bias-free dense layer whose kernel
+    is int8 with per-output-channel bf16 scales.  The contracted dims are
+    the trailing `n_contract` dims of the input."""
+
+    def __init__(self, contract: Union[int, Sequence[int]],
+                 features: Union[int, Sequence[int]],
+                 dtype=torch.bfloat16, device="cuda"):
+        super().__init__()
+        self.contract, self.features = _as_tuple(contract), _as_tuple(features)
+        self.dtype = dtype
+        shape = self.contract + self.features
+        scale_shape = (1,) * len(self.contract) + self.features
+        self.kernel_q = nn.Parameter(
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            requires_grad=False)
+        self.kernel_scale = nn.Parameter(
+            torch.ones(scale_shape, dtype=torch.bfloat16, device=device),
+            requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.kernel_q.to(self.dtype) * self.kernel_scale.to(self.dtype)
+        k, n = prod(self.contract), prod(self.features)
+        lead = x.shape[:x.dim() - len(self.contract)]
+        out = x.to(self.dtype).reshape(-1, k) @ w.reshape(k, n)
+        return out.reshape(lead + self.features)
+
+
+class Int4Linear(nn.Module):
+    """The port of Int4DenseGeneral: a bias-free dense layer with 4-bit
+    weights packed two per int8 byte, in the reference's stored layout.
+
+    On a CUDA tensor the matmul always goes through the hand-written
+    kernel (ops/int4_matmul.py); on a CPU tensor through its plain
+    version.  `plain = True` sends a CUDA tensor through the plain version
+    as well, so a check on the card can hold the kernel path against it."""
+
+    def __init__(self, contract: Union[int, Sequence[int]],
+                 features: Union[int, Sequence[int]],
+                 dtype=torch.bfloat16, device="cuda"):
+        super().__init__()
+        self.contract, self.features = _as_tuple(contract), _as_tuple(features)
+        self.dtype = dtype
+        self.plain = False
+        flat_in, flat_out = prod(self.contract), prod(self.features)
+        if flat_in % (2 * INT4_GROUP) != 0:
+            raise ValueError(f"contract size {flat_in} not divisible by "
+                             f"2*INT4_GROUP={2 * INT4_GROUP}")
+        self.kernel_q4 = nn.Parameter(
+            torch.zeros((flat_in // 2, flat_out), dtype=torch.int8,
+                        device=device), requires_grad=False)
+        self.kernel_scale = nn.Parameter(
+            torch.ones((flat_in // INT4_GROUP, 1, flat_out),
+                       dtype=torch.bfloat16, device=device),
+            requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = prod(self.contract)
+        lead = x.shape[:x.dim() - len(self.contract)]
+        x2 = x.to(self.dtype).reshape(-1, k)
+        if self.plain:
+            out = int4_matmul_reference(x2, self.kernel_q4, self.kernel_scale)
+        else:
+            out = int4_matmul(x2.contiguous(), self.kernel_q4,
+                              self.kernel_scale)
+        return out.reshape(lead + self.features)
+
+
+# ---------------------------------------------------------------------------
+# quantizers over the reference param tree layout
+
+
+def _quantize_kernel(kernel: torch.Tensor, lead: int = 0,
+                     n_contract: int = 1) -> dict:
+    """Symmetric per-output-channel absmax int8 (the reference's
+    _quantize_kernel): one scale per feature coordinate, reduced over the
+    `n_contract` dims after `lead` stacked axes."""
+    k32 = kernel.to(torch.float32)
+    dims = tuple(range(lead, lead + n_contract))
+    absmax = torch.amax(torch.abs(k32), dim=dims, keepdim=True)
+    scale = torch.clamp_min(absmax / 127.0, 1e-12)
+    q = torch.clamp(torch.round(k32 / scale), -127, 127).to(torch.int8)
+    return {"kernel_q": q, "kernel_scale": scale.to(torch.bfloat16)}
+
+
+def quantize_params(params, skip: tuple = ("embed", "router")) -> dict:
+    """Param tree -> the tree Int8Linear layers load: every dict holding a
+    `kernel` becomes {kernel_q, kernel_scale}; subtrees named in `skip`
+    and other leaves pass through.  A stacked `layers` (or `experts`)
+    subtree keeps its leading axis per slice."""
+    def walk(node, name="", lead=0):
+        if isinstance(node, Mapping):
+            if name in skip:
+                return node
+            if "kernel" in node and not isinstance(node["kernel"], Mapping):
+                kernel = node["kernel"]
+                n_contract = 2 if (name == "out"
+                                   and kernel.dim() - lead == 3) else 1
+                rest = {k: v for k, v in node.items() if k != "kernel"}
+                return {**rest, **_quantize_kernel(kernel, lead, n_contract)}
+            return {k: walk(v, k,
+                            lead + (1 if k in ("layers", "experts") else 0))
+                    for k, v in node.items()}
+        return node
+
+    return walk(params)
+
+
+def quantize_kernel_int4(kernel: torch.Tensor, n_contract: int = 1) -> dict:
+    """Kernel [contract..., features...] -> {kernel_q4 [K/2, N] int8,
+    kernel_scale [K/64, 1, N] bf16}, byte-identical to the reference's
+    numpy _quantize_kernel_int4 (round half to even, clip to [-8, 7]) on
+    either device.  `n_contract` leading dims are contracted (2 for the
+    attention out projection [heads, head_dim, embed])."""
+    k32 = kernel.to(torch.float32)
+    n_in = prod(k32.shape[:n_contract])
+    flat = k32.reshape(n_in, -1)
+    n_out = flat.shape[1]
+    g = flat.reshape(n_in // INT4_GROUP, INT4_GROUP, n_out)
+    absmax = torch.amax(torch.abs(g), dim=1, keepdim=True)
+    scale = torch.clamp_min(absmax / 7.0, 1e-12)
+    q = torch.clamp(torch.round(g / scale), -8, 7).to(torch.int32)
+    q = q.reshape(n_in, n_out)
+    packed = ((q[1::2] << 4) | (q[0::2] & 0x0F)).to(torch.int8)
+    return {"kernel_q4": packed, "kernel_scale": scale.to(torch.bfloat16)}
+
+
+def quantize_params_int4(params, skip: tuple = ("embed", "router")) -> dict:
+    """Param tree -> the Int4Linear tree.  MoE trees are rejected: the flat
+    packed layout does not cover stacked expert kernels.  A stacked
+    `layers` tree is unrolled to `layer_i` first (decode always unrolls)."""
+    def has_experts(node) -> bool:
+        return isinstance(node, Mapping) and any(
+            k == "experts" or has_experts(v) for k, v in node.items())
+
+    if has_experts(params):
+        raise ValueError(
+            "quantize_params_int4 cannot quantize MoE expert kernels: the "
+            "flat nibble-packed layout does not cover stacked experts.  Use "
+            "quantize_params (int8) for MoE serving.")
+    if "layers" in params:
+        from .generate import unroll_params
+
+        params = unroll_params(params)
+
+    def walk(node, name=""):
+        if isinstance(node, Mapping):
+            if name in skip:
+                return node
+            if "kernel" in node and not isinstance(node["kernel"], Mapping):
+                rest = {k: v for k, v in node.items() if k != "kernel"}
+                kernel = node["kernel"]
+                n_contract = 2 if name == "out" and kernel.dim() == 3 else 1
+                return {**rest, **quantize_kernel_int4(kernel, n_contract)}
+            return {k: walk(v, k) for k, v in node.items()}
+        return node
+
+    return walk(params)
+
+
+def quantized_bytes(params, exclude: tuple = ("embed",)) -> int:
+    """Bytes one decode step streams with the tree: every leaf outside the
+    subtrees named in `exclude` (the embedding is a row lookup, not a
+    stream).  Pass exclude=() for the resident bytes."""
+    def walk(node, name=""):
+        if isinstance(node, Mapping):
+            if name in exclude:
+                return 0
+            return sum(walk(v, k) for k, v in node.items())
+        return node.numel() * node.element_size()
+
+    return walk(params)
+
+
+__all__ = ["INT4_GROUP", "Int4Linear", "Int8Linear", "quantize_kernel_int4",
+           "quantize_params", "quantize_params_int4", "quantized_bytes"]

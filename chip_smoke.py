@@ -15,16 +15,22 @@ non-zero without its result line):
    max|got-ref| / max|ref| < 1e-2 (same rounding points, another
    summation order); CUDA-event medians of the kernel, the plain version
    and, as a yardstick that reads 4x the weight bytes, torch.matmul on
-   the dequantized bf16 weight, each launch with a cold L2 cache;
+   the dequantized bf16 weight, each launch with a cold L2 cache.  The
+   library figure is torch._weight_int4pack_mm, PyTorch's tensor-core
+   int4 GEMM, on the same weights repacked once into its layout; it must
+   agree with the plain version as the kernel must.  Only this script
+   calls it;
 4. slice: Llama-2-7B at full width and depth, every leaf N(0, 0.02^2)
    from a seeded generator on the card (ci/llama7b_decode.py's scheme),
    int4 kernels quantized there; `generate` at batch 16, prompt 128, 128
-   new tokens, greedy.  Every int4 layer must run the kernel,
+   new tokens, greedy, its prefill and its 127 decode steps timed within
+   the one call.  Every int4 layer must run the kernel,
    (4 * 32 + 1) * 128 = 16512 launches; a second run must repeat every
    token; the same weights through the plain version must give prefill
-   logits within 2e-2 (max relative error) and >= 0.9 of the same greedy
-   tokens.  The per-token agreement with the kernel path's tokens as
-   context (teacher forced) is printed beside it.
+   logits within 2e-2 (max relative error) and, with the kernel path's
+   tokens as context (teacher forced), >= 0.95 of the same next tokens.
+   Free-running greedy agreement is printed beside it: on a random
+   model one early flip changes the rest of a sequence, so it is no gate.
 
 It prints one JSON line per kernel shape and for the slice, then a
 "kernels" line, the nvidia-smi line, and last
@@ -44,7 +50,7 @@ ROOT = Path(__file__).resolve().parent
 
 KERNEL_TOL = 1e-2
 LOGITS_TOL = 2e-2
-MIN_AGREEMENT = 0.9
+MIN_FORCED_AGREEMENT = 0.95
 REPS = 25
 SEED = 0
 
@@ -100,6 +106,26 @@ def kernel_bound(m: int, k: int, n: int, peak):
                                    else "operations")
 
 
+def int4pack_mm(packed, scales):
+    """x -> x @ W through torch._weight_int4pack_mm, for the W of `packed`
+    and `scales` (group 64).  The library wants W as [N, K/2] uint8 of
+    unsigned nibbles (the int4 value + 8, even K index in the high
+    nibble), tiled once by torch._convert_weight_to_int4pack, and
+    dequantizes as (q - 8) * scale + zero: zero points of 0 give the
+    kernel's nibble * scale."""
+    import torch
+
+    from kubeflow_tpu_torch.ops.int4_matmul import GROUP, unpack_int4
+
+    k, n = 2 * packed.shape[0], packed.shape[1]
+    q = (unpack_int4(packed) + 8).t().contiguous()
+    tiled = torch._convert_weight_to_int4pack(
+        ((q[:, 0::2] << 4) | q[:, 1::2]).to(torch.uint8), 8)
+    s = scales.reshape(k // GROUP, n)
+    scale_zero = torch.stack([s, torch.zeros_like(s)], dim=-1).contiguous()
+    return lambda x: torch._weight_int4pack_mm(x, tiled, GROUP, scale_zero)
+
+
 def kernel_phase(gen, device, peak, flush) -> dict:
     """Kernel against plain version at every shape; returns per-shape
     results keyed by (m, k, n)."""
@@ -119,9 +145,13 @@ def kernel_phase(gen, device, peak, flush) -> dict:
                         ).to(torch.bfloat16)
         got = i4.int4_matmul(x, packed, scales)
         ref = i4.int4_matmul_reference(x, packed, scales)
+        library = int4pack_mm(packed, scales)
+        lib_got = library(x)
         torch.cuda.synchronize()
+        ref_max = ref.float().abs().max().item()
         diff = (got.float() - ref.float()).abs().max().item()
-        rel = diff / ref.float().abs().max().item()
+        rel = diff / ref_max
+        lib_rel = (lib_got.float() - ref.float()).abs().max().item() / ref_max
         finite = bool(torch.isfinite(got).all().item())
         w_bf16 = (i4.unpack_int4(packed).reshape(k // 64, 64, n).float()
                   * scales.float()).reshape(k, n).to(torch.bfloat16)
@@ -133,21 +163,25 @@ def kernel_phase(gen, device, peak, flush) -> dict:
                                   flush),
             "plain_ms": timed_ms(
                 lambda: i4.int4_matmul_reference(x, packed, scales), flush),
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": timed_ms(lambda: library(x), flush),
+            "library_max_rel_err": lib_rel,
+            "library_call": "torch._weight_int4pack_mm",
             "bf16_matmul_ms": timed_ms(lambda: torch.matmul(x, w_bf16),
                                        flush),
             "bf16_matmul_note": "yardstick: torch.matmul on the dequantized "
                                 "bf16 weight, 4x the weight bytes",
-            "ok": finite and rel < KERNEL_TOL,
+            "ok": finite and rel < KERNEL_TOL and lib_rel < KERNEL_TOL,
         }
         emit(res)
         results[(m, k, n)] = res
         if not res["ok"]:
             failed.append((m, k, n))
-        del w, q, packed, scales, x, got, ref, w_bf16
+        del w, q, packed, scales, x, got, ref, w_bf16, library, lib_got
     if failed:
-        raise RuntimeError(f"int4_matmul disagrees with its plain version "
-                           f"(max_rel_err >= {KERNEL_TOL}) at {failed}")
+        raise RuntimeError(f"int4_matmul or the library call disagrees with "
+                           f"the plain version (max_rel_err >= {KERNEL_TOL}) "
+                           f"at {failed}")
     return results
 
 
@@ -195,16 +229,38 @@ def set_plain(model, plain: bool) -> None:
             mod.plain = plain
 
 
-def event_ms(fn):
+def timed_generate(cfg, model, prompt, new):
+    """One greedy `generate` call, timed in its parts: CUDA events at its
+    start, after its prefill and at its end, and the host's clock over
+    the decode steps.  A forward hook marks the end of the model's first
+    call (the prefill) and waits there for the card, so the decode steps
+    start from an empty queue.  Returns (tokens, prefill ms, decode ms,
+    host seconds to issue the decode steps)."""
     import torch
 
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn()
-    end.record()
-    end.synchronize()
-    return out, start.elapsed_time(end)
+    from kubeflow_tpu_torch.models.generate import generate
+
+    start, prefill_end, end = (torch.cuda.Event(enable_timing=True)
+                               for _ in range(3))
+    host = []
+
+    def after_prefill(_module, _args, _out):
+        if not host:
+            prefill_end.record()
+            torch.cuda.synchronize()
+            host.append(time.perf_counter())
+
+    handle = model.register_forward_hook(after_prefill)
+    try:
+        start.record()
+        out = generate(cfg, model, prompt, new)
+        host.append(time.perf_counter())
+        end.record()
+        end.synchronize()
+    finally:
+        handle.remove()
+    return (out, start.elapsed_time(prefill_end),
+            prefill_end.elapsed_time(end), host[1] - host[0])
 
 
 def slice_phase(gen, device, device_name) -> dict:
@@ -232,14 +288,14 @@ def slice_phase(gen, device, device_name) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     i4.launches = 0
-    out, total_ms = event_ms(lambda: generate(cfg, model, prompt, new))
+    out, prefill_ms, decode_ms, decode_host_s = timed_generate(
+        cfg, model, prompt, new)
     launches = i4.launches
     peak_mem = torch.cuda.max_memory_allocated()
     expected = (4 * cfg.num_layers + 1) * new
-    _, prefill_ms = event_ms(lambda: generate(cfg, model, prompt, 1))
     # the kernel sums in a fixed order, so a second run repeats every token
     deterministic = torch.equal(generate(cfg, model, prompt, new), out)
-    decode_s = (total_ms - prefill_ms) / 1e3
+    decode_s = decode_ms / 1e3
 
     shape_ok = (tuple(out.shape) == (batch, prompt_len + new)
                 and bool((out[:, :prompt_len] == prompt).all().item())
@@ -270,9 +326,10 @@ def slice_phase(gen, device, device_name) -> dict:
         "phase": "slice", "model": "llama2-7b", "layers": cfg.num_layers,
         "weight_dtype": "int4", "batch": batch, "prompt_len": prompt_len,
         "new_tokens": new, "setup_s": setup_s,
-        "prefill_s": prefill_ms / 1e3, "total_s": total_ms / 1e3,
+        "prefill_s": prefill_ms / 1e3, "decode_s": decode_s,
+        "decode_host_s": decode_host_s,
         "decode_tok_s": batch * (new - 1) / decode_s,
-        "decode_step_ms": decode_s * 1e3 / (new - 1),
+        "decode_step_ms": decode_ms / (new - 1),
         "peak_mem_gb": peak_mem / 1e9, "streamed_weight_gb": streamed / 1e9,
         "int4_launches": launches, "expected_launches": expected,
         "prefill_logits_max_rel_err": logits_rel, "logits_finite": finite,
@@ -289,11 +346,11 @@ def slice_phase(gen, device, device_name) -> dict:
     if not (shape_ok and finite and deterministic):
         raise RuntimeError("generate gave malformed or run-to-run varying "
                            "tokens, or non-finite logits")
-    if logits_rel >= LOGITS_TOL or agreement < MIN_AGREEMENT:
+    if logits_rel >= LOGITS_TOL or forced_agreement < MIN_FORCED_AGREEMENT:
         raise RuntimeError(
             f"kernel path and plain path disagree: prefill logits "
-            f"max_rel_err {logits_rel} (limit {LOGITS_TOL}), greedy "
-            f"agreement {agreement} (limit {MIN_AGREEMENT})")
+            f"max_rel_err {logits_rel} (limit {LOGITS_TOL}), teacher-forced "
+            f"agreement {forced_agreement} (limit {MIN_FORCED_AGREEMENT})")
     return res
 
 
@@ -308,12 +365,13 @@ def main_path_totals(results: dict, launches: int) -> dict:
     if sum(counts.values()) != launches:
         raise RuntimeError(f"main path launches {launches} do not match "
                            f"the per-shape counts {counts}")
-    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     by_bytes = 0.0
     for shape, count in counts.items():
         r = results[shape]
         total["ms"] += count * r["kernel_ms"]
         total["plain_ms"] += count * r["plain_ms"]
+        total["library_ms"] += count * r["library_ms"]
         if r["bound_ms"] is None:
             total["bound_ms"] = None
         elif total["bound_ms"] is not None:
@@ -371,9 +429,9 @@ def main() -> int:
         "launches": sl["int4_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in results.values()),
         "max_rel_err": max(r["max_rel_err"] for r in results.values()),
-        **totals, "library_ms": None,
-        "basis": "ms, plain_ms and bound_ms sum the per-shape medians over "
-                 "the main path's launches",
+        **totals, "library_call": "torch._weight_int4pack_mm",
+        "basis": "ms, plain_ms, bound_ms and library_ms sum the per-shape "
+                 "medians over the main path's launches",
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,

@@ -18,7 +18,6 @@ from __future__ import annotations
 from math import prod
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -54,10 +53,12 @@ class RMSNorm(nn.Module):
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float) -> torch.Tensor:
     """Rotary embedding on [B, S, H, D]: split-half convention, fp32 trig,
-    positions taken as given (global positions in decode)."""
+    positions taken as given (global positions in decode).  The frequency
+    table is made on x's device: a copy from host memory would make every
+    call wait for the card."""
     half = x.shape[-1] // 2
-    freq = torch.from_numpy(
-        theta ** (-np.arange(0, half, dtype=np.float32) / half)).to(x.device)
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
     angle = positions[..., None].to(torch.float32) * freq   # [B, S, half]
     cos = torch.cos(angle)[:, :, None, :]
     sin = torch.sin(angle)[:, :, None, :]

@@ -22,7 +22,6 @@ class GpuPeak:
 # NVIDIA data sheets, SXM parts, dense rates at the full power limit
 GPU_PEAKS = {
     "NVIDIA H100 80GB HBM3": GpuPeak(bf16_tflops=989.0, hbm_gbps=3350.0),
-    "NVIDIA H200": GpuPeak(bf16_tflops=989.0, hbm_gbps=4800.0),
 }
 
 # bytes per element by dtype name; int4 is nibble-packed

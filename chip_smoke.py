@@ -8,7 +8,8 @@ non-zero without its result line):
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions; TF32 off, so fp32 products are full fp32;
-2. build: compile csrc/int4_matmul.cu with nvcc from this checkout;
+2. build: compile csrc/int4_matmul.cu and csrc/flash_attention.cu with
+   nvcc from this checkout, one nvcc each, at once;
 3. kernel: the int4 dequant-matmul kernel against its plain version on the
    card at the four shapes of ci/int4_kernel_check.py and the ten shapes
    of Llama-2-7B serving (decode M=16 and prefill M=2048), with
@@ -30,16 +31,43 @@ non-zero without its result line):
    logits within 2e-2 (max relative error) and, with the kernel path's
    tokens as context (teacher forced), >= 0.95 of the same next tokens.
    Free-running greedy agreement is printed beside it: on a random
-   model one early flip changes the rest of a sequence, so it is no gate.
+   model one early flip changes the rest of a sequence, so it is no gate;
+5. flash: the three flash-attention kernels (forward, dK/dV, dQ) against
+   their plain versions at the three shapes of ci/flash_numerics.py and
+   the training step's (40, 2048, 12, 12, 128), causal, N(0, 1) bf16
+   inputs and cotangent.  The plain backward starts from the plain
+   forward's lse and di = rowsum(dO * plain O), never from the kernels'.
+   Gates, for each of o, dq, dk and dv: max abs error <= 3e-2 forward and
+   <= 6e-2 for the gradients (ci/flash_numerics.py's limits), max abs
+   error / max |ref| <= 2e-2, and RMS error / RMS of the reference
+   <= 1e-2, which holds the many late rows whose values are small; the
+   lse within 1e-4; and a second backward repeats every bit.  The errors
+   against F.scaled_dot_product_attention are printed; its forward and
+   its backward (dq, dk and dv in one call, so it stands on the dK/dV
+   entry only) are timed as the library yardstick (only this script
+   calls it);
+6. train: the BENCH_CHIP training step at full width and depth, batch 40
+   x seq 2048, through setup_training and its train step (the entry points
+   of `python -m kubeflow_tpu_torch.bench`), AdamW with a bf16 first
+   moment.  One step must launch exactly 20 flash forwards (10 layers,
+   each run again by the remat recompute), 10 dK/dV and 10 dQ; a fresh
+   setup from the same seed repeats the first loss bit for bit; every
+   loss is finite; at batch 8 the kernel path and the plain path
+   (attention_impl="xla", the einsum reference) agree on the loss within
+   1e-3 relative, on the global gradient norm within 2e-2 relative, and
+   per parameter with gradient cosine >= 0.99; five SGD(0.05) steps on
+   one repeated batch lower the loss.  Step time, tokens/s and MFU
+   against the card's bf16 peak come from the bench's timed windows.
 
-It prints one JSON line per kernel shape and for the slice, then a
-"kernels" line, the nvidia-smi line, and last
-{"ok": true, "device": {...}}.
+It prints one JSON line per kernel shape and per slice, then a "kernels"
+line, the nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -51,7 +79,13 @@ ROOT = Path(__file__).resolve().parent
 KERNEL_TOL = 1e-2
 LOGITS_TOL = 2e-2
 MIN_FORCED_AGREEMENT = 0.95
+FLASH_FWD_TOL, FLASH_GRAD_TOL = 3e-2, 6e-2   # ci/flash_numerics.py
+# scaled by the reference: max error / max |ref|, RMS error / RMS ref
+FLASH_MAX_REL_TOL, FLASH_RMS_REL_TOL = 2e-2, 1e-2
+FLASH_LSE_TOL = 1e-4
+TRAIN_LOSS_TOL, TRAIN_NORM_TOL, TRAIN_MIN_COSINE = 1e-3, 2e-2, 0.99
 REPS = 25
+PLAIN_REPS = 3      # the plain attention at full size moves tens of GB
 SEED = 0
 
 # (K, N) of the int4 layers of Llama-2-7B with fused projections
@@ -60,6 +94,20 @@ LLAMA_LAYERS = {"qkv": (4096, 12288), "out": (4096, 4096),
                 "lm_head": (4096, 32000)}
 CHECK_SHAPES = [(16, 1536, 6144), (16, 6144, 1536), (16, 1536, 32000),
                 (128, 1536, 1536)]   # ci/int4_kernel_check.py
+# (batch, seq, heads, kv heads, head dim): ci/flash_numerics.py's SHAPES,
+# then the BENCH_CHIP training step's
+FLASH_SHAPES = [(2, 2048, 12, 12, 128), (2, 1024, 16, 4, 128),
+                (2, 256, 4, 4, 128)]
+TRAIN_SHAPE = (40, 2048, 12, 12, 128)
+TRAIN_BATCH, COMPARE_BATCH = 40, 8
+FLASH_REPLACES = {
+    "flash_fwd": "kubeflow_tpu/ops/attention.py:173 -> jax/experimental/"
+                 "pallas/ops/tpu/flash_attention.py:758",
+    "flash_bwd_dkv": "kubeflow_tpu/ops/attention.py:173 -> jax/experimental/"
+                     "pallas/ops/tpu/flash_attention.py:1121",
+    "flash_bwd_dq": "kubeflow_tpu/ops/attention.py:173 -> jax/experimental/"
+                    "pallas/ops/tpu/flash_attention.py:1456",
+}
 
 
 def emit(obj) -> None:
@@ -354,6 +402,381 @@ def slice_phase(gen, device, device_name) -> dict:
     return res
 
 
+def flash_bounds(shape, peak) -> dict:
+    """Least time of each flash kernel at `shape`: the causal half of its
+    products (forward 2, dK/dV 4, dQ 3, each 2*B*H*S^2*D/2 FLOPs) at the
+    card's bf16 peak, or its bytes (each input read once, each output
+    written once) at the memory rate, whichever is larger."""
+    batch, seq, heads, kv_heads, dim = shape
+    q_bytes = batch * seq * heads * dim * 2
+    kv_bytes = batch * seq * kv_heads * dim * 2
+    row_bytes = batch * heads * seq * 4          # lse or di, fp32
+    product = 2.0 * batch * heads * seq * seq * dim / 2
+    work = {
+        "flash_fwd": (2 * product, 2 * q_bytes + 2 * kv_bytes + row_bytes),
+        "flash_bwd_dkv": (4 * product,
+                          2 * q_bytes + 4 * kv_bytes + 2 * row_bytes),
+        "flash_bwd_dq": (3 * product,
+                         3 * q_bytes + 2 * kv_bytes + 2 * row_bytes),
+    }
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        if peak is None:
+            out[name] = (None, None)
+            continue
+        ops_ms = flops / (peak.bf16_tflops * 1e12) * 1e3
+        bytes_ms = nbytes / (peak.hbm_gbps * 1e9) * 1e3
+        out[name] = (max(ops_ms, bytes_ms),
+                     "operations" if ops_ms >= bytes_ms else "bytes")
+    return out
+
+
+def _max_abs(got, ref) -> float:
+    return (got.float() - ref.float()).abs().max().item()
+
+
+def _errors(got, ref) -> dict:
+    """Max abs error, and the error scaled by the reference: max error /
+    max |ref|, and RMS error / RMS of ref."""
+    diff = got.float() - ref.float()
+    ref = ref.float()
+    max_abs = diff.abs().max().item()
+    return {"max_abs": max_abs, "max_rel": max_abs / ref.abs().max().item(),
+            "rms_rel": (diff.norm() / ref.norm()).item()}
+
+
+def flash_phase(gen, device, peak, flush) -> dict:
+    """Each flash kernel against its plain version at every shape; returns
+    {shape: {kernel name: result}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    results, failed = {}, []
+    for shape in FLASH_SHAPES + [TRAIN_SHAPE]:
+        batch, seq, heads, kv_heads, dim = shape
+        scale = dim ** -0.5
+        q = torch.randn((batch, seq, heads, dim), generator=gen,
+                        device=device).to(torch.bfloat16)
+        k, v = (torch.randn((batch, seq, kv_heads, dim), generator=gen,
+                            device=device).to(torch.bfloat16)
+                for _ in range(2))
+        do = torch.randn((batch, seq, heads, dim), generator=gen,
+                         device=device).to(torch.bfloat16)
+
+        o, lse = fa.flash_forward(q, k, v, scale)
+        di = fa.row_dot(o, do)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, di, scale)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, di, scale)
+        dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse, di, scale)
+        dq2 = fa.flash_bwd_dq(q, k, v, do, lse, di, scale)
+        torch.cuda.synchronize()
+        repeat = (torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                  and torch.equal(dv, dv2))
+        del dq2, dk2, dv2
+        finite = all(bool(torch.isfinite(t).all().item())
+                     for t in (o, lse, dq, dk, dv))
+
+        # the plain chain end to end: its own lse and di feed its backward
+        ro, rlse = fa.flash_forward_reference(q, k, v, scale)
+        rdi = fa.row_dot(ro, do)
+        errs = {"o": _errors(o, ro)}
+        lse_err = (lse - rlse).abs().max().item()
+        del ro
+        rdk, rdv = fa.flash_bwd_dkv_reference(q, k, v, do, rlse, rdi, scale)
+        errs.update(dk=_errors(dk, rdk), dv=_errors(dv, rdv))
+        del rdk, rdv
+        rdq = fa.flash_bwd_dq_reference(q, k, v, do, rlse, rdi, scale)
+        errs["dq"] = _errors(dq, rdq)
+        del rdq, rlse, rdi
+        outputs = {"flash_fwd": ("o",), "flash_bwd_dkv": ("dk", "dv"),
+                   "flash_bwd_dq": ("dq",)}
+        err = {name: {key: max(errs[t][key] for t in ts)
+                      for key in ("max_abs", "max_rel", "rms_rel")}
+               for name, ts in outputs.items()}
+
+        # the library yardstick, in its [B, H, S, D] layout
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        sdpa = functools.partial(F.scaled_dot_product_attention,
+                                 is_causal=True,
+                                 enable_gqa=kv_heads != heads)
+        lo = sdpa(qt, kt, vt)
+        lgrads = torch.autograd.grad(lo, (qt, kt, vt), do.transpose(1, 2),
+                                     retain_graph=True)
+        sdpa_err = {"o": _max_abs(lo.transpose(1, 2), o),
+                    "dq": _max_abs(lgrads[0].transpose(1, 2), dq),
+                    "dk": _max_abs(lgrads[1].transpose(1, 2), dk),
+                    "dv": _max_abs(lgrads[2].transpose(1, 2), dv)}
+        del lgrads
+        with torch.no_grad():
+            sdpa_fwd_ms = timed_ms(lambda: sdpa(qt, kt, vt), flush)
+        sdpa_bwd_ms = timed_ms(lambda: torch.autograd.grad(
+            lo, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), flush)
+        del lo, qt, kt, vt
+
+        times = {
+            "flash_fwd": (
+                timed_ms(lambda: fa.flash_forward(q, k, v, scale), flush),
+                timed_ms(lambda: fa.flash_forward_reference(q, k, v, scale),
+                         flush, PLAIN_REPS),
+                sdpa_fwd_ms),
+            "flash_bwd_dkv": (
+                timed_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, di,
+                                                  scale), flush),
+                timed_ms(lambda: fa.flash_bwd_dkv_reference(
+                    q, k, v, do, lse, di, scale), flush, PLAIN_REPS),
+                sdpa_bwd_ms),
+            # SDPA's backward is timed once, on the dK/dV entry
+            "flash_bwd_dq": (
+                timed_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, di,
+                                                 scale), flush),
+                timed_ms(lambda: fa.flash_bwd_dq_reference(
+                    q, k, v, do, lse, di, scale), flush, PLAIN_REPS),
+                None),
+        }
+        library_calls = {
+            "flash_fwd": "F.scaled_dot_product_attention",
+            "flash_bwd_dkv": "backward of F.scaled_dot_product_attention "
+                             "(dq, dk and dv in one call)",
+            "flash_bwd_dq": None,
+        }
+        limits = {"flash_fwd": FLASH_FWD_TOL, "flash_bwd_dkv": FLASH_GRAD_TOL,
+                  "flash_bwd_dq": FLASH_GRAD_TOL}
+        bounds = flash_bounds(shape, peak)
+        results[shape] = {}
+        for name, (ms, plain_ms, library_ms) in times.items():
+            e = err[name]
+            ok = (finite and repeat and e["max_abs"] <= limits[name]
+                  and e["max_rel"] <= FLASH_MAX_REL_TOL
+                  and e["rms_rel"] <= FLASH_RMS_REL_TOL)
+            res = {
+                "phase": "flash", "kernel": name, "shape": list(shape),
+                "max_abs_err": e["max_abs"], "limit": limits[name],
+                "max_rel_err": e["max_rel"], "max_rel_limit":
+                FLASH_MAX_REL_TOL, "rms_rel_err": e["rms_rel"],
+                "rms_rel_limit": FLASH_RMS_REL_TOL,
+                "errors": {t: errs[t] for t in outputs[name]},
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds[name][0],
+                "bound_by": bounds[name][1], "library_ms": library_ms,
+                "library_call": library_calls[name],
+                "finite": finite, "second_run_same_bits": repeat,
+            }
+            if name == "flash_fwd":
+                ok = ok and lse_err <= FLASH_LSE_TOL
+                res.update(lse_max_abs_err=lse_err, lse_limit=FLASH_LSE_TOL)
+            elif name == "flash_bwd_dkv":
+                res["library_covers"] = ["flash_bwd_dkv", "flash_bwd_dq"]
+            else:
+                res["library_covered_by"] = "flash_bwd_dkv"
+            res["sdpa_max_abs_err"] = {t: sdpa_err[t] for t in outputs[name]}
+            res["ok"] = ok
+            emit(res)
+            results[shape][name] = res
+            if not ok:
+                failed.append((shape, name))
+        del q, k, v, do, o, lse, di, dq, dk, dv
+        torch.cuda.empty_cache()
+    if failed:
+        raise RuntimeError(f"flash kernels disagree with their plain "
+                           f"versions, vary between runs or give non-finite "
+                           f"values at {failed}")
+    return results
+
+
+def _batch(vocab: int, batch: int, seq: int, seed: int, device) -> dict:
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    inputs = torch.randint(0, vocab, (batch, seq), generator=gen,
+                           device=device)
+    return {"inputs": inputs, "targets": torch.roll(inputs, -1, dims=1)}
+
+
+def _loss_and_grads(model, batch):
+    import torch
+
+    from kubeflow_tpu_torch.models import train
+
+    params = [p for p in model.parameters() if p.requires_grad]
+    loss = train.loss_fn(model, batch)
+    return loss.detach(), torch.autograd.grad(loss, params)
+
+
+def train_phase(device, device_name, flash_results, flush) -> dict:
+    import torch
+
+    from kubeflow_tpu_torch.models import train
+    from kubeflow_tpu_torch.models.configs import BENCH_CHIP
+    from kubeflow_tpu_torch.models.transformer import Transformer
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.runtime.roofline import mfu, train_estimate
+
+    cfg, seq = BENCH_CHIP, BENCH_CHIP.max_seq_len
+    data = _batch(cfg.vocab_size, TRAIN_BATCH, seq, SEED, device)
+
+    def adamw_setup(optimizer=None):
+        return train.setup_training(
+            cfg, device, seed=SEED,
+            optimizer=optimizer or train.default_optimizer(
+                mu_dtype="bfloat16"))
+
+    t0 = time.perf_counter()
+    setup = adamw_setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # the main path: one step, every flash launch counted
+    torch.cuda.reset_peak_memory_stats()
+    for key in fa.launches:
+        fa.launches[key] = 0
+    t0 = time.perf_counter()
+    state, metrics = setup.train_step(setup.state, data)
+    first_loss = metrics["loss"].clone()
+    losses = [first_loss.item()]
+    first_step_s = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    peak_mem = torch.cuda.max_memory_allocated()
+    grad_norm0 = metrics["grad_norm"].item()
+
+    # the same seed, a fresh setup: the first loss repeats bit for bit
+    again = adamw_setup()
+    _, metrics2 = again.train_step(again.state, data)
+    same_bits = torch.equal(metrics2["loss"], first_loss)
+    del again, metrics2
+
+    # the bench's windows: 3 x 3 steps, the first after one warm-up step
+    windows = [train.timed_steps(setup, data, num_steps=3,
+                                 warmup=1 if w == 0 else 0)
+               for w in range(3)]
+    losses += [w["loss"] for w in windows]
+    ranked = sorted(windows[1:], key=lambda r: r["tokens_per_s"])
+    timed = ranked[len(ranked) // 2]
+    est = train_estimate(cfg, TRAIN_BATCH, seq, device_name)
+    achieved = mfu(timed["tokens_per_s"], cfg, seq, 1, device_name)
+
+    # the chunked loss alone, forward and backward (fp32 logits)
+    hidden = torch.randn((TRAIN_BATCH, seq, cfg.embed_dim), device=device
+                         ).to(torch.bfloat16).requires_grad_()
+    head = setup.model.lm_head.kernel
+    ce_ms = timed_ms(lambda: torch.autograd.grad(
+        train.chunked_cross_entropy(hidden, data["targets"], head,
+                                    cfg.loss_chunks), (hidden, head)),
+        flush, reps=3)
+    del hidden
+
+    # kernel path against the plain path, same weights and batch
+    small = _batch(cfg.vocab_size, COMPARE_BATCH, seq, SEED + 1, device)
+    model_k = setup.model
+    loss_k, grads_k = _loss_and_grads(model_k, small)
+    model_p = Transformer(cfg.with_(attention_impl="xla"), device)
+    model_p.load_state_dict(model_k.state_dict())
+    loss_p, grads_p = _loss_and_grads(model_p, small)
+    del model_p
+    norm_k = train.global_norm(grads_k).item()
+    norm_p = train.global_norm(grads_p).item()
+    names = [n for n, p in model_k.named_parameters() if p.requires_grad]
+    cosines = {n: torch.nn.functional.cosine_similarity(
+        a.flatten().float(), b.flatten().float(), dim=0).item()
+        for n, a, b in zip(names, grads_k, grads_p)}
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    norm_rel = abs(norm_k - norm_p) / norm_p
+    worst = min(cosines, key=cosines.get)
+    del grads_k, grads_p, setup, state, model_k
+    torch.cuda.empty_cache()
+
+    # five SGD(0.05) steps on one repeated batch lower the loss
+    sgd = adamw_setup(train.SGD(0.05))
+    sgd_losses = []
+    state = sgd.state
+    for _ in range(5):
+        state, m = sgd.train_step(state, small)
+        sgd_losses.append(m["loss"])
+    sgd_losses = [x.item() for x in sgd_losses]
+    del sgd, state
+    losses += sgd_losses + [loss_k.item(), loss_p.item()]
+
+    main = flash_results[TRAIN_SHAPE]
+    flash_ms = sum(main[name]["ms"] * launches[key] for name, key in
+                   (("flash_fwd", "fwd"), ("flash_bwd_dkv", "dkv"),
+                    ("flash_bwd_dq", "dq")))
+    expected = {"fwd": 2 * cfg.num_layers, "dkv": cfg.num_layers,
+                "dq": cfg.num_layers}
+    finite = all(math.isfinite(x) for x in losses + [grad_norm0])
+    res = {
+        "phase": "train", "model": "bench-chip", "layers": cfg.num_layers,
+        "batch": TRAIN_BATCH, "seq": seq, "attention_impl":
+        cfg.attention_impl, "remat_policy": cfg.remat_policy,
+        "setup_s": setup_s, "first_step_s": first_step_s,
+        "first_loss": losses[0], "first_grad_norm": grad_norm0,
+        "flash_launches": launches, "expected_launches": expected,
+        "peak_mem_gb": peak_mem / 1e9, "same_loss_bits": same_bits,
+        "step_time_s": timed["step_time_s"],
+        "tokens_per_s": timed["tokens_per_s"],
+        "window_step_time_s": [w["step_time_s"] for w in windows],
+        "mfu": achieved, "step_floor_s": est.step_floor_s,
+        "bound": est.bound, "flops_per_step": est.flops,
+        "flash_ms_per_step": flash_ms,
+        "flash_share": flash_ms / 1e3 / timed["step_time_s"],
+        "chunked_ce_fwd_bwd_ms": ce_ms,
+        "compare_batch": COMPARE_BATCH,
+        "loss_kernel": loss_k.item(), "loss_plain": loss_p.item(),
+        "loss_rel_err": loss_rel, "grad_norm_kernel": norm_k,
+        "grad_norm_plain": norm_p, "grad_norm_rel_err": norm_rel,
+        "min_grad_cosine": cosines[worst], "min_grad_cosine_param": worst,
+        "sgd_losses": sgd_losses, "losses_finite": finite,
+    }
+    emit(res)
+    if launches != expected:
+        raise RuntimeError(f"one training step launched the flash kernels "
+                           f"{launches} times, expected {expected}")
+    if not (finite and same_bits):
+        raise RuntimeError("a training loss was not finite, or a fresh "
+                           "setup from the same seed gave another first "
+                           "loss")
+    if (loss_rel > TRAIN_LOSS_TOL or norm_rel > TRAIN_NORM_TOL
+            or cosines[worst] < TRAIN_MIN_COSINE):
+        raise RuntimeError(
+            f"kernel path and plain path disagree: loss rel {loss_rel} "
+            f"(limit {TRAIN_LOSS_TOL}), grad norm rel {norm_rel} (limit "
+            f"{TRAIN_NORM_TOL}), gradient cosine of {worst} "
+            f"{cosines[worst]} (limit {TRAIN_MIN_COSINE})")
+    if not sgd_losses[-1] < sgd_losses[0]:
+        raise RuntimeError(f"five SGD steps did not lower the loss: "
+                           f"{sgd_losses}")
+    return res
+
+
+def flash_kernel_lines(flash_results, launches: dict) -> list:
+    """The kernels line's flash entries: the training-shape medians times
+    the main path's launches per step."""
+    entries = []
+    main = flash_results[TRAIN_SHAPE]
+    for name, key in (("flash_fwd", "fwd"), ("flash_bwd_dkv", "dkv"),
+                      ("flash_bwd_dq", "dq")):
+        r, n = main[name], launches[key]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "kubeflow_tpu_torch/csrc/flash_attention.cu",
+            "replaces": FLASH_REPLACES[name], "launches": n,
+            "max_abs_err": max(flash_results[shape][name]["max_abs_err"]
+                               for shape in flash_results),
+            "ms": r["ms"] * n, "plain_ms": r["plain_ms"] * n,
+            "bound_ms": None if r["bound_ms"] is None else r["bound_ms"] * n,
+            "bound_by": r["bound_by"],
+            "library_ms": (None if r["library_ms"] is None
+                           else r["library_ms"] * n),
+            "library_call": r["library_call"],
+            **{key: r[key] for key in ("library_covers", "library_covered_by")
+               if key in r},
+            "ms_per_launch": r["ms"], "shape": list(TRAIN_SHAPE),
+            "basis": "per-launch medians at the training shape times one "
+                     "training step's launches",
+        })
+    return entries
+
+
 def main_path_totals(results: dict, launches: int) -> dict:
     """The kernel line: per-shape times weighted by the main path's
     launches (prefill M=2048 once per layer, decode M=16 127 times)."""
@@ -393,6 +816,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.ops import flash_attention as fa
     from kubeflow_tpu_torch.ops import int4_matmul as i4
     from kubeflow_tpu_torch.runtime.roofline import GPU_PEAKS
 
@@ -407,19 +832,24 @@ def main() -> int:
           "python": sys.version.split()[0]})
 
     t0 = time.perf_counter()
-    lib, log = i4.build()
+    built = _build.build_all([i4.SOURCE, fa.SOURCE])
     build_s = time.perf_counter() - t0
-    emit({"phase": "build", "library": str(lib.relative_to(ROOT)),
-          "build_s": build_s,
-          "ptxas": [ln.strip() for ln in log.splitlines()
+    emit({"phase": "build", "build_s": build_s,
+          "libraries": [str(lib.relative_to(ROOT)) for lib, _ in built],
+          "ptxas": [ln.strip() for _, log in built for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]})
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=device)
     peak = GPU_PEAKS.get(device_name)
     results = kernel_phase(gen, device, peak, flush)
-    del flush
+    # its own generator, so the slice draws the same weights as before
+    flash_results = flash_phase(
+        torch.Generator(device=device).manual_seed(SEED + 1), device, peak,
+        flush)
     sl = slice_phase(gen, device, device_name)
+    tr = train_phase(device, device_name, flash_results, flush)
+    del flush
 
     totals = main_path_totals(results, sl["int4_launches"])
     emit({"kernels": [{
@@ -432,7 +862,7 @@ def main() -> int:
         **totals, "library_call": "torch._weight_int4pack_mm",
         "basis": "ms, plain_ms, bound_ms and library_ms sum the per-shape "
                  "medians over the main path's launches",
-    }]})
+    }] + flash_kernel_lines(flash_results, tr["flash_launches"])})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                  "count": torch.cuda.device_count()}})

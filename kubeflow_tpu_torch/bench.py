@@ -1,0 +1,146 @@
+"""Training benchmark of the port: the BENCH_CHIP step on one card.
+
+    python -m kubeflow_tpu_torch.bench [steps] [--best-of] [--cpu] [--profile]
+
+The port of `bench.py`'s default mode: `BENCH_CHIP` at batch 40 x seq
+2048 (the reference's tokens per step), flash attention on the Hopper
+kernels, AdamW with a bf16 first moment, random tokens from a seeded
+generator.  It runs 6 windows of `steps` steps (default 10; the first
+window after 2 warm-up steps) and reports the median of windows 2-6
+("sustained-median"), or with --best-of the best of 3 windows.  It prints
+one JSON line: `value` is the MFU against the card's own bf16 peak
+(`runtime/roofline.py:GPU_PEAKS`), `roofline_fraction` and `bound` come
+from `train_estimate`.
+
+--cpu runs `TINY` at batch 4 x seq 128 on the CPU, one window: a smoke
+run of the same code, whose `value` and roofline fields are null, since a
+CPU run measures no card.
+
+--profile adds one more step under torch.profiler and puts the card's
+time by kernel into `detail["profile"]`: the device time summed over
+kernels against the step's wall time (the rest is the card's idle
+share), and the kernels that took the most.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+from typing import Optional
+
+import torch
+
+from .models.configs import BENCH_CHIP, TINY
+from .models.train import default_optimizer, mfu, setup_training, timed_steps
+from .runtime.roofline import train_estimate
+
+
+def _round(x: Optional[float], digits: int) -> Optional[float]:
+    return None if x is None else round(x, digits)
+
+
+def profile_step(setup, data: dict, top: int = 15) -> dict:
+    """One train step under torch.profiler: device time per kernel name,
+    summed, against the step's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        state, metrics = setup.train_step(setup.state, data)
+        float(metrics["loss"])
+        wall_s = time.perf_counter() - t0
+    setup.state = state
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    device_us = sum(e.self_device_time_total for e in kernels)
+    return {
+        "wall_ms": wall_s * 1e3,
+        "device_ms": device_us / 1e3,
+        "idle_share": (1.0 - device_us / 1e6 / wall_s) if kernels else None,
+        "kernels": [{"name": e.key[:120], "ms": e.self_device_time_total
+                     / 1e3, "count": e.count} for e in kernels[:top]],
+    }
+
+
+def main(argv: Optional[list] = None) -> dict:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    numeric = [a for a in argv if a.isdigit()]
+    num_steps = int(numeric[0]) if numeric else 10
+    on_cpu = "--cpu" in argv
+    best_of = "--best-of" in argv
+    if on_cpu:
+        device, name = torch.device("cpu"), "cpu"
+        config, batch, seq = TINY, 4, 128
+    else:
+        if not torch.cuda.is_available():
+            raise SystemExit("kubeflow_tpu_torch.bench: no CUDA device; "
+                             "pass --cpu for the CPU smoke run")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        device = torch.device("cuda", 0)
+        name = torch.cuda.get_device_name(0)
+        config, batch, seq = BENCH_CHIP, 40, 2048
+
+    setup = setup_training(config, device,
+                           optimizer=default_optimizer(mu_dtype="bfloat16"))
+    gen = torch.Generator(device=device).manual_seed(0)
+    inputs = torch.randint(0, config.vocab_size, (batch, seq),
+                           generator=gen, device=device)
+    data = {"inputs": inputs, "targets": torch.roll(inputs, -1, dims=1)}
+
+    sustained = not best_of
+    n_windows = 1 if on_cpu else (3 if best_of else 6)
+    windows = [timed_steps(setup, data, num_steps=num_steps,
+                           warmup=2 if w == 0 else 0)
+               for w in range(n_windows)]
+    if sustained and not on_cpu:
+        ranked = sorted(windows[1:], key=lambda r: r["tokens_per_s"])
+        result = ranked[len(ranked) // 2]
+    else:
+        result = max(windows, key=lambda r: r["tokens_per_s"])
+
+    profile = profile_step(setup, data) if "--profile" in argv else None
+    achieved = None if on_cpu else mfu(result["tokens_per_s"], config, seq,
+                                       1, name)
+    est = train_estimate(config, batch, seq, name)
+    fraction = None if on_cpu else est.roofline_fraction(
+        result["step_time_s"])
+    record = {
+        "metric": "train_mfu_h100",
+        "value": _round(achieved, 4),
+        "unit": "fraction",
+        "vs_baseline": None,
+        "roofline_fraction": _round(fraction, 4),
+        "bound": None if on_cpu else est.bound,
+        "detail": {
+            "model": "tiny-cpu" if on_cpu else "bench-chip-470m",
+            "tokens_per_s": round(result["tokens_per_s"], 1),
+            "step_time_s": round(result["step_time_s"], 4),
+            "final_loss": round(result["loss"], 4),
+            "chips": 1,
+            "backend": "cpu" if on_cpu else "cuda",
+            "device": name,
+            "batch": batch,
+            "seq": seq,
+            "estimator": ("sustained-median" if sustained and not on_cpu
+                          else "best-of-windows"),
+            "best_of_windows_tokens_per_s": round(
+                max(w["tokens_per_s"] for w in windows), 1),
+            "window_tokens_per_s": [round(w["tokens_per_s"], 1)
+                                    for w in windows],
+        },
+    }
+    if profile is not None:
+        record["detail"]["profile"] = profile
+    print(json.dumps(record), flush=True)
+    return record
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,11 @@
 """Decoder configuration for the PyTorch port.
 
 A copy of the reference package's `TransformerConfig` (field for field,
-so a config prints and compares the same on both sides) and the two
-presets the serving slice runs: `LLAMA2_7B` and the test config `TINY`.
-The port keeps its own copy rather than importing the reference package.
+so a config prints and compares the same on both sides) and the presets
+the port runs: `LLAMA2_7B` (the serving slice), `BENCH_CHIP` (the
+training slice, the step `python -m kubeflow_tpu_torch.bench` times) and
+the test config `TINY`.  The port keeps its own copy rather than
+importing the reference package.
 """
 
 from __future__ import annotations
@@ -74,8 +76,53 @@ class TransformerConfig:
         head = 0 if self.tie_embeddings else self.vocab_size * d
         return embed + l * per_layer + d + head
 
+    def flops_per_token(self, seq_len: int) -> float:
+        """Training (fwd+bwd) matmul FLOPs per token: 6x the activated
+        matmul parameters plus the causal attention term
+        12*L*S*(H*Dh)/2 (QK^T and AV, halved for causality), the PaLM
+        appendix B accounting.  An untied embedding is a lookup and does
+        not count; a tied one is also the logits weight and does.  For
+        MoE only the top-k activated experts count, scaled down by a
+        capacity factor below 1."""
+        matmul_params = self.num_params - (
+            0 if self.tie_embeddings else self.vocab_size * self.embed_dim
+        )
+        if self.moe_experts > 0:
+            expert_mlp = 3 * self.embed_dim * (self.moe_mlp_dim
+                                               or self.mlp_dim)
+            inactive = self.moe_experts - min(self.moe_top_k,
+                                              self.moe_experts)
+            matmul_params -= self.num_layers * inactive * expert_mlp
+            if self.moe_capacity_factor < 1.0:
+                active_mlp = min(self.moe_top_k, self.moe_experts) \
+                    * expert_mlp
+                matmul_params -= self.num_layers * active_mlp * (
+                    1.0 - self.moe_capacity_factor)
+        attn = (12 * self.num_layers * seq_len * self.num_heads
+                * self.head_dim / 2)
+        return 6.0 * matmul_params + attn
+
 
 LLAMA2_7B = TransformerConfig()
+
+# The flagship training config (~0.47B parameters): 10 layers 1536 wide,
+# 12 heads of 128, MLP 6144, seq 2048, flash attention, cross-entropy in
+# 32 chunks so the [tokens, vocab] fp32 logits never exist at once.
+# flash_block_q/flash_block_k are the reference's TPU tile sizes; the
+# port's kernels choose their own tiles and read neither field.
+BENCH_CHIP = TransformerConfig(
+    num_layers=10,
+    embed_dim=1536,
+    num_heads=12,
+    num_kv_heads=12,
+    head_dim=128,
+    mlp_dim=6144,
+    max_seq_len=2048,
+    attention_impl="flash",
+    loss_chunks=32,
+    flash_block_q=1024,
+    flash_block_k=512,
+)
 
 # test config: tiny but structurally identical (GQA, two layers)
 TINY = TransformerConfig(
@@ -91,6 +138,6 @@ TINY = TransformerConfig(
     param_dtype="float32",
 )
 
-PRESETS = {"llama2-7b": LLAMA2_7B, "tiny": TINY}
+PRESETS = {"llama2-7b": LLAMA2_7B, "bench-chip": BENCH_CHIP, "tiny": TINY}
 
-__all__ = ["LLAMA2_7B", "PRESETS", "TINY", "TransformerConfig"]
+__all__ = ["BENCH_CHIP", "LLAMA2_7B", "PRESETS", "TINY", "TransformerConfig"]

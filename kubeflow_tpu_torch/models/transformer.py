@@ -1,12 +1,17 @@
 """Llama-family decoder in PyTorch: the port of kubeflow_tpu/models/
-transformer.py for the serving path.
+transformer.py for the serving and training paths.
 
 - Parameters keep the reference's names and layouts, so the flax param
   tree loads leaf for leaf (models/convert.py): dense kernels are
   [contract..., features...] (q/k/v [D, H, Dh], out [H, Dh, D], the fused
   qkv [D, H+2kvH, Dh] and gate_up [D, 2, M]), norms carry an fp32
   `scale`, the embedding table is `embed.embedding` [V, D].
-- Layers are an nn.ModuleList run by a Python loop: no scan, no remat.
+- Layers are an nn.ModuleList run by a Python loop (no scan).  With
+  cfg.remat each layer runs under torch.utils.checkpoint when gradients
+  are on, per cfg.remat_policy (`REMAT_POLICIES`).
+- Training attention goes through `ops.attention.attention` with
+  cfg.attention_impl ("flash" runs the Hopper kernels on the card).
+- `init_params` draws the reference's flax initializers.
 - Decode keeps a preallocated [B, kvH, max_seq_len, Dh] cache per layer
   (`KVCache`) and writes each call's keys and values into it in place;
   the reference threads the same cache through its steps functionally.
@@ -15,18 +20,41 @@ transformer.py for the serving path.
 
 from __future__ import annotations
 
+import functools
 from math import prod
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
-from ..ops.attention import decode_attention, xla_attention
+from ..ops.attention import attention, decode_attention
 from .configs import TransformerConfig
 from .quant import Int4Linear, Int8Linear, _as_tuple
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+# What each layer's checkpoint keeps across forward and backward (the
+# reference's _REMAT_POLICIES): the ops whose outputs are saved; every
+# other op of the layer is recomputed in the backward.
+#   nothing - save nothing (plain checkpoint);
+#   dots    - save the dense layers' 2-D matmuls (the reference's
+#             "dots with no batch dims": not the attention einsums);
+#   attn    - save the flash forward's outputs (the reference's
+#             checkpoint_name "attn_out"), so the recompute skips the
+#             flash kernel; the "xla" path has no such op and recomputes
+#             all;
+#   none    - no checkpoint.
+REMAT_POLICIES = {
+    "nothing": (),
+    "dots": (torch.ops.aten.mm.default,),
+    "attn": (torch.ops.kubeflow_tpu_torch.flash_fwd.default,),
+    "none": None,
+}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -156,11 +184,7 @@ class Attention(nn.Module):
             v_cache[:, :, cur:cur + q_len] = v.transpose(1, 2)
             out = decode_attention(q, k_cache, v_cache, q_offset=cur)
         else:
-            if cfg.attention_impl not in ("auto", "xla"):
-                raise NotImplementedError(
-                    f"attention_impl={cfg.attention_impl!r} is not ported "
-                    "yet; the port runs 'xla' attention")
-            out = xla_attention(q, k, v, causal=True)
+            out = attention(q, k, v, causal=True, impl=cfg.attention_impl)
         return self.out(out)
 
 
@@ -246,8 +270,20 @@ class Transformer(nn.Module):
     def run_stack(self, x: torch.Tensor, positions: torch.Tensor,
                   cache: Optional[KVCache] = None) -> torch.Tensor:
         if cache is None:
+            saved = REMAT_POLICIES[self.cfg.remat_policy]
+            remat = (self.cfg.remat and saved is not None
+                     and torch.is_grad_enabled())
             for layer in self.layers:
-                x = layer(x, positions)
+                if not remat:
+                    x = layer(x, positions)
+                elif not saved:
+                    x = checkpoint(layer, x, positions, use_reentrant=False)
+                else:
+                    x = checkpoint(
+                        layer, x, positions, use_reentrant=False,
+                        context_fn=functools.partial(
+                            create_selective_checkpoint_contexts,
+                            list(saved)))
             return x
         for i, layer in enumerate(self.layers):
             x = layer(x, positions, (cache.k[i], cache.v[i]), cache.index)
@@ -281,5 +317,34 @@ class Transformer(nn.Module):
         return self.head(x, return_hidden)
 
 
+# flax's lecun_normal draws from N(0, 1) truncated to [-2, 2] and divides
+# by this, the standard deviation of that truncated normal
+_TRUNC_STD = 0.87962566103423978
+
+
+def init_params(model: Transformer, generator: torch.Generator) -> None:
+    """Draw fresh weights in place, as the reference's flax initializers
+    do: dense kernels lecun_normal (a normal truncated at +-2 sigma with
+    sigma = sqrt(1 / fan_in) / 0.8796..., fan_in the product of the
+    contract dims, since flax's DenseGeneral flattens the kernel to
+    [prod(contract), prod(features)] first); the embedding N(0, 1); norm
+    scales ones.  `generator` lives on the model's device."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, DenseGeneral):
+                std = prod(mod.contract) ** -0.5 / _TRUNC_STD
+                nn.init.trunc_normal_(mod.kernel, 0.0, 1.0, -2.0, 2.0,
+                                      generator=generator)
+                mod.kernel.mul_(std)
+            elif isinstance(mod, Embed):
+                mod.embedding.normal_(0.0, 1.0, generator=generator)
+            elif isinstance(mod, RMSNorm):
+                mod.scale.fill_(1.0)
+            elif isinstance(mod, (Int8Linear, Int4Linear)):
+                raise ValueError("init_params draws float weights; "
+                                 "quantize a float model instead")
+
+
 __all__ = ["Attention", "DecoderLayer", "DenseGeneral", "KVCache", "MLP",
-           "RMSNorm", "Transformer", "rope", "torch_dtype"]
+           "REMAT_POLICIES", "RMSNorm", "Transformer", "init_params", "rope",
+           "torch_dtype"]

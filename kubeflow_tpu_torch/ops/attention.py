@@ -1,4 +1,5 @@
-"""Attention for the port: the einsum reference and KV-cache decode.
+"""Attention for the port: the dispatch, the einsum reference, flash
+attention and KV-cache decode.
 
 Shapes follow the reference package's [batch, seq, heads, head_dim]
 convention; the decode cache is [batch, kv_heads, seq, head_dim], the
@@ -6,8 +7,10 @@ layout the decode products consume directly.  Scores are computed and
 soft-maxed in fp32 and the probabilities are cast to v's dtype before
 the PV product, as in kubeflow_tpu/ops/attention.py.
 
-The reference's flash and ring paths are not ported yet; the decoder's
-non-decode branch runs `xla_attention` only.
+`attention()` picks between "xla" (`xla_attention`, the einsum reference)
+and "flash" (`ops/flash_attention.py`: the hand-written Hopper kernels on
+a CUDA tensor, their plain versions on a CPU tensor).  Ring attention is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from .flash_attention import flash_attention, unsupported
 
 
 def causal_mask_bias(q_len: int, kv_len: int, q_offset: int = 0,
@@ -76,4 +81,39 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(batch, q_len, num_heads, head_dim)
 
 
-__all__ = ["causal_mask_bias", "decode_attention", "xla_attention"]
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, impl: str = "auto",
+              softmax_scale: Optional[float] = None,
+              q_offset: int = 0) -> torch.Tensor:
+    """Dispatch, as the reference's `attention()` does on its TPU.
+
+    - "auto": flash on a CUDA tensor when the kernels take the shape
+      (seq a multiple of 128, q_len == kv_len, a head dim they are built
+      for, bf16) and there is no q_offset; "xla" otherwise, the CPU
+      included;
+    - "flash": the kernels on a CUDA tensor, raising on a shape they do
+      not take (never a quiet fallback); the plain version on a CPU
+      tensor;
+    - "xla": the einsum reference.
+
+    The reference's flash tile sizes (`flash_block_q`/`flash_block_k` of
+    the config) are TPU VMEM tiles; nothing in the port reads them: the
+    kernels pick their own tiles."""
+    if impl == "auto":
+        seq_ok = q.shape[1] % 128 == 0 and k.shape[1] % 128 == 0
+        impl = "flash" if (q.is_cuda and seq_ok and not q_offset
+                           and unsupported(q, k, v) is None) else "xla"
+    if impl == "flash":
+        if q_offset:
+            raise ValueError("flash attention path has no q_offset support")
+        return flash_attention(q, k, v, softmax_scale, causal)
+    if impl == "xla":
+        return xla_attention(q, k, v, causal=causal, q_offset=q_offset,
+                             softmax_scale=softmax_scale)
+    if impl == "ring":
+        raise NotImplementedError("ring attention is not ported yet")
+    raise ValueError(f"unknown attention impl {impl!r}")
+
+
+__all__ = ["attention", "causal_mask_bias", "decode_attention",
+           "xla_attention"]

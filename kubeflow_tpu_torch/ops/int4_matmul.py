@@ -8,7 +8,7 @@ per column, `scales[K/64, 1, N]` (models/quant.py's layout).
 
 - On a CUDA tensor it launches the hand-written sm_90a kernel
   (`csrc/int4_matmul.cu`), built with nvcc at first use into
-  `build/kernels/` and bound through ctypes.  A failed build or launch
+  `build/kernels/` and bound through ctypes (`ops/_build.py`).  A failed build or launch
   raises; nothing falls back.
 - On a CPU tensor it runs `int4_matmul_reference`, the plain version.
 
@@ -20,20 +20,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from . import _build
+
 GROUP = 64  # contract rows per scale (models.quant.INT4_GROUP)
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "int4_matmul.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SOURCE = _build.CSRC / "int4_matmul.cu"
 
 launches = 0  # kernel launches since import (or since a caller reset it)
 
@@ -119,41 +113,9 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor,
     return out
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = Path(home) / "bin" / "nvcc"
-    if candidate.exists():
-        return str(candidate)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
-                           "/usr/local/cuda/bin and PATH)")
-    return found
-
-
-def build() -> tuple[Path, str]:
-    """Compile csrc/int4_matmul.cu into build/kernels/ unless a library of
-    the same source is there; returns (library path, compiler output)."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"int4_matmul-{digest}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent build sees all or none
-    return lib, proc.stdout + proc.stderr
-
-
 @functools.cache
 def _library() -> ctypes.CDLL:
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
+    lib = _build.load(SOURCE)
     fn = lib.int4_matmul_bf16
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
         + [ctypes.c_void_p]
@@ -161,5 +123,5 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-__all__ = ["GROUP", "build", "int4_matmul", "int4_matmul_reference",
+__all__ = ["GROUP", "SOURCE", "int4_matmul", "int4_matmul_reference",
            "unpack_int4"]

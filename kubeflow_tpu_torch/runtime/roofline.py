@@ -1,10 +1,10 @@
-"""Analytic decode roofline for NVIDIA cards.
+"""Analytic roofline for NVIDIA cards: decode and training steps.
 
-The port's copy of the decode side of kubeflow_tpu/runtime/roofline.py:
-the bytes and FLOPs one single-token decode step needs at the least, and
-the floors they imply on a card.  Peaks come from `GPU_PEAKS`, keyed by
-`torch.cuda.get_device_name()`; a card missing from the table gives no
-floor (None), never a guess.
+The port's copy of kubeflow_tpu/runtime/roofline.py: the bytes and FLOPs
+one single-token decode step or one training step needs at the least,
+the floors they imply on a card, and the MFU definition.  Peaks come from
+`GPU_PEAKS`, keyed by `torch.cuda.get_device_name()`; a card missing from
+the table gives no floor and no MFU (None), never a guess.
 """
 
 from __future__ import annotations
@@ -34,6 +34,10 @@ DTYPE_BYTES = {
 }
 
 
+# fp32 Adam moments (mu and nu), each read and written once per step
+_ADAM_MOMENT_BYTES = 2 * 2 * 4.0
+
+
 def dtype_bytes(name: str, default: float = 2.0) -> float:
     return DTYPE_BYTES.get(name, default)
 
@@ -45,6 +49,26 @@ def matmul_params(config) -> float:
     if not config.tie_embeddings:
         p -= config.vocab_size * config.embed_dim
     return p
+
+
+def train_step_flops(config, batch: int, seq_len: int) -> float:
+    """Fwd+bwd matmul FLOPs per training step, the MFU numerator: one
+    definition with `TransformerConfig.flops_per_token`."""
+    return config.flops_per_token(seq_len) * batch * seq_len
+
+
+def train_step_hbm_bytes(config, batch: int, seq_len: int) -> float:
+    """First-order device-memory traffic per training step: every
+    parameter's compute copy read by forward and backward, the fp32
+    master read and written by the optimizer, both Adam moments read and
+    written, and the remat stash (one [B, S, D] residual per layer,
+    written by the forward and read back by the backward).  Attention
+    score traffic rides on top of this floor."""
+    ab = dtype_bytes(config.dtype)
+    pb = dtype_bytes(config.param_dtype, 4.0)
+    weights = config.num_params * (2 * ab + 2 * pb + _ADAM_MOMENT_BYTES)
+    stash = 2.0 * batch * seq_len * config.embed_dim * config.num_layers * ab
+    return weights + stash
 
 
 def decode_weight_stream_bytes(config) -> float:
@@ -112,6 +136,15 @@ class RooflineEstimate:
         return ("compute" if self.compute_floor_s >= self.memory_floor_s
                 else "memory")
 
+    def roofline_fraction(self, step_time_s: float) -> Optional[float]:
+        """Floor / measured: 1.0 runs at the floor; above 1.0 the
+        first-order model under-counts the workload (not clamped)."""
+        if self.peak is None:
+            return None
+        if step_time_s <= 0:
+            return 0.0
+        return self.step_floor_s / step_time_s
+
     @property
     def tokens_per_s_ceiling(self) -> Optional[float]:
         floor = self.step_floor_s
@@ -133,6 +166,33 @@ class RooflineEstimate:
         }
 
 
+def mfu_from_flops(tokens_per_second: float, flops_per_token: float,
+                   num_chips: int, accelerator: str) -> Optional[float]:
+    """Achieved fraction of the cards' dense bf16 peak; None for a card
+    not in GPU_PEAKS.  Every MFU the port reports comes from here."""
+    peak = GPU_PEAKS.get(accelerator)
+    if peak is None:
+        return None
+    return (tokens_per_second * flops_per_token
+            / (peak.bf16_tflops * 1e12 * num_chips))
+
+
+def mfu(tokens_per_second: float, config, seq_len: int, num_chips: int,
+        accelerator: str) -> Optional[float]:
+    return mfu_from_flops(tokens_per_second, config.flops_per_token(seq_len),
+                          num_chips, accelerator)
+
+
+def train_estimate(config, batch: int, seq_len: int, accelerator: str,
+                   num_chips: int = 1) -> RooflineEstimate:
+    """One training step of `batch` x `seq_len` tokens."""
+    return RooflineEstimate(
+        mode="train", accelerator=accelerator, num_chips=num_chips,
+        flops=train_step_flops(config, batch, seq_len),
+        hbm_bytes=train_step_hbm_bytes(config, batch, seq_len),
+        tokens=batch * seq_len)
+
+
 def decode_estimate(config, batch: int, accelerator: str,
                     num_chips: int = 1,
                     param_bytes: float = 0.0) -> RooflineEstimate:
@@ -147,4 +207,6 @@ def decode_estimate(config, batch: int, accelerator: str,
 
 __all__ = ["DTYPE_BYTES", "GPU_PEAKS", "GpuPeak", "RooflineEstimate",
            "decode_estimate", "decode_kv_bytes", "decode_step_flops",
-           "decode_weight_stream_bytes", "dtype_bytes", "matmul_params"]
+           "decode_weight_stream_bytes", "dtype_bytes", "matmul_params",
+           "mfu", "mfu_from_flops", "train_estimate", "train_step_flops",
+           "train_step_hbm_bytes"]

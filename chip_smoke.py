@@ -9,7 +9,9 @@ non-zero without its result line):
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions; TF32 off, so fp32 products are full fp32;
 2. build: compile csrc/int4_matmul.cu and csrc/flash_attention.cu with
-   nvcc from this checkout, one nvcc each, at once;
+   nvcc from this checkout, one nvcc each, at once; ptxas's registers and
+   spills for each kernel, and the Hopper flash kernels (forward, dK/dV)
+   must not spill: a spill there also serialises their wgmma;
 3. kernel: the int4 dequant-matmul kernel against its plain version on the
    card at the four shapes of ci/int4_kernel_check.py and the ten shapes
    of Llama-2-7B serving (decode M=16 and prefill M=2048), with
@@ -33,9 +35,12 @@ non-zero without its result line):
    Free-running greedy agreement is printed beside it: on a random
    model one early flip changes the rest of a sequence, so it is no gate;
 5. flash: the three flash-attention kernels (forward, dK/dV, dQ) against
-   their plain versions at the three shapes of ci/flash_numerics.py and
-   the training step's (40, 2048, 12, 12, 128), causal, N(0, 1) bf16
-   inputs and cotangent.  The plain backward starts from the plain
+   their plain versions at the three shapes of ci/flash_numerics.py, three
+   shapes the kernels' tiles must handle (head dim 64 with GQA; S = 320,
+   which leaves half of the last 128-row tile past the end; causal=False)
+   and the training step's (40, 2048, 12, 12, 128), N(0, 1) bf16 inputs
+   and cotangent; each case's causal flag goes to the kernels, the plain
+   chain and SDPA alike.  The plain backward starts from the plain
    forward's lse and di = rowsum(dO * plain O), never from the kernels'.
    Gates, for each of o, dq, dk and dv: max abs error <= 3e-2 forward and
    <= 6e-2 for the gradients (ci/flash_numerics.py's limits), max abs
@@ -68,6 +73,7 @@ from __future__ import annotations
 import functools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -94,11 +100,15 @@ LLAMA_LAYERS = {"qkv": (4096, 12288), "out": (4096, 4096),
                 "lm_head": (4096, 32000)}
 CHECK_SHAPES = [(16, 1536, 6144), (16, 6144, 1536), (16, 1536, 32000),
                 (128, 1536, 1536)]   # ci/int4_kernel_check.py
-# (batch, seq, heads, kv heads, head dim): ci/flash_numerics.py's SHAPES,
-# then the BENCH_CHIP training step's
-FLASH_SHAPES = [(2, 2048, 12, 12, 128), (2, 1024, 16, 4, 128),
-                (2, 256, 4, 4, 128)]
+# (batch, seq, heads, kv heads, head dim, causal): ci/flash_numerics.py's
+# SHAPES, then head dim 64 with GQA, a sequence that ends half way into a
+# 128-row tile, and the non-causal case; the BENCH_CHIP training step's
+# shape (TRAIN_CASE) comes last
+FLASH_SHAPES = [(2, 2048, 12, 12, 128, True), (2, 1024, 16, 4, 128, True),
+                (2, 256, 4, 4, 128, True), (2, 1024, 8, 2, 64, True),
+                (2, 320, 4, 4, 128, True), (2, 256, 4, 4, 128, False)]
 TRAIN_SHAPE = (40, 2048, 12, 12, 128)
+TRAIN_CASE = TRAIN_SHAPE + (True,)
 TRAIN_BATCH, COMPARE_BATCH = 40, 8
 FLASH_REPLACES = {
     "flash_fwd": "kubeflow_tpu/ops/attention.py:173 -> jax/experimental/"
@@ -120,6 +130,34 @@ def smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return proc.stdout.strip().splitlines()[0]
+
+
+def kernel_name(mangled: str):
+    """"flash_fwd_kernel<128>" from a mangled name: the identifier that a
+    length prefix announces and that ends in _kernel, with its int
+    template argument."""
+    for run in re.finditer(r"\d+", mangled):
+        for i in range(len(run[0])):
+            n = int(run[0][i:])
+            ident = mangled[run.end():run.end() + n]
+            if len(ident) == n and ident.endswith("_kernel"):
+                arg = re.match(r"ILi(\d+)E", mangled[run.end() + n:])
+                return ident + (f"<{arg[1]}>" if arg else "")
+    return None
+
+
+def ptxas_by_kernel(log: str) -> dict:
+    """ptxas -v's register and spill lines, keyed by kernel name; a
+    kernel's "Used N registers" is its count at launch, before any
+    setmaxnreg."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = kernel_name(line.split("Function properties for")[1])
+        elif name and ("spill" in line or "registers" in line):
+            out.setdefault(name, []).append(
+                line.replace("ptxas info    :", "").strip())
+    return {key: "; ".join(lines) for key, lines in out.items()}
 
 
 def timed_ms(fn, flush, reps: int = REPS) -> float:
@@ -402,16 +440,16 @@ def slice_phase(gen, device, device_name) -> dict:
     return res
 
 
-def flash_bounds(shape, peak) -> dict:
-    """Least time of each flash kernel at `shape`: the causal half of its
-    products (forward 2, dK/dV 4, dQ 3, each 2*B*H*S^2*D/2 FLOPs) at the
+def flash_bounds(shape, causal: bool, peak) -> dict:
+    """Least time of each flash kernel at `shape`: its products (forward 2,
+    dK/dV 4, dQ 3, each 2*B*H*S^2*D FLOPs, halved when causal) at the
     card's bf16 peak, or its bytes (each input read once, each output
     written once) at the memory rate, whichever is larger."""
     batch, seq, heads, kv_heads, dim = shape
     q_bytes = batch * seq * heads * dim * 2
     kv_bytes = batch * seq * kv_heads * dim * 2
     row_bytes = batch * heads * seq * 4          # lse or di, fp32
-    product = 2.0 * batch * heads * seq * seq * dim / 2
+    product = 2.0 * batch * heads * seq * seq * dim / (2 if causal else 1)
     work = {
         "flash_fwd": (2 * product, 2 * q_bytes + 2 * kv_bytes + row_bytes),
         "flash_bwd_dkv": (4 * product,
@@ -446,15 +484,18 @@ def _errors(got, ref) -> dict:
 
 
 def flash_phase(gen, device, peak, flush) -> dict:
-    """Each flash kernel against its plain version at every shape; returns
-    {shape: {kernel name: result}}."""
+    """Each flash kernel against its plain version at every case; returns
+    {(batch, seq, heads, kv heads, head dim, causal): {kernel name:
+    result}}."""
     import torch
     import torch.nn.functional as F
 
     from kubeflow_tpu_torch.ops import flash_attention as fa
 
     results, failed = {}, []
-    for shape in FLASH_SHAPES + [TRAIN_SHAPE]:
+    for case in FLASH_SHAPES + [TRAIN_CASE]:
+        *shape, causal = case
+        shape = tuple(shape)
         batch, seq, heads, kv_heads, dim = shape
         scale = dim ** -0.5
         q = torch.randn((batch, seq, heads, dim), generator=gen,
@@ -465,12 +506,12 @@ def flash_phase(gen, device, peak, flush) -> dict:
         do = torch.randn((batch, seq, heads, dim), generator=gen,
                          device=device).to(torch.bfloat16)
 
-        o, lse = fa.flash_forward(q, k, v, scale)
+        o, lse = fa.flash_forward(q, k, v, scale, causal)
         di = fa.row_dot(o, do)
-        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, di, scale)
-        dq = fa.flash_bwd_dq(q, k, v, do, lse, di, scale)
-        dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse, di, scale)
-        dq2 = fa.flash_bwd_dq(q, k, v, do, lse, di, scale)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, di, scale, causal)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, di, scale, causal)
+        dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse, di, scale, causal)
+        dq2 = fa.flash_bwd_dq(q, k, v, do, lse, di, scale, causal)
         torch.cuda.synchronize()
         repeat = (torch.equal(dq, dq2) and torch.equal(dk, dk2)
                   and torch.equal(dv, dv2))
@@ -479,15 +520,17 @@ def flash_phase(gen, device, peak, flush) -> dict:
                      for t in (o, lse, dq, dk, dv))
 
         # the plain chain end to end: its own lse and di feed its backward
-        ro, rlse = fa.flash_forward_reference(q, k, v, scale)
+        ro, rlse = fa.flash_forward_reference(q, k, v, scale, causal)
         rdi = fa.row_dot(ro, do)
         errs = {"o": _errors(o, ro)}
         lse_err = (lse - rlse).abs().max().item()
         del ro
-        rdk, rdv = fa.flash_bwd_dkv_reference(q, k, v, do, rlse, rdi, scale)
+        rdk, rdv = fa.flash_bwd_dkv_reference(q, k, v, do, rlse, rdi, scale,
+                                              causal)
         errs.update(dk=_errors(dk, rdk), dv=_errors(dv, rdv))
         del rdk, rdv
-        rdq = fa.flash_bwd_dq_reference(q, k, v, do, rlse, rdi, scale)
+        rdq = fa.flash_bwd_dq_reference(q, k, v, do, rlse, rdi, scale,
+                                        causal)
         errs["dq"] = _errors(dq, rdq)
         del rdq, rlse, rdi
         outputs = {"flash_fwd": ("o",), "flash_bwd_dkv": ("dk", "dv"),
@@ -500,7 +543,7 @@ def flash_phase(gen, device, peak, flush) -> dict:
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                       for t in (q, k, v))
         sdpa = functools.partial(F.scaled_dot_product_attention,
-                                 is_causal=True,
+                                 is_causal=causal,
                                  enable_gqa=kv_heads != heads)
         lo = sdpa(qt, kt, vt)
         lgrads = torch.autograd.grad(lo, (qt, kt, vt), do.transpose(1, 2),
@@ -518,22 +561,24 @@ def flash_phase(gen, device, peak, flush) -> dict:
 
         times = {
             "flash_fwd": (
-                timed_ms(lambda: fa.flash_forward(q, k, v, scale), flush),
-                timed_ms(lambda: fa.flash_forward_reference(q, k, v, scale),
+                timed_ms(lambda: fa.flash_forward(q, k, v, scale, causal),
+                         flush),
+                timed_ms(lambda: fa.flash_forward_reference(q, k, v, scale,
+                                                            causal),
                          flush, PLAIN_REPS),
                 sdpa_fwd_ms),
             "flash_bwd_dkv": (
                 timed_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, di,
-                                                  scale), flush),
+                                                  scale, causal), flush),
                 timed_ms(lambda: fa.flash_bwd_dkv_reference(
-                    q, k, v, do, lse, di, scale), flush, PLAIN_REPS),
+                    q, k, v, do, lse, di, scale, causal), flush, PLAIN_REPS),
                 sdpa_bwd_ms),
             # SDPA's backward is timed once, on the dK/dV entry
             "flash_bwd_dq": (
                 timed_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, di,
-                                                 scale), flush),
+                                                 scale, causal), flush),
                 timed_ms(lambda: fa.flash_bwd_dq_reference(
-                    q, k, v, do, lse, di, scale), flush, PLAIN_REPS),
+                    q, k, v, do, lse, di, scale, causal), flush, PLAIN_REPS),
                 None),
         }
         library_calls = {
@@ -544,8 +589,8 @@ def flash_phase(gen, device, peak, flush) -> dict:
         }
         limits = {"flash_fwd": FLASH_FWD_TOL, "flash_bwd_dkv": FLASH_GRAD_TOL,
                   "flash_bwd_dq": FLASH_GRAD_TOL}
-        bounds = flash_bounds(shape, peak)
-        results[shape] = {}
+        bounds = flash_bounds(shape, causal, peak)
+        results[case] = {}
         for name, (ms, plain_ms, library_ms) in times.items():
             e = err[name]
             ok = (finite and repeat and e["max_abs"] <= limits[name]
@@ -553,6 +598,7 @@ def flash_phase(gen, device, peak, flush) -> dict:
                   and e["rms_rel"] <= FLASH_RMS_REL_TOL)
             res = {
                 "phase": "flash", "kernel": name, "shape": list(shape),
+                "causal": causal,
                 "max_abs_err": e["max_abs"], "limit": limits[name],
                 "max_rel_err": e["max_rel"], "max_rel_limit":
                 FLASH_MAX_REL_TOL, "rms_rel_err": e["rms_rel"],
@@ -573,9 +619,9 @@ def flash_phase(gen, device, peak, flush) -> dict:
             res["sdpa_max_abs_err"] = {t: sdpa_err[t] for t in outputs[name]}
             res["ok"] = ok
             emit(res)
-            results[shape][name] = res
+            results[case][name] = res
             if not ok:
-                failed.append((shape, name))
+                failed.append((case, name))
         del q, k, v, do, o, lse, di, dq, dk, dv
         torch.cuda.empty_cache()
     if failed:
@@ -697,7 +743,7 @@ def train_phase(device, device_name, flash_results, flush) -> dict:
     del sgd, state
     losses += sgd_losses + [loss_k.item(), loss_p.item()]
 
-    main = flash_results[TRAIN_SHAPE]
+    main = flash_results[TRAIN_CASE]
     flash_ms = sum(main[name]["ms"] * launches[key] for name, key in
                    (("flash_fwd", "fwd"), ("flash_bwd_dkv", "dkv"),
                     ("flash_bwd_dq", "dq")))
@@ -752,7 +798,7 @@ def flash_kernel_lines(flash_results, launches: dict) -> list:
     """The kernels line's flash entries: the training-shape medians times
     the main path's launches per step."""
     entries = []
-    main = flash_results[TRAIN_SHAPE]
+    main = flash_results[TRAIN_CASE]
     for name, key in (("flash_fwd", "fwd"), ("flash_bwd_dkv", "dkv"),
                       ("flash_bwd_dq", "dq")):
         r, n = main[name], launches[key]
@@ -760,8 +806,8 @@ def flash_kernel_lines(flash_results, launches: dict) -> list:
             "name": name, "route": "cuda",
             "source": "kubeflow_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_REPLACES[name], "launches": n,
-            "max_abs_err": max(flash_results[shape][name]["max_abs_err"]
-                               for shape in flash_results),
+            "max_abs_err": max(flash_results[case][name]["max_abs_err"]
+                               for case in flash_results),
             "ms": r["ms"] * n, "plain_ms": r["plain_ms"] * n,
             "bound_ms": None if r["bound_ms"] is None else r["bound_ms"] * n,
             "bound_by": r["bound_by"],
@@ -834,10 +880,15 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build_all([i4.SOURCE, fa.SOURCE])
     build_s = time.perf_counter() - t0
+    ptxas = ptxas_by_kernel("\n".join(log for _, log in built))
     emit({"phase": "build", "build_s": build_s,
           "libraries": [str(lib.relative_to(ROOT)) for lib, _ in built],
-          "ptxas": [ln.strip() for _, log in built for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+          "ptxas": ptxas})
+    spilled = [name for name, info in ptxas.items()
+               if name.startswith(("flash_fwd_kernel", "flash_bwd_dkv_kernel"))
+               and re.search(r"\b(\d+) bytes spill stores", info)[1] != "0"]
+    if spilled:
+        raise RuntimeError(f"the Hopper flash kernels spill: {spilled}")
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=device)

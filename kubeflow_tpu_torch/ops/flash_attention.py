@@ -280,7 +280,8 @@ def flash_backward(q, k, v, o, lse, do, scale: float, causal: bool = True):
 
 def _raise_on(rc: int, kernel: str, q_shape, k_shape) -> None:
     if rc != 0:
-        what = "bad shape" if rc == -1 else f"CUDA error {rc}"
+        what = {-1: "bad shape", -2: "TMA descriptor not encoded"}.get(
+            rc, f"CUDA error {rc}")
         raise RuntimeError(f"{kernel} launch failed ({what}) at q "
                            f"{tuple(q_shape)}, k {tuple(k_shape)}")
 

@@ -57,32 +57,41 @@ def _max_err(got: torch.Tensor, want) -> float:
                                - np.asarray(want, np.float32))))
 
 
-@pytest.mark.parametrize("shape", [(1, 256, 2, 1, 128), (1, 256, 4, 4, 64)])
-def test_plain_versions_match_interpreted_pallas_kernels(shape):
+@pytest.mark.parametrize("shape,causal", [
+    pytest.param((1, 256, 2, 1, 128), True, id="shape0"),
+    pytest.param((1, 256, 4, 4, 64), True, id="shape1"),
+    pytest.param((1, 256, 2, 1, 128), False, id="noncausal"),
+    pytest.param((1, 256, 4, 2, 64), True, id="d64-gqa"),
+])
+def test_plain_versions_match_interpreted_pallas_kernels(shape, causal):
     """bf16: the plain forward and backward against the Pallas forward,
-    dK/dV and dQ kernels (jax.vjp of the reference's flash_attention)."""
+    dK/dV and dQ kernels (jax.vjp of the reference's flash_attention),
+    causal or not, head dim 128 or 64, with and without GQA: the plain
+    versions are what the CUDA kernels are held to on the card."""
     q, k, v, g = _inputs(shape, seed=shape[2], dtype=jnp.bfloat16)
     with pltpu.force_tpu_interpret_mode():
-        out, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, causal=True),
-                           q, k, v)
+        out, vjp = jax.vjp(
+            lambda a, b, c: jax_flash(a, b, c, causal=causal), q, k, v)
         grads = vjp(g)
     tq, tk, tv, tg = (to_tensor(np.asarray(x)) for x in (q, k, v, g))
     scale = shape[-1] ** -0.5
-    o, lse = fa.flash_forward_reference(tq, tk, tv, scale)
+    o, lse = fa.flash_forward_reference(tq, tk, tv, scale, causal)
     assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
     assert lse.shape == (shape[0], shape[2], shape[1])
     assert _max_err(o, out) <= FWD_TOL
-    dq, dk, dv = fa.flash_backward_reference(tq, tk, tv, o, lse, tg, scale)
+    dq, dk, dv = fa.flash_backward_reference(tq, tk, tv, o, lse, tg, scale,
+                                             causal)
     for got, want in zip((dq, dk, dv), grads):
         assert got.dtype == torch.bfloat16
         assert tuple(got.shape) == want.shape
         assert _max_err(got, want) <= GRAD_TOL
 
 
-@pytest.mark.parametrize("seq", [64, 128])
+@pytest.mark.parametrize("seq", [64, 128, 192])
 def test_plain_versions_match_xla_attention_fp32(seq):
     """fp32 at TINY's widths (4 query heads, 2 kv heads, head dim 16): the
-    same function as xla_attention and its vjp, to 1e-5."""
+    same function as xla_attention and its vjp, to 1e-5; 192 is a length
+    the kernels' 128-row tiles cover with half a tile past the end."""
     shape = (2, seq, TINY.num_heads, TINY.num_kv_heads, TINY.head_dim)
     q, k, v, g = _inputs(shape, seed=seq, dtype=jnp.float32)
     out, vjp = jax.vjp(lambda a, b, c: jax_xla(a, b, c, causal=True),
@@ -173,12 +182,18 @@ class TestDispatch:
         ((1, 100, 2, 2, 128), "multiple of 64"),
         ((1, 128, 2, 2, 96), "head dim"),
         ((1, 128, 3, 2, 128), "kv heads"),
+        ((1, 320, 2, 2, 128), None),
     ])
     def test_kernel_shape_rules(self, shape, reason):
-        """What the CUDA kernels refuse, checked before any launch."""
+        """What the CUDA kernels refuse, checked before any launch.  The
+        sequence need only be a multiple of 64: at 320 the forward's and
+        dK/dV's last 128-row tile runs half past the end, and is taken."""
         batch, seq, heads, kv_heads, dim = shape
         q = torch.zeros((batch, seq, heads, dim), dtype=torch.bfloat16)
         k = torch.zeros((batch, seq, kv_heads, dim), dtype=torch.bfloat16)
+        if reason is None:
+            assert fa.unsupported(q, k, k) is None
+            return
         assert reason in fa.unsupported(q, k, k)
         with pytest.raises(ValueError, match=reason):
             fa.flash_forward(q, k, k, 1.0)

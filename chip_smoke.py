@@ -10,19 +10,25 @@ non-zero without its result line):
    CUDA versions; TF32 off, so fp32 products are full fp32;
 2. build: compile csrc/int4_matmul.cu and csrc/flash_attention.cu with
    nvcc from this checkout, one nvcc each, at once; ptxas's registers and
-   spills for each kernel, and the Hopper flash kernels (forward, dK/dV)
-   must not spill: a spill there also serialises their wgmma;
+   spills for each kernel, and the HGMMA (wgmma) instructions of each in
+   `cuobjdump -sass`.  Every kernel (int4, flash forward, dK/dV and dQ)
+   must show 0 bytes of spill stores, since a spill there also serialises
+   its wgmma, and at least one HGMMA: all four run on the tensor cores;
 3. kernel: the int4 dequant-matmul kernel against its plain version on the
    card at the four shapes of ci/int4_kernel_check.py and the ten shapes
    of Llama-2-7B serving (decode M=16 and prefill M=2048), with
    max|got-ref| / max|ref| < 1e-2 (same rounding points, another
-   summation order); CUDA-event medians of the kernel, the plain version
-   and, as a yardstick that reads 4x the weight bytes, torch.matmul on
-   the dequantized bf16 weight, each launch with a cold L2 cache.  The
-   library figure is torch._weight_int4pack_mm, PyTorch's tensor-core
-   int4 GEMM, on the same weights repacked once into its layout; it must
-   agree with the plain version as the kernel must.  Only this script
-   calls it;
+   summation order), and a second call repeats every bit; CUDA-event
+   medians of the kernel, the plain version and, as a yardstick that
+   reads 4x the weight bytes, torch.matmul on the dequantized bf16
+   weight, each launch with a cold L2 cache.  The library figure is
+   torch._weight_int4pack_mm, PyTorch's tensor-core int4 GEMM, on the
+   same weights repacked once into its layout; it must agree with the
+   plain version as the kernel must.  Only this script calls it.  Then
+   three edge shapes the kernel's tiles must handle, drawn from a
+   generator of their own and kept out of the path totals: one token
+   (1, 4096, 4096), M, K and N each ragged against their tiles
+   (17, 1600, 1552), and a ragged prefill tile (300, 4096, 4096);
 4. slice: Llama-2-7B at full width and depth, every leaf N(0, 0.02^2)
    from a seeded generator on the card (ci/llama7b_decode.py's scheme),
    int4 kernels quantized there; `generate` at batch 16, prompt 128, 128
@@ -100,6 +106,13 @@ LLAMA_LAYERS = {"qkv": (4096, 12288), "out": (4096, 4096),
                 "lm_head": (4096, 32000)}
 CHECK_SHAPES = [(16, 1536, 6144), (16, 6144, 1536), (16, 1536, 32000),
                 (128, 1536, 1536)]   # ci/int4_kernel_check.py
+# one token; M, K (K % 128 = 64) and N (not a multiple of 64) ragged
+# against the tiles; a prefill whose last token tile is ragged
+EDGE_SHAPES = [(1, 4096, 4096), (17, 1600, 1552), (300, 4096, 4096)]
+DECODE_M, PREFILL_M = 16, 2048
+# kernels that must show HGMMA instructions and no spill stores
+TENSOR_CORE_KERNELS = ("int4_matmul_kernel", "flash_fwd_kernel",
+                       "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
 # (batch, seq, heads, kv heads, head dim, causal): ci/flash_numerics.py's
 # SHAPES, then head dim 64 with GQA, a sequence that ends half way into a
 # 128-row tile, and the non-causal case; the BENCH_CHIP training step's
@@ -133,16 +146,19 @@ def smi_line() -> str:
 
 
 def kernel_name(mangled: str):
-    """"flash_fwd_kernel<128>" from a mangled name: the identifier that a
-    length prefix announces and that ends in _kernel, with its int
-    template argument."""
+    """"flash_fwd_kernel<128>" or "int4_matmul_kernel<16,1,8>" from a
+    mangled name: the identifier that a length prefix announces and that
+    ends in _kernel, with its int template arguments."""
     for run in re.finditer(r"\d+", mangled):
         for i in range(len(run[0])):
             n = int(run[0][i:])
             ident = mangled[run.end():run.end() + n]
             if len(ident) == n and ident.endswith("_kernel"):
-                arg = re.match(r"ILi(\d+)E", mangled[run.end() + n:])
-                return ident + (f"<{arg[1]}>" if arg else "")
+                args = re.match(r"I((?:Li-?\d+E)+)E", mangled[run.end() + n:])
+                if not args:
+                    return ident
+                return ident + "<" + ",".join(
+                    re.findall(r"Li(-?\d+)E", args[1])) + ">"
     return None
 
 
@@ -158,6 +174,27 @@ def ptxas_by_kernel(log: str) -> dict:
             out.setdefault(name, []).append(
                 line.replace("ptxas info    :", "").strip())
     return {key: "; ".join(lines) for key, lines in out.items()}
+
+
+def hgmma_by_kernel(libraries) -> dict:
+    """The HGMMA (wgmma) instructions of each kernel in the built
+    libraries' SASS, from cuobjdump -sass, keyed by kernel name."""
+    from kubeflow_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    counts, name = {}, None
+    for lib in libraries:
+        sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        for line in sass.splitlines():
+            found = re.search(r"Function : (\S+)", line)
+            if found:
+                name = kernel_name(found[1])
+                counts.setdefault(name, 0)
+            elif name and "HGMMA" in line:
+                counts[name] += 1
+    return counts
 
 
 def timed_ms(fn, flush, reps: int = REPS) -> float:
@@ -205,31 +242,37 @@ def int4pack_mm(packed, scales):
 
     k, n = 2 * packed.shape[0], packed.shape[1]
     q = (unpack_int4(packed) + 8).t().contiguous()
+    # inner K tiles of 16: 8 where K % 128 == 0 (every main-path shape),
+    # fewer where K is only a multiple of 64
     tiled = torch._convert_weight_to_int4pack(
-        ((q[:, 0::2] << 4) | q[:, 1::2]).to(torch.uint8), 8)
+        ((q[:, 0::2] << 4) | q[:, 1::2]).to(torch.uint8),
+        8 if k % 128 == 0 else 4)
     s = scales.reshape(k // GROUP, n)
     scale_zero = torch.stack([s, torch.zeros_like(s)], dim=-1).contiguous()
     return lambda x: torch._weight_int4pack_mm(x, tiled, GROUP, scale_zero)
 
 
-def kernel_phase(gen, device, peak, flush) -> dict:
-    """Kernel against plain version at every shape; returns per-shape
-    results keyed by (m, k, n)."""
+def kernel_phase(gen, edge_gen, device, peak, flush) -> dict:
+    """Kernel against plain version at every shape, the edge shapes drawn
+    from `edge_gen`; returns per-shape results keyed by (m, k, n)."""
     import torch
 
     from kubeflow_tpu_torch.models.quant import quantize_kernel_int4
     from kubeflow_tpu_torch.ops import int4_matmul as i4
 
-    shapes = CHECK_SHAPES + [(m, k, n) for m in (16, 2048)
-                             for k, n in LLAMA_LAYERS.values()]
+    shapes = [(gen, shape) for shape in CHECK_SHAPES + [
+        (m, k, n) for m in (DECODE_M, PREFILL_M)
+        for k, n in LLAMA_LAYERS.values()]]
+    shapes += [(edge_gen, shape) for shape in EDGE_SHAPES]
     results, failed = {}, []
-    for m, k, n in shapes:
-        w = torch.randn((k, n), generator=gen, device=device) * 0.05
+    for draw, (m, k, n) in shapes:
+        w = torch.randn((k, n), generator=draw, device=device) * 0.05
         q = quantize_kernel_int4(w.to(torch.bfloat16))
         packed, scales = q["kernel_q4"], q["kernel_scale"]
-        x = torch.randn((m, k), generator=gen, device=device
+        x = torch.randn((m, k), generator=draw, device=device
                         ).to(torch.bfloat16)
         got = i4.int4_matmul(x, packed, scales)
+        repeat = torch.equal(i4.int4_matmul(x, packed, scales), got)
         ref = i4.int4_matmul_reference(x, packed, scales)
         library = int4pack_mm(packed, scales)
         lib_got = library(x)
@@ -245,6 +288,10 @@ def kernel_phase(gen, device, peak, flush) -> dict:
         res = {
             "phase": "kernel", "kernel": "int4_matmul", "shape": [m, k, n],
             "max_rel_err": rel, "max_abs_err": diff, "finite": finite,
+            "second_call_same_bits": repeat,
+            "plan": i4.plan(m, k, n, torch.cuda.get_device_properties(
+                device).multi_processor_count)._asdict(),
+            "edge_shape": (m, k, n) in EDGE_SHAPES,
             "kernel_ms": timed_ms(lambda: i4.int4_matmul(x, packed, scales),
                                   flush),
             "plain_ms": timed_ms(
@@ -257,7 +304,8 @@ def kernel_phase(gen, device, peak, flush) -> dict:
                                        flush),
             "bf16_matmul_note": "yardstick: torch.matmul on the dequantized "
                                 "bf16 weight, 4x the weight bytes",
-            "ok": finite and rel < KERNEL_TOL and lib_rel < KERNEL_TOL,
+            "ok": (finite and repeat and rel < KERNEL_TOL
+                   and lib_rel < KERNEL_TOL),
         }
         emit(res)
         results[(m, k, n)] = res
@@ -267,7 +315,7 @@ def kernel_phase(gen, device, peak, flush) -> dict:
     if failed:
         raise RuntimeError(f"int4_matmul or the library call disagrees with "
                            f"the plain version (max_rel_err >= {KERNEL_TOL}) "
-                           f"at {failed}")
+                           f"or a second call differs at {failed}")
     return results
 
 
@@ -823,24 +871,18 @@ def flash_kernel_lines(flash_results, launches: dict) -> list:
     return entries
 
 
-def main_path_totals(results: dict, launches: int) -> dict:
-    """The kernel line: per-shape times weighted by the main path's
-    launches (prefill M=2048 once per layer, decode M=16 127 times)."""
-    counts = {}
-    for name, (k, n) in LLAMA_LAYERS.items():
-        per = 1 if name == "lm_head" else 32
-        counts[(2048, k, n)] = per
-        counts[(16, k, n)] = per * 127
-    if sum(counts.values()) != launches:
-        raise RuntimeError(f"main path launches {launches} do not match "
-                           f"the per-shape counts {counts}")
-    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+def weighted_totals(results: dict, counts: dict) -> dict:
+    """Per-shape medians times each shape's launches, summed: kernel,
+    plain version, bound, library and the bf16-matmul yardstick."""
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+             "bf16_matmul_ms": 0.0}
     by_bytes = 0.0
     for shape, count in counts.items():
         r = results[shape]
         total["ms"] += count * r["kernel_ms"]
         total["plain_ms"] += count * r["plain_ms"]
         total["library_ms"] += count * r["library_ms"]
+        total["bf16_matmul_ms"] += count * r["bf16_matmul_ms"]
         if r["bound_ms"] is None:
             total["bound_ms"] = None
         elif total["bound_ms"] is not None:
@@ -849,6 +891,26 @@ def main_path_totals(results: dict, launches: int) -> dict:
     bound_by = None if total["bound_ms"] is None else (
         "bytes" if by_bytes * 2 >= total["bound_ms"] else "operations")
     return {**total, "bound_by": bound_by}
+
+
+def main_path_totals(results: dict, launches: int) -> dict:
+    """The kernel line: per-shape times weighted by the main path's
+    launches (prefill M=2048 once per layer, decode M=16 127 times), and
+    the same for one decode step and one prefill."""
+    step, prefill = {}, {}
+    for name, (k, n) in LLAMA_LAYERS.items():
+        per = 1 if name == "lm_head" else 32
+        prefill[(PREFILL_M, k, n)] = per
+        step[(DECODE_M, k, n)] = per
+    counts = {**prefill, **{shape: 127 * c for shape, c in step.items()}}
+    if sum(counts.values()) != launches:
+        raise RuntimeError(f"main path launches {launches} do not match "
+                           f"the per-shape counts {counts}")
+    total = weighted_totals(results, counts)
+    bf16_ms = total.pop("bf16_matmul_ms")
+    return {**total, "bf16_matmul_ms_path": bf16_ms,
+            "decode_step": weighted_totals(results, step),
+            "prefill": weighted_totals(results, prefill)}
 
 
 def main() -> int:
@@ -881,19 +943,29 @@ def main() -> int:
     built = _build.build_all([i4.SOURCE, fa.SOURCE])
     build_s = time.perf_counter() - t0
     ptxas = ptxas_by_kernel("\n".join(log for _, log in built))
+    hgmma = hgmma_by_kernel([lib for lib, _ in built])
     emit({"phase": "build", "build_s": build_s,
           "libraries": [str(lib.relative_to(ROOT)) for lib, _ in built],
-          "ptxas": ptxas})
-    spilled = [name for name, info in ptxas.items()
-               if name.startswith(("flash_fwd_kernel", "flash_bwd_dkv_kernel"))
-               and re.search(r"\b(\d+) bytes spill stores", info)[1] != "0"]
-    if spilled:
-        raise RuntimeError(f"the Hopper flash kernels spill: {spilled}")
+          "ptxas": ptxas, "hgmma": hgmma})
+    ours = [name for name in ptxas if name.startswith(TENSOR_CORE_KERNELS)]
+    missing = [k for k in TENSOR_CORE_KERNELS
+               if not any(name.startswith(k) for name in ours)]
+    spilled = [name for name in ours if re.search(
+        r"\b(\d+) bytes spill stores", ptxas[name])[1] != "0"]
+    no_tensor_cores = [name for name in ours if not hgmma.get(name)]
+    if missing or spilled or no_tensor_cores:
+        raise RuntimeError(f"kernels missing from ptxas's report {missing}, "
+                           f"spilling {spilled} or without HGMMA "
+                           f"{no_tensor_cores}")
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=device)
     peak = GPU_PEAKS.get(device_name)
-    results = kernel_phase(gen, device, peak, flush)
+    # the edge shapes draw from their own generator, so the slice draws
+    # the same weights from gen as before
+    results = kernel_phase(
+        gen, torch.Generator(device=device).manual_seed(SEED + 2), device,
+        peak, flush)
     # its own generator, so the slice draws the same weights as before
     flash_results = flash_phase(
         torch.Generator(device=device).manual_seed(SEED + 1), device, peak,
@@ -906,13 +978,14 @@ def main() -> int:
     emit({"kernels": [{
         "name": "int4_matmul", "route": "cuda",
         "source": "kubeflow_tpu_torch/csrc/int4_matmul.cu",
-        "replaces": "kubeflow_tpu/ops/int4_matmul.py:86",
+        "replaces": "kubeflow_tpu/ops/int4_matmul.py:87",
         "launches": sl["int4_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in results.values()),
         "max_rel_err": max(r["max_rel_err"] for r in results.values()),
         **totals, "library_call": "torch._weight_int4pack_mm",
         "basis": "ms, plain_ms, bound_ms and library_ms sum the per-shape "
-                 "medians over the main path's launches",
+                 "medians over the main path's launches; decode_step and "
+                 "prefill over one decode step's and one prefill's",
     }] + flash_kernel_lines(flash_results, tr["flash_launches"])})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,

@@ -2,9 +2,10 @@
 
 Each `csrc/*.cu` file has a plain C interface and becomes one shared
 library in `build/kernels/`, named after its source and a digest of the
-source and the flags, so an edited source builds anew and an unchanged one
-is reused.  A failed build raises; nothing falls back.  `build_all`
-compiles several sources at once, one nvcc process each.
+source, the headers it may include (`csrc/*.cuh`) and the flags, so an
+edited source or header builds anew and an unchanged one is reused.  A
+failed build raises; nothing falls back.  `build_all` compiles several
+sources at once, one nvcc process each.
 """
 
 from __future__ import annotations
@@ -39,8 +40,10 @@ def _nvcc() -> str:
 def build(source: Path) -> tuple[Path, str]:
     """Compile `source` into build/kernels/ unless a library of the same
     source is there; returns (library path, compiler output)."""
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = source.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
     lib = BUILD_DIR / f"{source.stem}-{digest}.so"
     if lib.exists():
         return lib, ""

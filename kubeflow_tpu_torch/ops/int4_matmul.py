@@ -7,19 +7,25 @@ the sign-extended low nibble and row 2i+1 the high nibble of
 per column, `scales[K/64, 1, N]` (models/quant.py's layout).
 
 - On a CUDA tensor it launches the hand-written sm_90a kernel
-  (`csrc/int4_matmul.cu`), built with nvcc at first use into
-  `build/kernels/` and bound through ctypes (`ops/_build.py`).  A failed build or launch
+  (`csrc/int4_matmul.cu`: wgmma with the dequantized weights as the
+  register operand, TMA loads, split-K across blocks where the output
+  tiles alone leave SMs idle), built with nvcc at first use into
+  `build/kernels/` and bound through ctypes (`ops/_build.py`).  A shape
+  outside the kernel's contract, a failed build or a failed launch
   raises; nothing falls back.
 - On a CPU tensor it runs `int4_matmul_reference`, the plain version.
 
-`launches` counts the kernel's launches, so a run can show that its path
-went through the kernel.
+`plan(m, k, n, sms)` is the kernel's tile and split, a pure function of
+the shape and the card's SM count.  `launches` counts the kernel's
+launches, so a run can show that its path went through the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -30,6 +36,41 @@ GROUP = 64  # contract rows per scale (models.quant.INT4_GROUP)
 SOURCE = _build.CSRC / "int4_matmul.cu"
 
 launches = 0  # kernel launches since import (or since a caller reset it)
+
+WG_COLS = 128          # output columns of one consumer warpgroup
+TOKEN_TILES = (16, 64, 128)
+
+
+class Plan(NamedTuple):
+    """How the kernel covers an [M, K] x [K, N] product: token tiles of
+    `bm` rows, `consumers` warpgroups of 128 columns a block, and K split
+    into `splits` runs of `groups_per_split` scale groups (the last run
+    may be shorter)."""
+    bm: int
+    consumers: int
+    splits: int
+    groups_per_split: int
+
+
+def plan(m: int, k: int, n: int, sms: int) -> Plan:
+    """The kernel's tiling for x [m, k] @ W [k, n] on a card of `sms`
+    SMs.  The token tile is the smallest of 16, 64, 128 that holds m (or
+    128).  Where the output tiles fill less than three quarters of the
+    blocks the card holds at once (two a SM at bm 16, one otherwise), K
+    is split so that they do, keeping at least 4 scale groups a split at
+    bm 16 and 8 otherwise, so the fp32 partials stay small beside the
+    weight bytes."""
+    groups = k // GROUP
+    bm = next((t for t in TOKEN_TILES if m <= t), TOKEN_TILES[-1])
+    consumers = 2 if bm == 128 else 1
+    tiles = math.ceil(m / bm) * math.ceil(n / (consumers * WG_COLS))
+    target = sms * (2 if bm == 16 else 1)
+    splits = 1
+    if 4 * tiles < 3 * target:
+        min_groups = 4 if bm == 16 else 8
+        splits = max(1, min(math.ceil(target / tiles), groups // min_groups))
+    per = math.ceil(groups / splits)
+    return Plan(bm, consumers, math.ceil(groups / per), per)
 
 
 def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
@@ -91,37 +132,74 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor,
     if x.dtype != torch.bfloat16 or scales.dtype != torch.bfloat16:
         raise TypeError(f"the CUDA kernel takes bf16 x and scales; got "
                         f"{x.dtype} and {scales.dtype}")
-    if not (x.is_contiguous() and packed.is_contiguous()
-            and scales.is_contiguous()):
-        raise ValueError("int4_matmul wants contiguous x, packed, scales")
-    if n % 4 or not 0 < m <= 65535 * 16:
-        raise ValueError(f"the kernel wants N % 4 == 0 and 0 < M <= "
-                         f"{65535 * 16}; got M={m}, N={n}")
-    if packed.data_ptr() % 4 or scales.data_ptr() % 8:
-        raise ValueError("packed must be 4-byte and scales 8-byte aligned")
+    _check_kernel(x, packed, scales)
+    p = plan(m, k, n, _sm_count(x.device))
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    ws = counters = None
+    if p.splits > 1:
+        ws = torch.empty((p.splits, m, n), dtype=torch.float32,
+                         device=x.device)
+        counters = _counters(x.device, math.ceil(m / p.bm)
+                             * math.ceil(n / WG_COLS))
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.int4_matmul_bf16(x.data_ptr(), packed.data_ptr(),
-                                  scales.data_ptr(), out.data_ptr(),
-                                  m, k, n, stream)
+        rc = lib.int4_matmul_bf16(
+            x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+            out.data_ptr(), None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(), m, k, n,
+            p.bm, p.splits, p.groups_per_split, stream)
     if rc != 0:
-        raise RuntimeError(f"int4_matmul kernel launch failed: CUDA error "
-                           f"{rc} at M={m} K={k} N={n}")
+        what = {-1: "bad shape", -2: "TMA descriptor not encoded"}.get(
+            rc, f"CUDA error {rc}")
+        raise RuntimeError(f"int4_matmul kernel launch failed ({what}) at "
+                           f"M={m} K={k} N={n}")
     launches += 1
     return out
+
+
+def _check_kernel(x, packed, scales) -> None:
+    """The kernel's contract beyond _check: contiguous, 16-byte aligned
+    operands (TMA reads them) and N % 16 == 0 (a packed row is a TMA
+    stride, a multiple of 16 bytes).  Raises ValueError outside it."""
+    m, n = x.shape[0], packed.shape[1]
+    if not (x.is_contiguous() and packed.is_contiguous()
+            and scales.is_contiguous()):
+        raise ValueError("int4_matmul wants contiguous x, packed, scales")
+    if m < 1 or n % 16:
+        raise ValueError(f"the kernel wants M >= 1 and N % 16 == 0; got "
+                         f"M={m}, N={n}")
+    if any(t.data_ptr() % 16 for t in (x, packed, scales)):
+        raise ValueError("x, packed and scales must be 16-byte aligned")
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_COUNTERS: dict = {}
+
+
+def _counters(device: torch.device, size: int) -> torch.Tensor:
+    """Zeroed split-K tile counters for `device`, kept between calls: the
+    kernel's last block of each tile sets its counter back to 0."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < size:
+        buf = torch.zeros(max(size, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     fn = lib.int4_matmul_bf16
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
 
-__all__ = ["GROUP", "SOURCE", "int4_matmul", "int4_matmul_reference",
-           "unpack_int4"]
+__all__ = ["GROUP", "Plan", "SOURCE", "int4_matmul", "int4_matmul_reference",
+           "plan", "unpack_int4"]

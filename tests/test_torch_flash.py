@@ -62,6 +62,7 @@ def _max_err(got: torch.Tensor, want) -> float:
     pytest.param((1, 256, 4, 4, 64), True, id="shape1"),
     pytest.param((1, 256, 2, 1, 128), False, id="noncausal"),
     pytest.param((1, 256, 4, 2, 64), True, id="d64-gqa"),
+    pytest.param((1, 256, 4, 4, 64), False, id="d64-noncausal"),
 ])
 def test_plain_versions_match_interpreted_pallas_kernels(shape, causal):
     """bf16: the plain forward and backward against the Pallas forward,
@@ -87,11 +88,12 @@ def test_plain_versions_match_interpreted_pallas_kernels(shape, causal):
         assert _max_err(got, want) <= GRAD_TOL
 
 
-@pytest.mark.parametrize("seq", [64, 128, 192])
+@pytest.mark.parametrize("seq", [64, 128, 192, 320])
 def test_plain_versions_match_xla_attention_fp32(seq):
     """fp32 at TINY's widths (4 query heads, 2 kv heads, head dim 16): the
-    same function as xla_attention and its vjp, to 1e-5; 192 is a length
-    the kernels' 128-row tiles cover with half a tile past the end."""
+    same function as xla_attention and its vjp, to 1e-5; 64, 192 and 320
+    are lengths the kernels' 128-row tiles cover with half a tile past the
+    end (in the dQ kernel the second consumer of that block has no row)."""
     shape = (2, seq, TINY.num_heads, TINY.num_kv_heads, TINY.head_dim)
     q, k, v, g = _inputs(shape, seed=seq, dtype=jnp.float32)
     out, vjp = jax.vjp(lambda a, b, c: jax_xla(a, b, c, causal=True),

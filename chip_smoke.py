@@ -15,8 +15,10 @@ non-zero without its result line):
    must show 0 bytes of spill stores, since a spill there also serialises
    its wgmma, and at least one HGMMA: all four run on the tensor cores;
 3. kernel: the int4 dequant-matmul kernel against its plain version on the
-   card at the four shapes of ci/int4_kernel_check.py and the ten shapes
-   of Llama-2-7B serving (decode M=16 and prefill M=2048), with
+   card at the four shapes of ci/int4_kernel_check.py, the ten shapes
+   of Llama-2-7B serving (decode M=16 and prefill M=2048) and the five
+   of speculative decoding's verify pass (M = 16 x (gamma + 1) = 80,
+   from a generator of their own, kept out of the path totals), with
    max|got-ref| / max|ref| < 1e-2 (same rounding points, another
    summation order), and a second call repeats every bit; CUDA-event
    medians of the kernel, the plain version and, as a yardstick that
@@ -40,6 +42,25 @@ non-zero without its result line):
    tokens as context (teacher forced), >= 0.95 of the same next tokens.
    Free-running greedy agreement is printed beside it: on a random
    model one early flip changes the rest of a sequence, so it is no gate;
+   speculative: the slice's model as the target of
+   models/speculative.py, its first two layers (sharing the target's
+   modules, no weights of their own) as the draft, batch 16, prompt 128,
+   128 new tokens, gamma 4, greedy.  The int4 launches must be 129 (the
+   target's prefill) + 9 (the draft's) + rounds x (4 x 9 + 129); the
+   target's kernel path over the emitted sequence (teacher forced) must
+   pick >= 0.95 of the emitted tokens as its argmax, and every other one
+   within 2e-2 x max |logit| of its row's max; with the target as its
+   own draft, every round its logits replay (a forward hook keeps them)
+   must be one the run made, and every round cut short must have been
+   cut at a near-tie: the rejected proposal within 2e-2 x max |logit| of
+   the verify pass's argmax (the random model's logits are flat, and the
+   draft's M = 16 and the verify pass's M = 80 round some near-ties
+   apart, so its rounds exceed ceil(127 / 4) and are printed, not
+   gated); sampling at temperature 0.8 with it must accept >= 0.9 x 3/4
+   of the draft tokens.
+   Speculative and plain `generate` tok/s (CUDA events), rounds and host
+   syncs (torch's sync debug mode) are printed, not gated: a random
+   2-layer draft agrees with the target about never;
 5. flash: the three flash-attention kernels (forward, dK/dV, dQ) against
    their plain versions at the three shapes of ci/flash_numerics.py, three
    shapes the kernels' tiles must handle (head dim 64 with GQA; S = 320,
@@ -68,14 +89,43 @@ non-zero without its result line):
    1e-3 relative, on the global gradient norm within 2e-2 relative, and
    per parameter with gradient cosine >= 0.99; five SGD(0.05) steps on
    one repeated batch lower the loss.  Step time, tokens/s and MFU
-   against the card's bf16 peak come from the bench's timed windows.
+   against the card's bf16 peak come from the bench's timed windows;
+7. moe_train: the same for BENCH_MOE (4 experts, top-2, hybrid dispatch)
+   at full width and depth, batch 16 x 2048: 20/10/10 flash launches a
+   step, the first loss repeated bit for bit by a fresh setup (the
+   gradients are not held to that: the combine gather's backward adds
+   with atomics), every loss and aux finite with each step's load-balance
+   loss, as a mean over the layers, in (0.9, E + 1) (the seven steps of
+   the phase: the first, one after the timed windows, five SGD steps),
+   kernel against plain path at batch
+   4 with the same limits (router and experts included), five SGD steps
+   lowering the loss.  For that comparison the plain path takes the
+   kernel path's top-k picks (`SharedRouting`): top-k turns the two
+   attention paths' rounding differences into tokens routed to other
+   experts, each moving its whole term of the router's (and the
+   norm's) gradient; the share of tokens the plain path would route
+   elsewhere is printed and must stay <= 5% in every layer.  MFU by the
+   activated experts' FLOPs;
+8. moe_serve: BENCH_MOE from init_params, quantized to int8 (the router
+   stays fp32), served by `generate` at batch 16, prompt 128, 64 new
+   tokens: shape, vocabulary range and finite logits gated; printed: the
+   teacher-forced argmax of the int8 and of the bf16 model against the
+   emitted tokens (one pass over 191 tokens fills each expert's
+   per-row capacity, int(1.0 x 191 x 2 / 4) = 95, and the prefill's 64
+   drops other choices, where single-token steps drop nothing), and
+   against each other.  The same weights at capacity factor E / k = 2,
+   where no pass drops a choice, are served too: there the one pass
+   over the emitted tokens must pick >= 0.8 of them.
 
 It prints one JSON line per kernel shape and per slice, then a "kernels"
-line, the nvidia-smi line, and last {"ok": true, "device": {...}}.
+line (each kernel's launches on its main path, and beside them the
+speculative run's int4 launches and one MoE step's flash launches), the
+nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -110,6 +160,24 @@ CHECK_SHAPES = [(16, 1536, 6144), (16, 6144, 1536), (16, 1536, 32000),
 # against the tiles; a prefill whose last token tile is ragged
 EDGE_SHAPES = [(1, 4096, 4096), (17, 1600, 1552), (300, 4096, 4096)]
 DECODE_M, PREFILL_M = 16, 2048
+GAMMA = 4                          # draft tokens per speculative round
+VERIFY_M = DECODE_M * (GAMMA + 1)  # the target's verify pass: 80 tokens
+SPEC_NEW = 128                     # tokens a speculative run emits
+DRAFT_LAYERS = 2                   # the draft: the target's first layers
+SPEC_MIN_FORCED = 0.95             # emitted tokens that are the argmax
+SPEC_GAP_TOL = 2e-2                # the others: gap / max |logit| of row
+SPEC_MIN_ACCEPT = 0.9              # self-draft accept rate over its cap
+MOE_BATCH, MOE_COMPARE_BATCH = 16, 4
+# top-k turns the two attention paths' rounding differences into tokens
+# routed to other experts (up to 2.2% in a layer, PERF.md): the plain
+# path takes the kernel path's picks, and the tokens it would have routed
+# elsewhere are bounded
+MAX_ROUTING_FLIPS = 0.05
+MOE_SERVE_NEW = 64
+# int8 MoE serving with no capacity drops, teacher forced: a bf16 near-tie
+# may flip a routing or an argmax, but a wrong cache or dispatch agrees
+# about never on a random model
+MIN_NO_DROP_AGREEMENT = 0.8
 # kernels that must show HGMMA instructions and no spill stores
 TENSOR_CORE_KERNELS = ("int4_matmul_kernel", "flash_fwd_kernel",
                        "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
@@ -252,9 +320,10 @@ def int4pack_mm(packed, scales):
     return lambda x: torch._weight_int4pack_mm(x, tiled, GROUP, scale_zero)
 
 
-def kernel_phase(gen, edge_gen, device, peak, flush) -> dict:
+def kernel_phase(gen, edge_gen, verify_gen, device, peak, flush) -> dict:
     """Kernel against plain version at every shape, the edge shapes drawn
-    from `edge_gen`; returns per-shape results keyed by (m, k, n)."""
+    from `edge_gen` and the speculative verify pass's (M = 80) from
+    `verify_gen`; returns per-shape results keyed by (m, k, n)."""
     import torch
 
     from kubeflow_tpu_torch.models.quant import quantize_kernel_int4
@@ -264,6 +333,8 @@ def kernel_phase(gen, edge_gen, device, peak, flush) -> dict:
         (m, k, n) for m in (DECODE_M, PREFILL_M)
         for k, n in LLAMA_LAYERS.values()]]
     shapes += [(edge_gen, shape) for shape in EDGE_SHAPES]
+    shapes += [(verify_gen, (VERIFY_M, k, n))
+               for k, n in LLAMA_LAYERS.values()]
     results, failed = {}, []
     for draw, (m, k, n) in shapes:
         w = torch.randn((k, n), generator=draw, device=device) * 0.05
@@ -292,6 +363,7 @@ def kernel_phase(gen, edge_gen, device, peak, flush) -> dict:
             "plan": i4.plan(m, k, n, torch.cuda.get_device_properties(
                 device).multi_processor_count)._asdict(),
             "edge_shape": (m, k, n) in EDGE_SHAPES,
+            "verify_shape": m == VERIFY_M,
             "kernel_ms": timed_ms(lambda: i4.int4_matmul(x, packed, scales),
                                   flush),
             "plain_ms": timed_ms(
@@ -485,6 +557,231 @@ def slice_phase(gen, device, device_name) -> dict:
             f"kernel path and plain path disagree: prefill logits "
             f"max_rel_err {logits_rel} (limit {LOGITS_TOL}), teacher-forced "
             f"agreement {forced_agreement} (limit {MIN_FORCED_AGREEMENT})")
+    return res, model
+
+
+def shared_draft(target, num_layers: int):
+    """A draft of the target's first `num_layers` layers that shares the
+    target's modules (embedding, those layers, final norm, head): it
+    draws and holds no weights of its own."""
+    import torch
+
+    from kubeflow_tpu_torch.models.transformer import Transformer
+
+    cfg = target.cfg.with_(num_layers=num_layers)
+    draft = Transformer(cfg.with_(num_layers=0), device="meta")
+    draft.cfg, draft.device = cfg, target.device
+    draft.embed, draft.final_norm = target.embed, target.final_norm
+    draft.layers = torch.nn.ModuleList(target.layers[:num_layers])
+    draft.lm_head = target.lm_head
+    return draft
+
+
+def event_timed(fn):
+    """(fn(), its CUDA-event milliseconds)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def count_syncs(fn):
+    """(fn(), the host syncs it made, where): torch's sync debug mode warns
+    at every operation that waits for the card; the warnings are counted
+    by the file and line that raised them."""
+    import collections
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in seen
+        if "synchroniz" in str(w.message))
+    return out, sum(where.values()), dict(where)
+
+
+def self_draft_run(model, prompt, new: int):
+    """The target as its own draft: (tokens, rounds, the logits of every
+    forward call in order, kept by a forward hook)."""
+    from kubeflow_tpu_torch.models.speculative import speculative_generate
+
+    calls = []
+
+    def keep(_module, _args, _kwargs, out):
+        calls.append(out)
+
+    handle = model.register_forward_hook(keep, with_kwargs=True)
+    try:
+        out, rounds = speculative_generate(model.cfg, model, model.cfg,
+                                           model, prompt, new, gamma=GAMMA)
+    finally:
+        handle.remove()
+    return out, rounds, calls
+
+
+def self_draft_cuts(calls, rounds: int, prompt_len: int, new: int) -> dict:
+    """Replays each round of `self_draft_run` from its logits (the draft's
+    gamma proposals, the verify pass's greedy tokens, m the least agreeing
+    prefix over the rows, capped at gamma - 1) and, for each round cut
+    short (m < gamma - 1), the verify pass's gap between its argmax and
+    the rejected proposal, over max |logit| of the row, in every row that
+    cut it.  A draft that is the target disagrees with it only where the
+    draft's single-token step and the verify pass round a near-tie
+    apart."""
+    body = calls[2:]              # after the target's and draft's prefills
+    n, total = prompt_len + 1, prompt_len + new
+    replayed, cut_rounds, gaps = 0, 0, []
+    while n < total and body:
+        steps, body = body[:GAMMA + 1], body[GAMMA + 1:]
+        proposals = [s[:, -1].argmax(-1) for s in steps[:GAMMA]]
+        verify = steps[GAMMA]                            # [B, gamma+1, V]
+        greedy = verify.argmax(-1)
+        first = [GAMMA] * verify.shape[0]
+        for i in reversed(range(GAMMA)):
+            for b in (greedy[:, i] != proposals[i]).nonzero()[:, 0].tolist():
+                first[b] = i
+        m = min(min(first), GAMMA - 1)
+        if m < GAMMA - 1:
+            cut_rounds += 1
+            for b in (r for r, f in enumerate(first) if f == m):
+                row = verify[b, m].float()
+                gaps.append(((row.max() - row[proposals[m][b]])
+                             / row.abs().max()).item())
+        n, replayed = n + m + 1, replayed + 1
+    return {"rounds": rounds, "replayed": replayed if not body else -1,
+            "cut_rounds": cut_rounds, "gaps": gaps}
+
+
+def speculative_phase(model, device) -> dict:
+    """Greedy speculative decoding of the slice's int4 Llama-2-7B (the
+    target) with a draft of its first two layers, at batch 16, prompt
+    128, 128 new tokens, gamma 4."""
+    import torch
+
+    from kubeflow_tpu_torch.models.generate import generate
+    from kubeflow_tpu_torch.models.speculative import (
+        speculative_generate,
+        speculative_sample,
+    )
+    from kubeflow_tpu_torch.ops import int4_matmul as i4
+
+    cfg, vocab = model.cfg, model.cfg.vocab_size
+    batch, prompt_len, new = DECODE_M, 128, SPEC_NEW
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    prompt = torch.randint(0, vocab, (batch, prompt_len), generator=gen,
+                           device=device)
+    draft = shared_draft(model, DRAFT_LAYERS)
+
+    def spec():
+        return speculative_generate(cfg, model, draft.cfg, draft, prompt,
+                                    new, gamma=GAMMA)
+
+    speculative_generate(cfg, model, draft.cfg, draft, prompt, 2 * GAMMA,
+                         gamma=GAMMA)                      # warm-up
+    torch.cuda.synchronize()
+    # the main path: every int4 launch counted
+    i4.launches = 0
+    (out, rounds), spec_ms = event_timed(spec)
+    launches = i4.launches
+    target_launches = 4 * cfg.num_layers + 1
+    draft_launches = 4 * DRAFT_LAYERS + 1
+    expected = (target_launches + draft_launches
+                + rounds * (GAMMA * draft_launches + target_launches))
+    if launches != expected:
+        raise RuntimeError(f"speculative decoding launched int4_matmul "
+                           f"{launches} times, expected {expected} for "
+                           f"{rounds} rounds")
+
+    shape_ok = (tuple(out.shape) == (batch, prompt_len + new)
+                and bool((out[:, :prompt_len] == prompt).all().item())
+                and 0 <= int(out.min()) and int(out.max()) < vocab)
+    # exactness, teacher forced: the target's kernel path over the emitted
+    # sequence in one pass
+    with torch.inference_mode():
+        forced = model(out[:, :-1], cache=model.new_cache(batch))
+        forced = forced[:, prompt_len - 1:].float()        # [B, N, V]
+        emitted = out[:, prompt_len:]
+        top = forced.max(dim=-1).values
+        picked = forced.gather(-1, emitted[..., None])[..., 0]
+        is_argmax = picked == top
+        gap_rel = (top - picked) / forced.abs().max(dim=-1).values
+        argmax_share = is_argmax.float().mean().item()
+        worst_gap = gap_rel.max().item()
+        del forced
+
+    plain, plain_ms = event_timed(lambda: generate(cfg, model, prompt, new))
+    same_as_plain = (plain[:, prompt_len:] == emitted).float().mean().item()
+    del plain
+    (self_out, self_rounds, calls), self_ms = event_timed(
+        lambda: self_draft_run(model, prompt, new))
+    ideal = math.ceil((new - 1) / GAMMA)
+    cuts = self_draft_cuts(calls, self_rounds, prompt_len, new)
+    del calls
+    (s_out, s_rounds, s_rate), sample_ms = event_timed(
+        lambda: speculative_sample(
+            cfg, model, cfg, model, prompt, new, gamma=GAMMA,
+            temperature=0.8,
+            generator=torch.Generator(device=device).manual_seed(SEED + 5)))
+    sample_ok = (tuple(s_out.shape) == (batch, prompt_len + new)
+                 and 0 <= int(s_out.min()) and int(s_out.max()) < vocab)
+    _, spec_syncs, spec_sync_sites = count_syncs(spec)
+    _, plain_syncs, _ = count_syncs(lambda: generate(cfg, model, prompt,
+                                                     new))
+    tokens = batch * new
+    res = {
+        "phase": "speculative", "target": "llama2-7b int4",
+        "draft": f"the target's first {DRAFT_LAYERS} layers, shared",
+        "batch": batch, "prompt_len": prompt_len, "new_tokens": new,
+        "gamma": GAMMA, "rounds": rounds, "ideal_rounds": ideal,
+        "tokens_per_round": (new - 1) / rounds,
+        # the last round may emit up to gamma - 1 tokens past the end
+        "acceptance_from_rounds": (new - 1 - rounds) / (rounds * GAMMA),
+        "int4_launches": launches, "expected_launches": expected,
+        "speculative_ms": spec_ms, "speculative_tok_s": tokens / spec_ms * 1e3,
+        "plain_ms": plain_ms, "plain_tok_s": tokens / plain_ms * 1e3,
+        "host_syncs": spec_syncs, "host_sync_sites": spec_sync_sites,
+        "plain_host_syncs": plain_syncs,
+        "same_tokens_as_plain_generate": same_as_plain,
+        "teacher_forced_argmax_share": argmax_share,
+        "teacher_forced_max_gap_rel": worst_gap,
+        "self_draft_rounds": self_rounds, "self_draft_ms": self_ms,
+        "self_draft_same_tokens": (self_out == out).float().mean().item(),
+        "self_draft_cut_rounds": cuts["cut_rounds"],
+        "self_draft_cut_gaps_rel": cuts["gaps"],
+        "self_draft_rounds_replayed": cuts["replayed"],
+        "sample_rounds": s_rounds, "sample_accept_rate": s_rate,
+        "sample_ms": sample_ms, "outputs_ok": shape_ok and sample_ok,
+    }
+    emit(res)
+    if not (shape_ok and sample_ok):
+        raise RuntimeError("speculative decoding gave malformed tokens")
+    if argmax_share < SPEC_MIN_FORCED or worst_gap > SPEC_GAP_TOL:
+        raise RuntimeError(
+            f"speculative tokens are not the target's greedy choice: "
+            f"argmax share {argmax_share} (limit {SPEC_MIN_FORCED}), worst "
+            f"gap {worst_gap} of max |logit| (limit {SPEC_GAP_TOL})")
+    if (cuts["replayed"] != cuts["rounds"]
+            or max(cuts["gaps"], default=0.0) > SPEC_GAP_TOL):
+        raise RuntimeError(
+            f"the target as its own draft: {cuts['rounds']} rounds, "
+            f"{cuts['replayed']} replayed from its logits; a round was cut "
+            f"by a disagreement wider than a near-tie ({cuts['gaps']}, "
+            f"limit {SPEC_GAP_TOL})")
+    if s_rate < SPEC_MIN_ACCEPT * (GAMMA - 1) / GAMMA:
+        raise RuntimeError(f"self-draft sampling accepted {s_rate} of the "
+                           f"draft tokens")
     return res
 
 
@@ -842,9 +1139,302 @@ def train_phase(device, device_name, flash_results, flush) -> dict:
     return res
 
 
-def flash_kernel_lines(flash_results, launches: dict) -> list:
+class SharedRouting:
+    """While a model runs inside `forcing(model)`, each of its MoE layers
+    takes the top-k experts this object holds for it (its gate values
+    from its own router probabilities at those experts); a layer with
+    none held keeps its own picks, and they are held.  So a second model
+    routes every token as the first did, and `flips[i]` is the share of
+    tokens whose own top-k set in layer i differs from the held one."""
+
+    def __init__(self):
+        self.chosen, self.flips = {}, {}
+
+    @contextlib.contextmanager
+    def forcing(self, model):
+        import torch
+
+        real_topk, current = torch.topk, [None]
+        holding = not self.chosen      # the first model sets the picks
+
+        def topk(probs, k, dim=-1):
+            own = real_topk(probs, k, dim=dim)
+            i = current[0]
+            if i is None:
+                return own
+            # the same ops on every call: a remat recompute must save
+            # what the forward saved
+            held = self.chosen.setdefault(i, own.indices)
+            flips = (own.indices.sort(-1).values != held.sort(-1).values
+                     ).any(-1).float().mean()
+            if not holding:
+                self.flips.setdefault(i, flips.item())
+            return probs.gather(dim, held), held
+
+        def layer_forward(i, forward):
+            def run(x):
+                current[0] = i
+                try:
+                    return forward(x)
+                finally:
+                    current[0] = None
+            return run
+
+        for i, layer in enumerate(model.layers):
+            layer.moe.forward = layer_forward(i, layer.moe.forward)
+        torch.topk = topk
+        try:
+            yield
+        finally:
+            torch.topk = real_topk
+            for layer in model.layers:
+                del layer.moe.forward
+
+
+def moe_train_phase(device, device_name) -> dict:
+    """The BENCH_MOE training step at full width and depth, batch 16 x
+    2048, through setup_training (AdamW, bf16 first moment)."""
+    import torch
+
+    from kubeflow_tpu_torch.models import train
+    from kubeflow_tpu_torch.models.configs import BENCH_MOE
+    from kubeflow_tpu_torch.models.transformer import Transformer
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.runtime.roofline import mfu, train_estimate
+
+    cfg, seq = BENCH_MOE, BENCH_MOE.max_seq_len
+    data = _batch(cfg.vocab_size, MOE_BATCH, seq, SEED + 6, device)
+
+    def setup(optimizer=None):
+        return train.setup_training(
+            cfg, device, seed=SEED + 6,
+            optimizer=optimizer or train.default_optimizer(
+                mu_dtype="bfloat16"))
+
+    t0 = time.perf_counter()
+    run = setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # the main path: one step, every flash launch counted
+    torch.cuda.reset_peak_memory_stats()
+    for key in fa.launches:
+        fa.launches[key] = 0
+    state, metrics = run.train_step(run.state, data)
+    first_loss = metrics["loss"].clone()
+    launches = dict(fa.launches)
+    peak_mem = torch.cuda.max_memory_allocated()
+    firsts = {k: metrics[k].item() for k in ("loss", "ce_loss",
+                                             "moe_aux_loss", "grad_norm")}
+    again = setup()
+    _, metrics2 = again.train_step(again.state, data)
+    same_bits = torch.equal(metrics2["loss"], first_loss)
+    del again, metrics2
+
+    windows = [train.timed_steps(run, data, num_steps=3,
+                                 warmup=1 if w == 0 else 0)
+               for w in range(3)]
+    ranked = sorted(windows[1:], key=lambda r: r["tokens_per_s"])
+    timed = ranked[len(ranked) // 2]
+    est = train_estimate(cfg, MOE_BATCH, seq, device_name)
+    achieved = mfu(timed["tokens_per_s"], cfg, seq, 1, device_name)
+    _, metrics = run.train_step(run.state, data)
+    auxes = [firsts["moe_aux_loss"], metrics["moe_aux_loss"].item()]
+    losses = [firsts["loss"], firsts["ce_loss"]] + [
+        w["loss"] for w in windows] + [metrics["loss"].item()]
+
+    small = _batch(cfg.vocab_size, MOE_COMPARE_BATCH, seq, SEED + 7, device)
+    model_k = run.model
+    model_p = Transformer(cfg.with_(attention_impl="xla"), device)
+    model_p.load_state_dict(model_k.state_dict())
+    # the plain path routes as the kernel path did (see SharedRouting)
+    routing = SharedRouting()
+    with routing.forcing(model_k):
+        loss_k, grads_k = _loss_and_grads(model_k, small)
+    with routing.forcing(model_p):
+        loss_p, grads_p = _loss_and_grads(model_p, small)
+    del model_p
+    flips = [routing.flips[i] for i in range(cfg.num_layers)]
+    norm_k = train.global_norm(grads_k).item()
+    norm_p = train.global_norm(grads_p).item()
+    names = [n for n, p in model_k.named_parameters() if p.requires_grad]
+    cosines = {n: torch.nn.functional.cosine_similarity(
+        a.flatten().float(), b.flatten().float(), dim=0).item()
+        for n, a, b in zip(names, grads_k, grads_p)}
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    norm_rel = abs(norm_k - norm_p) / norm_p
+    worst = min(cosines, key=cosines.get)
+    del grads_k, grads_p, run, state, model_k
+    torch.cuda.empty_cache()
+
+    sgd = setup(train.SGD(0.05))
+    sgd_losses, state = [], sgd.state
+    for _ in range(5):
+        state, m = sgd.train_step(state, small)
+        sgd_losses.append(m["loss"])
+        auxes.append(m["moe_aux_loss"])
+    sgd_losses = [x.item() for x in sgd_losses]
+    auxes = [float(a) for a in auxes]
+    del sgd, state
+    torch.cuda.empty_cache()
+    losses += sgd_losses + [loss_k.item(), loss_p.item()]
+
+    expected = {"fwd": 2 * cfg.num_layers, "dkv": cfg.num_layers,
+                "dq": cfg.num_layers}
+    finite = all(math.isfinite(x) for x in losses + auxes
+                 + [firsts["grad_norm"]])
+    # moe_aux_loss sums the layers' losses, each in (0.9, E + 1): so does
+    # each step's mean over the layers
+    layer_means = [a / cfg.num_layers for a in auxes]
+    aux_ok = all(0.9 < a < cfg.moe_experts + 1 for a in layer_means)
+    res = {
+        "phase": "moe_train", "model": "bench-moe", "layers": cfg.num_layers,
+        "experts": cfg.moe_experts, "top_k": cfg.moe_top_k,
+        "dispatch": cfg.moe_dispatch, "batch": MOE_BATCH, "seq": seq,
+        "setup_s": setup_s, "first_loss": firsts["loss"],
+        "first_ce_loss": firsts["ce_loss"],
+        "first_moe_aux_loss": firsts["moe_aux_loss"],
+        "moe_aux_layer_mean_per_step": layer_means,
+        "first_grad_norm": firsts["grad_norm"],
+        "flash_launches": launches, "expected_launches": expected,
+        "peak_mem_gb": peak_mem / 1e9, "same_loss_bits": same_bits,
+        "step_time_s": timed["step_time_s"],
+        "tokens_per_s": timed["tokens_per_s"],
+        "window_step_time_s": [w["step_time_s"] for w in windows],
+        "mfu_activated": achieved, "step_floor_s": est.step_floor_s,
+        "bound": est.bound, "flops_per_step": est.flops,
+        "compare_batch": MOE_COMPARE_BATCH,
+        "loss_kernel": loss_k.item(), "loss_plain": loss_p.item(),
+        "loss_rel_err": loss_rel, "grad_norm_kernel": norm_k,
+        "grad_norm_plain": norm_p, "grad_norm_rel_err": norm_rel,
+        "min_grad_cosine": cosines[worst], "min_grad_cosine_param": worst,
+        "router_grad_cosines": [
+            cosines[f"layers.{i}.moe.router.kernel"]
+            for i in range(cfg.num_layers)],
+        "routing_flip_share": flips,
+        "sgd_losses": sgd_losses, "losses_finite": finite,
+    }
+    emit(res)
+    if launches != expected:
+        raise RuntimeError(f"one MoE training step launched the flash "
+                           f"kernels {launches} times, expected {expected}")
+    if not (finite and same_bits and aux_ok):
+        raise RuntimeError("a MoE training loss was not finite, a fresh "
+                           "setup gave another first loss, or a layer's "
+                           "load-balance loss left (0.9, E + 1)")
+    if (loss_rel > TRAIN_LOSS_TOL or norm_rel > TRAIN_NORM_TOL
+            or cosines[worst] < TRAIN_MIN_COSINE
+            or max(flips) > MAX_ROUTING_FLIPS):
+        raise RuntimeError(
+            f"MoE kernel path and plain path disagree: loss rel {loss_rel} "
+            f"(limit {TRAIN_LOSS_TOL}), grad norm rel {norm_rel} (limit "
+            f"{TRAIN_NORM_TOL}), gradient cosine of {worst} "
+            f"{cosines[worst]} (limit {TRAIN_MIN_COSINE}), tokens the plain "
+            f"path would route elsewhere {max(flips)} (limit "
+            f"{MAX_ROUTING_FLIPS})")
+    if not sgd_losses[-1] < sgd_losses[0]:
+        raise RuntimeError(f"five SGD steps did not lower the MoE loss: "
+                           f"{sgd_losses}")
+    return res
+
+
+def flax_tree(model) -> dict:
+    """A port model's parameters in the reference's tree layout (what the
+    quantizers and `generate` take): `layers.3.x` becomes `layer_3/x`."""
+    tree = {}
+    for name, tensor in model.state_dict().items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            parts = [f"layer_{parts[1]}"] + parts[2:]
+        node = tree
+        for key in parts[:-1]:
+            node = node.setdefault(key, {})
+        node[parts[-1]] = tensor
+    return tree
+
+
+def moe_serve_phase(device) -> dict:
+    """BENCH_MOE quantized to int8 (experts per expert and output
+    channel, the router kept fp32) served by `generate` at batch 16,
+    prompt 128, 64 new tokens."""
+    import torch
+
+    from kubeflow_tpu_torch.models.configs import BENCH_MOE
+    from kubeflow_tpu_torch.models.convert import params_from_flax
+    from kubeflow_tpu_torch.models.generate import generate, prepare_decode
+    from kubeflow_tpu_torch.models.quant import quantize_params
+    from kubeflow_tpu_torch.models.transformer import Transformer, init_params
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    cfg, vocab = BENCH_MOE, BENCH_MOE.vocab_size
+    batch, prompt_len, new = DECODE_M, 128, MOE_SERVE_NEW
+    full = Transformer(cfg, device)
+    init_params(full, gen)
+    int8_cfg, tree = prepare_decode(cfg.with_(weight_dtype="int8"),
+                                    quantize_params(flax_tree(full)))
+    model = params_from_flax(tree, int8_cfg, device)
+    # the same weights at capacity factor E / k: a buffer holds a whole
+    # row, so no pass drops a choice and the one pass over the emitted
+    # sequence sees what the steps saw
+    no_drop_cfg = int8_cfg.with_(
+        moe_capacity_factor=cfg.moe_experts / cfg.moe_top_k)
+    no_drop = params_from_flax(tree, no_drop_cfg, device)
+    del tree
+    prompt = torch.randint(0, vocab, (batch, prompt_len), generator=gen,
+                           device=device)
+    generate(int8_cfg, model, prompt, 2)                  # warm-up
+    out, ms = event_timed(lambda: generate(int8_cfg, model, prompt, new))
+    nd_out = generate(no_drop_cfg, no_drop, prompt, new)
+    with torch.inference_mode():
+        logits = model(out[:, :-1], cache=model.new_cache(batch))
+        finite = bool(torch.isfinite(logits).all().item())
+        int8_forced = logits[:, prompt_len - 1:].argmax(-1)
+        del logits
+        # the bf16 model (fp32 master weights) over the same tokens
+        bf16 = full(out[:, :-1], cache=full.new_cache(batch))
+        bf16_forced = bf16[:, prompt_len - 1:].argmax(-1)
+        del bf16
+        nd_logits = no_drop(nd_out[:, :-1], cache=no_drop.new_cache(batch))
+        nd_agreement = (nd_logits[:, prompt_len - 1:].argmax(-1)
+                        == nd_out[:, prompt_len:]).float().mean().item()
+        del nd_logits
+    emitted = out[:, prompt_len:]
+    shape_ok = (tuple(out.shape) == (batch, prompt_len + new)
+                and bool((out[:, :prompt_len] == prompt).all().item())
+                and 0 <= int(out.min()) and int(out.max()) < vocab)
+    res = {
+        "phase": "moe_serve", "model": "bench-moe", "weight_dtype": "int8",
+        "batch": batch, "prompt_len": prompt_len, "new_tokens": new,
+        "generate_ms": ms, "tok_s": batch * new / ms * 1e3,
+        "logits_finite": finite, "outputs_ok": shape_ok,
+        "int8_teacher_forced_agreement":
+            (int8_forced == emitted).float().mean().item(),
+        "bf16_teacher_forced_agreement":
+            (bf16_forced == emitted).float().mean().item(),
+        "int8_vs_bf16_teacher_forced":
+            (int8_forced == bf16_forced).float().mean().item(),
+        "no_drop_capacity_factor": no_drop_cfg.moe_capacity_factor,
+        "no_drop_teacher_forced_agreement": nd_agreement,
+    }
+    emit(res)
+    del full, model, no_drop
+    torch.cuda.empty_cache()
+    if not (shape_ok and finite):
+        raise RuntimeError("int8 MoE generate gave malformed tokens or "
+                           "non-finite logits")
+    if nd_agreement < MIN_NO_DROP_AGREEMENT:
+        raise RuntimeError(
+            f"int8 MoE generate without capacity drops: the one pass over "
+            f"its tokens picks {nd_agreement} of them (limit "
+            f"{MIN_NO_DROP_AGREEMENT})")
+    return res
+
+
+def flash_kernel_lines(flash_results, launches: dict,
+                       moe_launches: dict) -> list:
     """The kernels line's flash entries: the training-shape medians times
-    the main path's launches per step."""
+    the main path's launches per step; beside them the launches of one
+    BENCH_MOE step."""
     entries = []
     main = flash_results[TRAIN_CASE]
     for name, key in (("flash_fwd", "fwd"), ("flash_bwd_dkv", "dkv"),
@@ -864,6 +1454,7 @@ def flash_kernel_lines(flash_results, launches: dict) -> list:
             "library_call": r["library_call"],
             **{key: r[key] for key in ("library_covers", "library_covered_by")
                if key in r},
+            "moe_step_launches": moe_launches[key],
             "ms_per_launch": r["ms"], "shape": list(TRAIN_SHAPE),
             "basis": "per-launch medians at the training shape times one "
                      "training step's launches",
@@ -908,9 +1499,19 @@ def main_path_totals(results: dict, launches: int) -> dict:
                            f"the per-shape counts {counts}")
     total = weighted_totals(results, counts)
     bf16_ms = total.pop("bf16_matmul_ms")
+    # one speculative round: gamma steps of the two-layer draft at M=16,
+    # then the target's verify pass at M=80
+    spec_round = {}
+    for name, (k, n) in LLAMA_LAYERS.items():
+        draft = 1 if name == "lm_head" else DRAFT_LAYERS
+        spec_round[(DECODE_M, k, n)] = GAMMA * draft
+        spec_round[(VERIFY_M, k, n)] = 1 if name == "lm_head" else 32
     return {**total, "bf16_matmul_ms_path": bf16_ms,
             "decode_step": weighted_totals(results, step),
-            "prefill": weighted_totals(results, prefill)}
+            "prefill": weighted_totals(results, prefill),
+            "speculative_round": {
+                **weighted_totals(results, spec_round),
+                "launches": sum(spec_round.values())}}
 
 
 def main() -> int:
@@ -964,15 +1565,21 @@ def main() -> int:
     # the edge shapes draw from their own generator, so the slice draws
     # the same weights from gen as before
     results = kernel_phase(
-        gen, torch.Generator(device=device).manual_seed(SEED + 2), device,
+        gen, torch.Generator(device=device).manual_seed(SEED + 2),
+        torch.Generator(device=device).manual_seed(SEED + 3), device,
         peak, flush)
     # its own generator, so the slice draws the same weights as before
     flash_results = flash_phase(
         torch.Generator(device=device).manual_seed(SEED + 1), device, peak,
         flush)
-    sl = slice_phase(gen, device, device_name)
+    sl, model = slice_phase(gen, device, device_name)
+    sp = speculative_phase(model, device)
+    del model
+    torch.cuda.empty_cache()
     tr = train_phase(device, device_name, flash_results, flush)
     del flush
+    mt = moe_train_phase(device, device_name)
+    moe_serve_phase(device)
 
     totals = main_path_totals(results, sl["int4_launches"])
     emit({"kernels": [{
@@ -980,13 +1587,17 @@ def main() -> int:
         "source": "kubeflow_tpu_torch/csrc/int4_matmul.cu",
         "replaces": "kubeflow_tpu/ops/int4_matmul.py:87",
         "launches": sl["int4_launches"],
+        "speculative_launches": sp["int4_launches"],
+        "speculative_rounds": sp["rounds"],
         "max_abs_err": max(r["max_abs_err"] for r in results.values()),
         "max_rel_err": max(r["max_rel_err"] for r in results.values()),
         **totals, "library_call": "torch._weight_int4pack_mm",
         "basis": "ms, plain_ms, bound_ms and library_ms sum the per-shape "
-                 "medians over the main path's launches; decode_step and "
-                 "prefill over one decode step's and one prefill's",
-    }] + flash_kernel_lines(flash_results, tr["flash_launches"])})
+                 "medians over the main path's launches; decode_step, "
+                 "prefill and speculative_round over one decode step's, "
+                 "one prefill's and one speculative round's",
+    }] + flash_kernel_lines(flash_results, tr["flash_launches"],
+                            mt["flash_launches"])})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                  "count": torch.cuda.device_count()}})

@@ -1,25 +1,33 @@
 """Training benchmark of the port: the BENCH_CHIP step on one card.
 
-    python -m kubeflow_tpu_torch.bench [steps] [--best-of] [--cpu] [--profile]
+    python -m kubeflow_tpu_torch.bench [steps] [--moe] [--best-of] [--cpu]
+                                       [--profile]
 
-The port of `bench.py`'s default mode: `BENCH_CHIP` at batch 40 x seq
-2048 (the reference's tokens per step), flash attention on the Hopper
-kernels, AdamW with a bf16 first moment, random tokens from a seeded
-generator.  It runs 6 windows of `steps` steps (default 10; the first
+The port of `bench.py`'s default and `--moe` modes: `BENCH_CHIP` at batch
+40 x seq 2048 (the reference's tokens per step), or with --moe
+`BENCH_MOE` (4 experts, top-2) at batch 16 x 2048, metric
+`train_mfu_h100_moe` with MFU by the activated experts' FLOPs; flash
+attention on the Hopper kernels, AdamW with a bf16 first moment, random
+tokens from a seeded generator.  It runs 6 windows of `steps` steps (default 10; the first
 window after 2 warm-up steps) and reports the median of windows 2-6
 ("sustained-median"), or with --best-of the best of 3 windows.  It prints
 one JSON line: `value` is the MFU against the card's own bf16 peak
 (`runtime/roofline.py:GPU_PEAKS`), `roofline_fraction` and `bound` come
 from `train_estimate`.
 
---cpu runs `TINY` at batch 4 x seq 128 on the CPU, one window: a smoke
-run of the same code, whose `value` and roofline fields are null, since a
-CPU run measures no card.
+--cpu runs `TINY` at batch 4 x seq 128 on the CPU, one window, in either
+mode (as the reference does on its CPU backend, and under the dense
+metric name, since that is what it measures): a smoke run of the same
+code, whose `value` and roofline fields are null, since a CPU run
+measures no card.
 
 --profile adds one more step under torch.profiler and puts the card's
 time by kernel into `detail["profile"]`: the device time summed over
 kernels against the step's wall time (the rest is the card's idle
-share), and the kernels that took the most.
+share), the kernels that took the most, and the device time under each
+of the MoE layer's profiler ranges (moe.router, moe.dispatch,
+moe.experts, moe.combine: their forward, and its recompute under remat;
+the backward kernels run outside the ranges).
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ from typing import Optional
 
 import torch
 
-from .models.configs import BENCH_CHIP, TINY
+from .models.configs import BENCH_CHIP, BENCH_MOE, TINY
 from .models.train import default_optimizer, mfu, setup_training, timed_steps
 from .runtime.roofline import train_estimate
 
@@ -55,16 +63,28 @@ def profile_step(setup, data: dict, top: int = 15) -> dict:
         float(metrics["loss"])
         wall_s = time.perf_counter() - t0
     setup.state = state
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    # a profiler range can also appear on the device's timeline, as an
+    # annotation spanning its kernels: keep it out of the kernel sums
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("moe.")]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     device_us = sum(e.self_device_time_total for e in kernels)
+    ranges = {}
+    for e in events:
+        if e.key.startswith("moe."):
+            side = "device" if e.device_type == DeviceType.CUDA else "host"
+            ranges.setdefault(e.key, {})[side] = {
+                "kernels_ms": e.device_time_total / 1e3,
+                "self_ms": e.self_device_time_total / 1e3,
+                "count": e.count}
     return {
         "wall_ms": wall_s * 1e3,
         "device_ms": device_us / 1e3,
         "idle_share": (1.0 - device_us / 1e6 / wall_s) if kernels else None,
         "kernels": [{"name": e.key[:120], "ms": e.self_device_time_total
                      / 1e3, "count": e.count} for e in kernels[:top]],
+        "ranges": ranges,
     }
 
 
@@ -74,6 +94,7 @@ def main(argv: Optional[list] = None) -> dict:
     num_steps = int(numeric[0]) if numeric else 10
     on_cpu = "--cpu" in argv
     best_of = "--best-of" in argv
+    moe = "--moe" in argv and not on_cpu
     if on_cpu:
         device, name = torch.device("cpu"), "cpu"
         config, batch, seq = TINY, 4, 128
@@ -85,7 +106,10 @@ def main(argv: Optional[list] = None) -> dict:
         torch.backends.cudnn.allow_tf32 = False
         device = torch.device("cuda", 0)
         name = torch.cuda.get_device_name(0)
-        config, batch, seq = BENCH_CHIP, 40, 2048
+        # BENCH_MOE at the reference's batch 16; MFU counts the activated
+        # experts, so dispatch and combine are overhead, not numerator
+        config, batch, seq = ((BENCH_MOE, 16, 2048) if moe
+                              else (BENCH_CHIP, 40, 2048))
 
     setup = setup_training(config, device,
                            optimizer=default_optimizer(mu_dtype="bfloat16"))
@@ -112,14 +136,15 @@ def main(argv: Optional[list] = None) -> dict:
     fraction = None if on_cpu else est.roofline_fraction(
         result["step_time_s"])
     record = {
-        "metric": "train_mfu_h100",
+        "metric": "train_mfu_h100_moe" if moe else "train_mfu_h100",
         "value": _round(achieved, 4),
         "unit": "fraction",
         "vs_baseline": None,
         "roofline_fraction": _round(fraction, 4),
         "bound": None if on_cpu else est.bound,
         "detail": {
-            "model": "tiny-cpu" if on_cpu else "bench-chip-470m",
+            "model": ("tiny-cpu" if on_cpu else "bench-moe-760m" if moe
+                      else "bench-chip-470m"),
             "tokens_per_s": round(result["tokens_per_s"], 1),
             "step_time_s": round(result["step_time_s"], 4),
             "final_loss": round(result["loss"], 4),

@@ -3,8 +3,9 @@
 A copy of the reference package's `TransformerConfig` (field for field,
 so a config prints and compares the same on both sides) and the presets
 the port runs: `LLAMA2_7B` (the serving slice), `BENCH_CHIP` (the
-training slice, the step `python -m kubeflow_tpu_torch.bench` times) and
-the test config `TINY`.  The port keeps its own copy rather than
+training slice, the step `python -m kubeflow_tpu_torch.bench` times),
+`BENCH_MOE` (its Mixture-of-Experts twin, `bench --moe`) and the test
+config `TINY`.  The port keeps its own copy rather than
 importing the reference package.
 """
 
@@ -124,6 +125,20 @@ BENCH_CHIP = TransformerConfig(
     flash_block_k=512,
 )
 
+# The MoE training config (~0.76B parameters, ~0.48B activated):
+# BENCH_CHIP's trunk with each dense MLP replaced by 4 experts of hidden
+# 3072, top-2 routing at capacity 1.0, hybrid dispatch (one-hot dispatch,
+# gather combine).  MFU counts the activated experts (flops_per_token).
+BENCH_MOE = BENCH_CHIP.with_(
+    moe_experts=4,
+    moe_top_k=2,
+    moe_mlp_dim=3072,
+    moe_capacity_factor=1.0,
+    flash_block_q=512,
+    flash_block_k=512,
+    moe_dispatch="hybrid",
+)
+
 # test config: tiny but structurally identical (GQA, two layers)
 TINY = TransformerConfig(
     vocab_size=256,
@@ -138,6 +153,8 @@ TINY = TransformerConfig(
     param_dtype="float32",
 )
 
-PRESETS = {"llama2-7b": LLAMA2_7B, "bench-chip": BENCH_CHIP, "tiny": TINY}
+PRESETS = {"llama2-7b": LLAMA2_7B, "bench-chip": BENCH_CHIP,
+           "bench-moe": BENCH_MOE, "tiny": TINY}
 
-__all__ = ["BENCH_CHIP", "LLAMA2_7B", "PRESETS", "TINY", "TransformerConfig"]
+__all__ = ["BENCH_CHIP", "BENCH_MOE", "LLAMA2_7B", "PRESETS", "TINY",
+           "TransformerConfig"]

@@ -7,8 +7,11 @@ returns them) or torch tensors; every dense layout of the reference loads
 as it is stored: q/k/v [D, H, Dh], out [H, Dh, D], gate/up [D, M], down
 [M, D], embed [V, D], lm_head [D, V], fused qkv [D, H+2kvH, Dh] and
 gate_up [D, 2, M], int8 {kernel_q, kernel_scale}, int4 {kernel_q4,
-kernel_scale}, norm `scale`.  A stacked `layers` subtree (leading [L]
-axis, the reference's scan_layers=True layout) is unrolled on the way in.
+kernel_scale}, norm `scale`, and a MoE layer's `moe/router/kernel` [D, E]
+with `moe/experts/{gate,up,down}` stacked over the experts ([E, D, M],
+[E, M, D]; int8 scales [E, 1, M]).  A stacked `layers` subtree (leading
+[L] axis, the reference's scan_layers=True layout) is unrolled on the
+way in.
 """
 
 from __future__ import annotations

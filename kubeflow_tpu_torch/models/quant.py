@@ -7,7 +7,9 @@ leaf for leaf:
 
 - int8: `kernel_q` int8 in the dense kernel's own layout [contract...,
   features...] and a per-output-channel `kernel_scale` bf16 of shape
-  [1..., features...].  `Int8Linear` multiplies them out at the matmul.
+  [1..., features...].  `Int8Linear` multiplies them out at the matmul;
+  `StackedInt8Linear` does the same for MoE expert kernels [E, K, N]
+  with scales [E, 1, N].
 - int4: `kernel_q4` [K/2, N] int8 (byte i holds contract row 2i in its
   low nibble and row 2i+1 in its high nibble) and `kernel_scale`
   [K/64, 1, N] bf16, one scale per 64 contract rows and column.
@@ -63,6 +65,30 @@ class Int8Linear(nn.Module):
         lead = x.shape[:x.dim() - len(self.contract)]
         out = x.to(self.dtype).reshape(-1, k) @ w.reshape(k, n)
         return out.reshape(lead + self.features)
+
+
+class StackedInt8Linear(nn.Module):
+    """Int8Linear for stacked expert kernels, the layout the reference's
+    quantize_params gives them: `kernel_q` [E, K, N] int8 and per-expert,
+    per-output-channel `kernel_scale` [E, 1, N] bf16.  x [E, ..., K] ->
+    [E, ..., N], dequantized in `dtype` and multiplied per expert."""
+
+    def __init__(self, experts: int, contract: int, features: int,
+                 dtype=torch.bfloat16, device="cuda"):
+        super().__init__()
+        self.contract, self.features, self.dtype = contract, features, dtype
+        self.kernel_q = nn.Parameter(
+            torch.zeros((experts, contract, features), dtype=torch.int8,
+                        device=device), requires_grad=False)
+        self.kernel_scale = nn.Parameter(
+            torch.ones((experts, 1, features), dtype=torch.bfloat16,
+                       device=device), requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.kernel_q.to(self.dtype) * self.kernel_scale.to(self.dtype)
+        e, lead = x.shape[0], x.shape[1:-1]
+        out = torch.bmm(x.to(self.dtype).reshape(e, -1, self.contract), w)
+        return out.reshape((e,) + lead + (self.features,))
 
 
 class Int4Linear(nn.Module):
@@ -211,5 +237,6 @@ def quantized_bytes(params, exclude: tuple = ("embed",)) -> int:
     return walk(params)
 
 
-__all__ = ["INT4_GROUP", "Int4Linear", "Int8Linear", "quantize_kernel_int4",
-           "quantize_params", "quantize_params_int4", "quantized_bytes"]
+__all__ = ["INT4_GROUP", "Int4Linear", "Int8Linear", "StackedInt8Linear",
+           "quantize_kernel_int4", "quantize_params", "quantize_params_int4",
+           "quantized_bytes"]

@@ -1,7 +1,7 @@
 """Training on one device: loss, optimizer, train step, MFU accounting.
 
-The port of kubeflow_tpu/models/train.py for one card, with no pipeline
-and no MoE.  JAX's functional train state becomes a mutable one: the
+The port of kubeflow_tpu/models/train.py for one card, dense and MoE,
+with no pipeline schedule.  JAX's functional train state becomes a mutable one: the
 model holds the parameters, the optimizer its moments, and
 `train_step(state, batch)` updates both in place and returns the same
 state with the metrics, keeping the reference's call shape.
@@ -212,38 +212,54 @@ class TrainSetup:
     config: TransformerConfig
 
 
-def loss_fn(model: Transformer, batch: dict) -> torch.Tensor:
-    """The training loss of `batch` ({"inputs", "targets"} [B, S]):
-    chunked cross-entropy over the final hidden state when
-    cfg.loss_chunks > 0, else cross-entropy over the full logits."""
+def loss_terms(model: Transformer, batch: dict
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(total, cross-entropy, MoE aux) of `batch` ({"inputs", "targets"}
+    [B, S]): chunked cross-entropy over the final hidden state when
+    cfg.loss_chunks > 0, else cross-entropy over the full logits; the
+    total adds cfg.moe_aux_weight times the summed load-balance loss for
+    MoE configs and is the cross-entropy otherwise."""
     cfg = model.cfg
     if cfg.loss_chunks > 0:
-        hidden = model(batch["inputs"], return_hidden=True)
+        hidden, aux = model(batch["inputs"], return_hidden=True,
+                            return_aux=True)
         if cfg.tie_embeddings:
             kernel = model.embed.embedding.T
         else:
             kernel = model.lm_head.kernel
-        return chunked_cross_entropy(hidden, batch["targets"], kernel,
-                                     cfg.loss_chunks, cfg.logits_softcap)
-    return cross_entropy_loss(model(batch["inputs"]), batch["targets"])
+        ce = chunked_cross_entropy(hidden, batch["targets"], kernel,
+                                   cfg.loss_chunks, cfg.logits_softcap)
+    else:
+        logits, aux = model(batch["inputs"], return_aux=True)
+        ce = cross_entropy_loss(logits, batch["targets"])
+    total = ce + cfg.moe_aux_weight * aux if cfg.moe_experts > 0 else ce
+    return total, ce, aux
+
+
+def loss_fn(model: Transformer, batch: dict) -> torch.Tensor:
+    """The training loss of `batch`: the total of `loss_terms`."""
+    return loss_terms(model, batch)[0]
 
 
 def make_train_step(model: Transformer, optimizer):
     """step(state, batch) -> (state, metrics): loss and gradients of every
     parameter, the optimizer's update in place; metrics "loss",
     "grad_norm" (of the unclipped gradients) and "step" (before the
-    update).  MoE and pipeline configs are not ported yet."""
-    if model.cfg.moe_experts > 0:
-        raise NotImplementedError("MoE training is not ported yet")
+    update), and for MoE configs "ce_loss" and "moe_aux_loss".  The
+    pipeline schedules are not ported yet."""
     params = [p for p in model.parameters() if p.requires_grad]
+    moe = model.cfg.moe_experts > 0
 
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
-        loss = loss_fn(model, batch)
+        loss, ce, aux = loss_terms(model, batch)
         grads = torch.autograd.grad(loss, params)
         grad_norm = global_norm(grads)
         state.optimizer.step(params, grads, grad_norm)
         metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
                    "step": state.step}
+        if moe:
+            metrics["ce_loss"] = ce.detach()
+            metrics["moe_aux_loss"] = aux.detach()
         state.step += 1
         return state, metrics
 
@@ -301,5 +317,5 @@ def timed_steps(setup: TrainSetup, batch: dict, num_steps: int = 10,
 
 __all__ = ["AdamW", "SGD", "TrainSetup", "TrainState", "chunked_cross_entropy",
            "cross_entropy_loss", "default_optimizer", "global_norm",
-           "loss_fn", "make_train_step", "mfu", "model_flops_per_step",
-           "setup_training", "timed_steps", "warmup_cosine_decay_schedule"]
+           "loss_fn", "loss_terms", "make_train_step", "mfu",
+           "model_flops_per_step", "setup_training", "timed_steps", "warmup_cosine_decay_schedule"]

@@ -15,6 +15,9 @@ transformer.py for the serving and training paths.
 - Decode keeps a preallocated [B, kvH, max_seq_len, Dh] cache per layer
   (`KVCache`) and writes each call's keys and values into it in place;
   the reference threads the same cache through its steps functionally.
+- MoE configs (cfg.moe_experts > 0) put models/moe.py's MoEMLP in each
+  layer's `moe` slot; the stack sums its load-balance losses, which
+  `forward(..., return_aux=True)` returns beside the output.
 - Entry points build on "cuda" unless the caller passes device="cpu".
 """
 
@@ -34,7 +37,7 @@ from torch.utils.checkpoint import (
 
 from ..ops.attention import attention, decode_attention
 from .configs import TransformerConfig
-from .quant import Int4Linear, Int8Linear, _as_tuple
+from .quant import Int4Linear, Int8Linear, StackedInt8Linear, _as_tuple
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -210,16 +213,28 @@ class MLP(nn.Module):
 
 
 class DecoderLayer(nn.Module):
+    """One decoder block.  Dense configs return the residual stream; MoE
+    configs (cfg.moe_experts > 0) hold a `moe` MoEMLP in place of `mlp`
+    and return (stream, load-balance loss)."""
+
     def __init__(self, cfg: TransformerConfig, device="cuda"):
         super().__init__()
         dtype = torch_dtype(cfg.dtype)
         self.attn_norm = RMSNorm(cfg.embed_dim, cfg.norm_eps, dtype, device)
         self.attn = Attention(cfg, device)
         self.mlp_norm = RMSNorm(cfg.embed_dim, cfg.norm_eps, dtype, device)
-        self.mlp = MLP(cfg, device)
+        if cfg.moe_experts > 0:
+            from .moe import MoEMLP
+
+            self.moe = MoEMLP(cfg, device)
+        else:
+            self.mlp = MLP(cfg, device)
 
     def forward(self, x, positions, kv=None, cur: int = 0):
         x = x + self.attn(self.attn_norm(x), positions, kv, cur)
+        if hasattr(self, "moe"):
+            out, aux = self.moe(self.mlp_norm(x))
+            return x + out, aux
         return x + self.mlp(self.mlp_norm(x))
 
 
@@ -246,9 +261,11 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: TransformerConfig, device="cuda"):
         super().__init__()
-        if cfg.moe_experts > 0:
-            raise NotImplementedError(
-                "MoE configs are not ported yet (moe_experts > 0)")
+        if cfg.moe_experts > 0 and cfg.weight_dtype == "int4":
+            raise ValueError(
+                "weight_dtype='int4' does not support MoE configs "
+                "(moe_experts > 0): int4 packing covers dense kernels "
+                "only.  Use weight_dtype='int8' for quantized MoE serving.")
         self.cfg = cfg
         self.device = torch.device(device)
         dtype, pdtype = torch_dtype(cfg.dtype), torch_dtype(cfg.param_dtype)
@@ -268,27 +285,34 @@ class Transformer(nn.Module):
         return self.embed(tokens)
 
     def run_stack(self, x: torch.Tensor, positions: torch.Tensor,
-                  cache: Optional[KVCache] = None) -> torch.Tensor:
+                  cache: Optional[KVCache] = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The layer stack: (x, aux), aux the MoE load-balance loss summed
+        over the layers (0.0 for dense configs)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        moe = self.cfg.moe_experts > 0
         if cache is None:
             saved = REMAT_POLICIES[self.cfg.remat_policy]
             remat = (self.cfg.remat and saved is not None
                      and torch.is_grad_enabled())
             for layer in self.layers:
                 if not remat:
-                    x = layer(x, positions)
+                    out = layer(x, positions)
                 elif not saved:
-                    x = checkpoint(layer, x, positions, use_reentrant=False)
+                    out = checkpoint(layer, x, positions, use_reentrant=False)
                 else:
-                    x = checkpoint(
+                    out = checkpoint(
                         layer, x, positions, use_reentrant=False,
                         context_fn=functools.partial(
                             create_selective_checkpoint_contexts,
                             list(saved)))
-            return x
+                x, aux = (out[0], aux + out[1]) if moe else (out, aux)
+            return x, aux
         for i, layer in enumerate(self.layers):
-            x = layer(x, positions, (cache.k[i], cache.v[i]), cache.index)
+            out = layer(x, positions, (cache.k[i], cache.v[i]), cache.index)
+            x, aux = (out[0], aux + out[1]) if moe else (out, aux)
         cache.index += x.shape[1]
-        return x
+        return x, aux
 
     def head(self, x: torch.Tensor, return_hidden: bool = False):
         cfg = self.cfg
@@ -308,13 +332,17 @@ class Transformer(nn.Module):
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
                 cache: Optional[KVCache] = None,
-                return_hidden: bool = False) -> torch.Tensor:
+                return_hidden: bool = False, return_aux: bool = False):
+        """Logits [B, S, V] fp32 (the final hidden state with
+        return_hidden), and with return_aux also the summed MoE
+        load-balance loss."""
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device
                                      ).expand(tokens.shape)
         x = self.embed_tokens(tokens)
-        x = self.run_stack(x, positions, cache)
-        return self.head(x, return_hidden)
+        x, aux = self.run_stack(x, positions, cache)
+        out = self.head(x, return_hidden)
+        return (out, aux) if return_aux else out
 
 
 # flax's lecun_normal draws from N(0, 1) truncated to [-2, 2] and divides
@@ -328,19 +356,26 @@ def init_params(model: Transformer, generator: torch.Generator) -> None:
     sigma = sqrt(1 / fan_in) / 0.8796..., fan_in the product of the
     contract dims, since flax's DenseGeneral flattens the kernel to
     [prod(contract), prod(features)] first); the embedding N(0, 1); norm
-    scales ones.  `generator` lives on the model's device."""
+    scales ones.  A MoE layer's router is a DenseGeneral [D, E]; its
+    stacked expert kernels draw each expert's own lecun_normal, fan_in D
+    for gate and up and the expert hidden M for down (the reference's
+    vmapped experts).  `generator` lives on the model's device."""
+    from .moe import StackedDense
+
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, DenseGeneral):
-                std = prod(mod.contract) ** -0.5 / _TRUNC_STD
+            if isinstance(mod, (DenseGeneral, StackedDense)):
+                fan_in = (mod.contract if isinstance(mod, StackedDense)
+                          else prod(mod.contract))
                 nn.init.trunc_normal_(mod.kernel, 0.0, 1.0, -2.0, 2.0,
                                       generator=generator)
-                mod.kernel.mul_(std)
+                mod.kernel.mul_(fan_in ** -0.5 / _TRUNC_STD)
             elif isinstance(mod, Embed):
                 mod.embedding.normal_(0.0, 1.0, generator=generator)
             elif isinstance(mod, RMSNorm):
                 mod.scale.fill_(1.0)
-            elif isinstance(mod, (Int8Linear, Int4Linear)):
+            elif isinstance(mod, (Int8Linear, Int4Linear,
+                                  StackedInt8Linear)):
                 raise ValueError("init_params draws float weights; "
                                  "quantize a float model instead")
 

@@ -115,12 +115,26 @@ non-zero without its result line):
    drops other choices, where single-token steps drop nothing), and
    against each other.  The same weights at capacity factor E / k = 2,
    where no pass drops a choice, are served too: there the one pass
-   over the emitted tokens must pick >= 0.8 of them.
+   over the emitted tokens must pick >= 0.8 of them;
+9. mesh_train: the sharded training step (models/train.py on a mesh:
+   FSDP2 over data and fsdp, the tensor and expert blocks, the mesh train
+   step) on a world-1 NCCL process group and `make_mesh(MeshConfig())`,
+   all six dims 1; nothing falls back to gloo or to the unsharded step.
+   BENCH_CHIP at batch 40 through setup_training(..., mesh), AdamW with a
+   bf16 first moment: one step must launch exactly 20/10/10 flash
+   kernels, and the median of five steps after it is printed beside the
+   train phase's step time (the cost of the FSDP2 wrapping at world size
+   1); at batch 8 from the same seed the mesh path against the unsharded
+   kernel path: loss within 1e-3 relative (bit-identity printed), global
+   gradient norm within 2e-2, every parameter's gradient cosine >= 0.99;
+   BENCH_MOE at batch 4: one mesh step with 20/10/10 flash launches and a
+   loss within 1e-3 relative of the unsharded kernel path's.  The
+   process group is destroyed at the end.
 
 It prints one JSON line per kernel shape and per slice, then a "kernels"
 line (each kernel's launches on its main path, and beside them the
-speculative run's int4 launches and one MoE step's flash launches), the
-nvidia-smi line, and last {"ok": true, "device": {...}}.
+speculative run's int4 launches, one MoE step's and one mesh step's flash
+launches), the nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1009,7 +1023,7 @@ def train_phase(device, device_name, flash_results, flush) -> dict:
 
     def adamw_setup(optimizer=None):
         return train.setup_training(
-            cfg, device, seed=SEED,
+            cfg, device=device, seed=SEED,
             optimizer=optimizer or train.default_optimizer(
                 mu_dtype="bfloat16"))
 
@@ -1207,7 +1221,7 @@ def moe_train_phase(device, device_name) -> dict:
 
     def setup(optimizer=None):
         return train.setup_training(
-            cfg, device, seed=SEED + 6,
+            cfg, device=device, seed=SEED + 6,
             optimizer=optimizer or train.default_optimizer(
                 mu_dtype="bfloat16"))
 
@@ -1430,11 +1444,150 @@ def moe_serve_phase(device) -> dict:
     return res
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_train_phase(device, smi: str, train_step_s) -> dict:
+    """The sharded training step (setup_training with a mesh: FSDP2 over
+    data and fsdp, tensor and expert blocks, the mesh train step) on a
+    world-1 NCCL process group, all six mesh dims 1."""
+    import torch
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.models import train
+    from kubeflow_tpu_torch.models.configs import BENCH_CHIP, BENCH_MOE
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    phase_t0 = time.perf_counter()
+    cfg, seq = BENCH_CHIP, BENCH_CHIP.max_seq_len
+    expected = {"fwd": 2 * cfg.num_layers, "dkv": cfg.num_layers,
+                "dq": cfg.num_layers}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh(MeshConfig(), device="cuda")
+        if dist.get_backend() != "nccl" or mesh.size() != 1:
+            raise RuntimeError(f"expected a world-1 NCCL mesh, got "
+                               f"{dist.get_backend()} of {mesh.size()}")
+        data = _batch(cfg.vocab_size, TRAIN_BATCH, seq, SEED, device)
+        t0 = time.perf_counter()
+        run = train.setup_training(
+            cfg, mesh, device=device, seed=SEED,
+            optimizer=train.default_optimizer(mu_dtype="bfloat16"))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        for key in fa.launches:
+            fa.launches[key] = 0
+        state, metrics = run.train_step(run.state, data)
+        launches = dict(fa.launches)
+        first_loss = metrics["loss"].item()
+        # the train phase's windows and pick: 3 x 3 steps, the first
+        # after one warm-up step
+        windows = [train.timed_steps(run, data, num_steps=3,
+                                     warmup=1 if w == 0 else 0)
+                   for w in range(3)]
+        steps_s = [w["step_time_s"] for w in windows]
+        ranked = sorted(windows[1:], key=lambda r: r["tokens_per_s"])
+        step_s = ranked[len(ranked) // 2]["step_time_s"]
+        del run, state, metrics
+        torch.cuda.empty_cache()
+
+        # mesh path against the unsharded kernel path, same seed and batch
+        small = _batch(cfg.vocab_size, COMPARE_BATCH, seq, SEED + 1, device)
+        sharded = train.setup_training(cfg, mesh, device=device, seed=SEED,
+                                       optimizer=train.SGD(0.05))
+        metrics_m, _, grads_m, norm_m = train.mesh_loss_and_grads(
+            sharded.model, small)
+        names = [n for n, p in sharded.model.named_parameters()
+                 if p.requires_grad]
+        del sharded
+        single = train.setup_training(cfg, device=device, seed=SEED,
+                                      optimizer=train.SGD(0.05))
+        loss_s, grads_s = _loss_and_grads(single.model, small)
+        norm_s = train.global_norm(grads_s).item()
+        del single
+        cosines = {n: torch.nn.functional.cosine_similarity(
+            a.flatten().float(), b.flatten().float(), dim=0).item()
+            for n, a, b in zip(names, grads_m, grads_s)}
+        loss_m = metrics_m["loss"]
+        loss_rel = abs(loss_m.item() - loss_s.item()) / abs(loss_s.item())
+        norm_rel = abs(norm_m.item() - norm_s) / norm_s
+        worst = min(cosines, key=cosines.get)
+        same_bits = torch.equal(loss_m, loss_s)
+        del grads_m, grads_s
+        torch.cuda.empty_cache()
+
+        # BENCH_MOE: one mesh step against the unsharded kernel path's loss
+        moe_data = _batch(BENCH_MOE.vocab_size, MOE_COMPARE_BATCH, seq,
+                          SEED + 7, device)
+        moe = train.setup_training(BENCH_MOE, mesh, device=device,
+                                   seed=SEED + 6, optimizer=train.SGD(0.05))
+        for key in fa.launches:
+            fa.launches[key] = 0
+        _, moe_metrics = moe.train_step(moe.state, moe_data)
+        moe_launches = dict(fa.launches)
+        moe_loss_m = moe_metrics["loss"].item()
+        del moe, moe_metrics
+        moe_single = train.setup_training(BENCH_MOE, device=device,
+                                          seed=SEED + 6,
+                                          optimizer=train.SGD(0.05))
+        with torch.no_grad():
+            moe_loss_s = train.loss_fn(moe_single.model, moe_data).item()
+        del moe_single
+        torch.cuda.empty_cache()
+        moe_rel = abs(moe_loss_m - moe_loss_s) / abs(moe_loss_s)
+    finally:
+        dist.destroy_process_group()
+    res = {
+        "phase": "mesh_train", "backend": "nccl", "world_size": 1,
+        "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+        "model": "bench-chip", "batch": TRAIN_BATCH, "seq": seq,
+        "setup_s": setup_s, "first_loss": first_loss,
+        "flash_launches": launches, "expected_launches": expected,
+        "step_time_s": step_s, "window_step_time_s": steps_s,
+        "train_phase_step_time_s": train_step_s,
+        "nvidia_smi": smi, "compare_batch": COMPARE_BATCH,
+        "loss_mesh": loss_m.item(), "loss_single": loss_s.item(),
+        "loss_rel_err": loss_rel, "loss_bit_identical": same_bits,
+        "grad_norm_mesh": norm_m.item(), "grad_norm_single": norm_s,
+        "grad_norm_rel_err": norm_rel, "min_grad_cosine": cosines[worst],
+        "min_grad_cosine_param": worst,
+        "moe_batch": MOE_COMPARE_BATCH, "moe_flash_launches": moe_launches,
+        "moe_loss_mesh": moe_loss_m, "moe_loss_single": moe_loss_s,
+        "moe_loss_rel_err": moe_rel,
+        "phase_s": time.perf_counter() - phase_t0,
+    }
+    emit(res)
+    if launches != expected or moe_launches != expected:
+        raise RuntimeError(f"a mesh training step launched the flash "
+                           f"kernels {launches} (MoE {moe_launches}) times, "
+                           f"expected {expected}")
+    if not all(math.isfinite(x) for x in steps_s + [first_loss]):
+        raise RuntimeError("a mesh training loss or step time was not "
+                           "finite")
+    if (loss_rel > TRAIN_LOSS_TOL or norm_rel > TRAIN_NORM_TOL
+            or cosines[worst] < TRAIN_MIN_COSINE
+            or moe_rel > TRAIN_LOSS_TOL):
+        raise RuntimeError(
+            f"mesh path and unsharded kernel path disagree: loss rel "
+            f"{loss_rel}, MoE loss rel {moe_rel} (limit {TRAIN_LOSS_TOL}), "
+            f"grad norm rel {norm_rel} (limit {TRAIN_NORM_TOL}), gradient "
+            f"cosine of {worst} {cosines[worst]} (limit "
+            f"{TRAIN_MIN_COSINE})")
+    return res
+
+
 def flash_kernel_lines(flash_results, launches: dict,
-                       moe_launches: dict) -> list:
+                       moe_launches: dict, mesh_launches: dict) -> list:
     """The kernels line's flash entries: the training-shape medians times
     the main path's launches per step; beside them the launches of one
-    BENCH_MOE step."""
+    BENCH_MOE step and of one sharded (mesh) BENCH_CHIP step."""
     entries = []
     main = flash_results[TRAIN_CASE]
     for name, key in (("flash_fwd", "fwd"), ("flash_bwd_dkv", "dkv"),
@@ -1455,6 +1608,7 @@ def flash_kernel_lines(flash_results, launches: dict,
             **{key: r[key] for key in ("library_covers", "library_covered_by")
                if key in r},
             "moe_step_launches": moe_launches[key],
+            "mesh_step_launches": mesh_launches[key],
             "ms_per_launch": r["ms"], "shape": list(TRAIN_SHAPE),
             "basis": "per-launch medians at the training shape times one "
                      "training step's launches",
@@ -1580,6 +1734,7 @@ def main() -> int:
     del flush
     mt = moe_train_phase(device, device_name)
     moe_serve_phase(device)
+    mesh = mesh_train_phase(device, smi, tr["step_time_s"])
 
     totals = main_path_totals(results, sl["int4_launches"])
     emit({"kernels": [{
@@ -1597,7 +1752,8 @@ def main() -> int:
                  "prefill and speculative_round over one decode step's, "
                  "one prefill's and one speculative round's",
     }] + flash_kernel_lines(flash_results, tr["flash_launches"],
-                            mt["flash_launches"])})
+                            mt["flash_launches"],
+                            mesh["flash_launches"])})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                  "count": torch.cuda.device_count()}})

@@ -111,7 +111,7 @@ def main(argv: Optional[list] = None) -> dict:
         config, batch, seq = ((BENCH_MOE, 16, 2048) if moe
                               else (BENCH_CHIP, 40, 2048))
 
-    setup = setup_training(config, device,
+    setup = setup_training(config, device=device,
                            optimizer=default_optimizer(mu_dtype="bfloat16"))
     gen = torch.Generator(device=device).manual_seed(0)
     inputs = torch.randint(0, config.vocab_size, (batch, seq),

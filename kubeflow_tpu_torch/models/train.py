@@ -1,14 +1,31 @@
-"""Training on one device: loss, optimizer, train step, MFU accounting.
+"""Training: loss, optimizer, train step, MFU accounting.
 
-The port of kubeflow_tpu/models/train.py for one card, dense and MoE,
-with no pipeline schedule.  JAX's functional train state becomes a mutable one: the
-model holds the parameters, the optimizer its moments, and
-`train_step(state, batch)` updates both in place and returns the same
-state with the metrics, keeping the reference's call shape.
+The port of kubeflow_tpu/models/train.py, dense and MoE, on one card or
+on a device mesh, with no pipeline schedule yet.  JAX's functional train
+state becomes a mutable one: the model holds the parameters, the
+optimizer its moments, and `train_step(state, batch)` updates both in
+place and returns the same state with the metrics, keeping the
+reference's call shape.
 
 The optimizer follows optax, not torch.optim: `default_optimizer` is
 clip_by_global_norm then AdamW on a warmup-cosine schedule, with optax's
 arithmetic (see `AdamW`).
+
+On a mesh (`setup_training(config, mesh)`), as the reference's sharded
+step on its mesh:
+- every rank draws the full weights from the same seeded generator, so a
+  sharded run starts from the single-device weights bit for bit; then
+  `parallelize` cuts each parameter to its block over "tensor" and
+  "expert" by the logical rule table and applies FSDP2 `fully_shard`
+  over ("data", "fsdp") to every layer and the root: replicated over
+  data, sharded over fsdp (HSDP);
+- the train step takes the global batch on every rank and keeps its
+  rows (over data and fsdp) and its sequence block (over sequence);
+- each rank's loss is the mean over its tokens; FSDP2 averages the
+  gradients over data and fsdp, the step averages them over sequence,
+  and tensor and expert ranks hold the same loss, so the gradient is
+  that of the global mean.  `grad_norm` is the global norm, and the
+  optimizer steps each rank's shards and holds only their moments.
 """
 
 from __future__ import annotations
@@ -19,13 +36,23 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.collectives import copy_to, mean_over, reduce_from
+from ..parallel.mesh import axis_group, axis_size
+from ..parallel.sharding import (
+    local_shard,
+    logical_to_spec,
+    rules_for_mesh,
+    spec_axes,
+)
 from ..runtime.roofline import mfu as roofline_mfu
 from ..runtime.roofline import train_step_flops
 from .configs import TransformerConfig
-from .transformer import Transformer, init_params, torch_dtype
+from .transformer import Transformer, init_params, logical, torch_dtype
 
 
 # -- schedules ----------------------------------------------------------------
@@ -150,44 +177,70 @@ def default_optimizer(learning_rate: float = 3e-4, warmup_steps: int = 100,
 # -- losses -------------------------------------------------------------------
 
 
-def cross_entropy_loss(logits: torch.Tensor,
-                       targets: torch.Tensor) -> torch.Tensor:
-    """Mean next-token NLL in fp32 over the full [B, S] (no padding)."""
-    logp = F.log_softmax(logits.to(torch.float32), dim=-1)
-    return -logp.gather(-1, targets[..., None].long())[..., 0].mean()
+def _nll(logits: torch.Tensor, targets: torch.Tensor,
+         vocab: Optional[tuple]) -> torch.Tensor:
+    """Per-token NLL of fp32 logits.  With vocab = (tensor group, first
+    index) the logits are this rank's slice of the vocabulary: the
+    log-sum-exp and the target's logit are summed across the group."""
+    targets = targets.long()
+    if vocab is None:
+        logp = F.log_softmax(logits, dim=-1)
+        return -logp.gather(-1, targets[..., None])[..., 0]
+    group, start = vocab
+    rows = logits.shape[-1]
+    with torch.no_grad():
+        shift = logits.amax(-1, keepdim=True)
+        dist.all_reduce(shift, dist.ReduceOp.MAX, group=group)
+    sumexp = reduce_from(torch.exp(logits - shift).sum(-1), group)
+    local = targets - start
+    inside = (local >= 0) & (local < rows)
+    picked = logits.gather(-1, local.clamp(0, rows - 1)[..., None])[..., 0]
+    picked = reduce_from(torch.where(inside, picked, 0.0), group)
+    return shift[..., 0] + torch.log(sumexp) - picked
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       vocab: Optional[tuple] = None) -> torch.Tensor:
+    """Mean next-token NLL in fp32 over the full [B, S] (no padding);
+    `vocab` as in `Transformer.vocab_shard`."""
+    return _nll(logits.to(torch.float32), targets, vocab).mean()
 
 
 def _chunk_nll(h_c: torch.Tensor, t_c: torch.Tensor, kernel: torch.Tensor,
-               softcap: float) -> torch.Tensor:
+               softcap: float, vocab: Optional[tuple]) -> torch.Tensor:
     # the operands are the hidden dtype's values, multiplied and summed in
     # fp32: the logits are never rounded to bf16
     logits = h_c.to(torch.float32) @ kernel
     if softcap > 0.0:
         logits = torch.tanh(logits / softcap) * softcap
-    logp = F.log_softmax(logits, dim=-1)
-    return -logp.gather(-1, t_c[:, None])[:, 0].sum()
+    return _nll(logits, t_c, vocab).sum()
 
 
 def chunked_cross_entropy(hidden: torch.Tensor, targets: torch.Tensor,
                           head_kernel: torch.Tensor, num_chunks: int,
-                          softcap: float = 0.0) -> torch.Tensor:
+                          softcap: float = 0.0,
+                          vocab: Optional[tuple] = None) -> torch.Tensor:
     """Mean NLL over [B, S] computed in `num_chunks` chunks of the
     flattened tokens (row-major), each chunk's fp32 logits recomputed in
     the backward (torch.utils.checkpoint), so the full [tokens, vocab]
     logits never exist.  head_kernel [D, V] (the embedding's transpose
-    when tied) is cast to the hidden dtype, as the reference does."""
+    when tied) is cast to the hidden dtype, as the reference does.  With
+    `vocab` (see `Transformer.vocab_shard`) head_kernel is this rank's
+    [D, V/tp] slice and the log-sum-exp runs across the tensor group."""
     batch, seq, dim = hidden.shape
     tokens = batch * seq
     if tokens % num_chunks:
         raise ValueError(f"{tokens} tokens not divisible by {num_chunks} "
                          f"chunks")
+    if vocab is not None:
+        hidden = copy_to(hidden, vocab[0])
     h = hidden.reshape(num_chunks, tokens // num_chunks, dim)
     t = targets.reshape(num_chunks, tokens // num_chunks).long()
     kernel = head_kernel.to(hidden.dtype).to(torch.float32)
     total = hidden.new_zeros((), dtype=torch.float32)
     for i in range(num_chunks):
         total = total + checkpoint(_chunk_nll, h[i], t[i], kernel, softcap,
-                                   use_reentrant=False)
+                                   vocab, use_reentrant=False)
     return total / tokens
 
 
@@ -215,23 +268,26 @@ class TrainSetup:
 def loss_terms(model: Transformer, batch: dict
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(total, cross-entropy, MoE aux) of `batch` ({"inputs", "targets"}
-    [B, S]): chunked cross-entropy over the final hidden state when
-    cfg.loss_chunks > 0, else cross-entropy over the full logits; the
-    total adds cfg.moe_aux_weight times the summed load-balance loss for
-    MoE configs and is the cross-entropy otherwise."""
+    [B, S], and on a mesh "positions", their global positions): chunked
+    cross-entropy over the final hidden state when cfg.loss_chunks > 0,
+    else cross-entropy over the full logits; the total adds
+    cfg.moe_aux_weight times the summed load-balance loss for MoE configs
+    and is the cross-entropy otherwise."""
     cfg = model.cfg
+    positions, vocab = batch.get("positions"), model.vocab_shard()
     if cfg.loss_chunks > 0:
-        hidden, aux = model(batch["inputs"], return_hidden=True,
+        hidden, aux = model(batch["inputs"], positions, return_hidden=True,
                             return_aux=True)
         if cfg.tie_embeddings:
             kernel = model.embed.embedding.T
         else:
             kernel = model.lm_head.kernel
         ce = chunked_cross_entropy(hidden, batch["targets"], kernel,
-                                   cfg.loss_chunks, cfg.logits_softcap)
+                                   cfg.loss_chunks, cfg.logits_softcap,
+                                   vocab)
     else:
-        logits, aux = model(batch["inputs"], return_aux=True)
-        ce = cross_entropy_loss(logits, batch["targets"])
+        logits, aux = model(batch["inputs"], positions, return_aux=True)
+        ce = cross_entropy_loss(logits, batch["targets"], vocab)
     total = ce + cfg.moe_aux_weight * aux if cfg.moe_experts > 0 else ce
     return total, ce, aux
 
@@ -241,14 +297,160 @@ def loss_fn(model: Transformer, batch: dict) -> torch.Tensor:
     return loss_terms(model, batch)[0]
 
 
+# mesh axes over which a parameter is cut before FSDP2 shards it
+_MODEL_AXES = ("tensor", "expert")
+
+
+def param_spec(axes: tuple, rules) -> tuple:
+    """A parameter's spec under `rules`, with "fsdp" on dim 0 when no dim
+    claims it (the norm scales): FSDP2 shards every parameter it holds,
+    where the reference keeps those replicated."""
+    spec = logical_to_spec(axes, rules)
+    if any("fsdp" in spec_axes(e) for e in spec):
+        return spec
+    if spec[0] is not None:
+        raise ValueError(f"no dim of {axes} is free for fsdp")
+    return ("fsdp",) + spec[1:]
+
+
+def shard_parameters(module: nn.Module, mesh) -> dict:
+    """Cut every parameter of `module` (all still full, alike on every
+    rank) to its block over "tensor" and "expert": DTensor's split under
+    the rule table, nothing sent.  Returns {parameter name: spec}."""
+    rules = rules_for_mesh(mesh)
+    specs = {}
+    for name, param in list(module.named_parameters()):
+        axes = getattr(param, "logical_axes", None)
+        if axes is None:
+            raise ValueError(f"{name} has no logical axes to shard by")
+        spec = param_spec(axes, rules)
+        block = local_shard(param.detach(), spec, mesh, _MODEL_AXES).clone()
+        owner, _, leaf = name.rpartition(".")
+        setattr(module.get_submodule(owner), leaf,
+                logical(nn.Parameter(block, param.requires_grad), axes))
+        specs[name] = spec
+    return specs
+
+
+def parallelize(model: Transformer, mesh) -> dict:
+    """Shard a model built on `mesh` whose parameters are still full:
+    `shard_parameters`, then FSDP2 `fully_shard` over the ("data",
+    "fsdp") sub-mesh on every layer and the root, each parameter sharded
+    on the dim its spec gives "fsdp".  Returns {parameter name: spec},
+    which `make_train_step` reads from `model.param_specs`."""
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import Shard
+
+    specs = shard_parameters(model, mesh)
+    fsdp_dim = {param: next(d for d, e in enumerate(specs[name])
+                            if "fsdp" in spec_axes(e))
+                for name, param in model.named_parameters()}
+    dp_mesh = mesh["data", "fsdp"]
+
+    def placement(param):
+        return Shard(fsdp_dim[param])
+
+    for layer in model.layers:
+        fully_shard(layer, mesh=dp_mesh, shard_placement_fn=placement)
+    fully_shard(model, mesh=dp_mesh, shard_placement_fn=placement)
+    model.param_specs = specs
+    return specs
+
+
+def shard_batch(batch: dict, mesh) -> dict:
+    """This rank's block of a global {"inputs", "targets"} [B, S] batch:
+    its rows over ("data", "fsdp") and its sequence block over
+    "sequence", with "positions", their global positions."""
+    spec = logical_to_spec(("batch", "seq"), rules_for_mesh(mesh))
+    inputs = batch["inputs"]
+    positions = torch.arange(inputs.shape[1], device=inputs.device
+                             ).expand(inputs.shape)
+    return {"inputs": local_shard(inputs, spec, mesh).contiguous(),
+            "targets": local_shard(batch["targets"], spec, mesh
+                                   ).contiguous(),
+            "positions": local_shard(positions, spec, mesh).contiguous()}
+
+
+def local_tensor(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (the same storage under no_grad)."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _sharded_norm(grads: list, axes: list, mesh) -> torch.Tensor:
+    """The global norm of gradients each sharded over the mesh axes in
+    its entry of `axes`: local sums of squares, summed across the ranks
+    of each such axis."""
+    buckets: dict = {}
+    for g, ax in zip(grads, axes):
+        buckets.setdefault(tuple(ax), []).append(g)
+    total = None
+    for ax in sorted(buckets):
+        sq = torch.stack([g.float().square().sum() for g in buckets[ax]]
+                         ).sum()
+        for name in ax:
+            dist.all_reduce(sq, group=axis_group(mesh, name))
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+def mesh_loss_and_grads(model: Transformer, batch: dict):
+    """One forward and backward of a parallelized model on the global
+    `batch`: (metrics, local parameters, local gradients, grad_norm), the
+    metrics "loss", "ce_loss" and "moe_aux_loss" as global means, the
+    gradients those of the global mean loss, each rank's shards."""
+    mesh = model.mesh
+    total, ce, aux = loss_terms(model, shard_batch(batch, mesh))
+    total.backward()
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    params = [p for p in model.parameters() if p.requires_grad]
+    with torch.no_grad():
+        local = [local_tensor(p) for p in params]
+        grads = [local_tensor(p.grad) for p in params]
+        for p in params:
+            p.grad = None
+        sp = axis_group(mesh, "sequence")
+        if sp is not None:
+            for g in grads:
+                dist.all_reduce(g, group=sp)
+                g.div_(dist.get_world_size(sp))
+        axes = [[a for e in model.param_specs[n] for a in spec_axes(e)
+                 if axis_size(mesh, a) > 1] for n in names]
+        grad_norm = _sharded_norm(grads, axes, mesh)
+        tokens = [axis_group(mesh, a) for a in ("data", "fsdp", "sequence")]
+        metrics = {"loss": mean_over(total.detach(), tokens),
+                   "ce_loss": mean_over(ce.detach(), tokens),
+                   "moe_aux_loss": aux.detach()}
+    return metrics, local, grads, grad_norm
+
+
 def make_train_step(model: Transformer, optimizer):
     """step(state, batch) -> (state, metrics): loss and gradients of every
     parameter, the optimizer's update in place; metrics "loss",
     "grad_norm" (of the unclipped gradients) and "step" (before the
-    update), and for MoE configs "ce_loss" and "moe_aux_loss".  The
-    pipeline schedules are not ported yet."""
-    params = [p for p in model.parameters() if p.requires_grad]
+    update), and for MoE configs "ce_loss" and "moe_aux_loss".  A model
+    on a mesh (after `parallelize`) takes the sharded step; a populated
+    pipeline axis is refused: the pipeline schedules are not ported
+    yet."""
     moe = model.cfg.moe_experts > 0
+    if model.mesh is not None:
+        if axis_size(model.mesh, "pipeline") > 1:
+            raise NotImplementedError("pipeline schedules are not ported yet")
+
+        def mesh_step(state: TrainState, batch: dict
+                      ) -> tuple[TrainState, dict]:
+            metrics, params, grads, grad_norm = mesh_loss_and_grads(
+                model, batch)
+            state.optimizer.step(params, grads, grad_norm)
+            metrics.update(grad_norm=grad_norm, step=state.step)
+            if not moe:
+                del metrics["ce_loss"], metrics["moe_aux_loss"]
+            state.step += 1
+            return state, metrics
+
+        return mesh_step
+    params = [p for p in model.parameters() if p.requires_grad]
 
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         loss, ce, aux = loss_terms(model, batch)
@@ -266,16 +468,25 @@ def make_train_step(model: Transformer, optimizer):
     return step
 
 
-def setup_training(config: TransformerConfig, device="cuda", seed: int = 0,
-                   optimizer=None) -> TrainSetup:
+def setup_training(config: TransformerConfig, mesh=None, device="cuda",
+                   seed: int = 0, optimizer=None) -> TrainSetup:
     """Build the model on `device`, draw its weights with `init_params`
     from a generator seeded with `seed` on that device, and initialize
-    `optimizer` (default: `default_optimizer()`)."""
+    `optimizer` (default: `default_optimizer()`).  With a `mesh`
+    (parallel.mesh.make_mesh) every rank draws the full weights alike,
+    then `parallelize` shards them and the optimizer holds each rank's
+    shards only."""
     device = torch.device(device)
-    model = Transformer(config, device)
+    if mesh is not None and axis_size(mesh, "pipeline") > 1:
+        raise NotImplementedError("pipeline schedules are not ported yet")
+    model = Transformer(config, device, mesh)
     init_params(model, torch.Generator(device=device).manual_seed(seed))
+    if mesh is not None:
+        parallelize(model, mesh)
     optimizer = optimizer if optimizer is not None else default_optimizer()
-    optimizer.init([p for p in model.parameters() if p.requires_grad])
+    with torch.no_grad():
+        optimizer.init([local_tensor(p) for p in model.parameters()
+                        if p.requires_grad])
     state = TrainState(model, optimizer)
     return TrainSetup(model, state, make_train_step(model, optimizer),
                       config)
@@ -317,5 +528,8 @@ def timed_steps(setup: TrainSetup, batch: dict, num_steps: int = 10,
 
 __all__ = ["AdamW", "SGD", "TrainSetup", "TrainState", "chunked_cross_entropy",
            "cross_entropy_loss", "default_optimizer", "global_norm",
-           "loss_fn", "loss_terms", "make_train_step", "mfu",
-           "model_flops_per_step", "setup_training", "timed_steps", "warmup_cosine_decay_schedule"]
+           "local_tensor", "loss_fn", "loss_terms", "make_train_step",
+           "mesh_loss_and_grads", "mfu", "model_flops_per_step",
+           "parallelize", "param_spec", "setup_training", "shard_batch",
+           "shard_parameters", "timed_steps",
+           "warmup_cosine_decay_schedule"]

@@ -18,6 +18,17 @@ transformer.py for the serving and training paths.
 - MoE configs (cfg.moe_experts > 0) put models/moe.py's MoEMLP in each
   layer's `moe` slot; the stack sums its load-balance losses, which
   `forward(..., return_aux=True)` returns beside the output.
+- Every parameter records the reference's logical axis names
+  (`param.logical_axes`, e.g. q ("embed", "heads", "kv")), so one rule
+  table (parallel/sharding.py) shards the model on a mesh.
+- On a mesh (`Transformer(cfg, device, mesh)`, sharded by
+  models.train.parallelize) heads, the MLP hidden dim and the vocabulary
+  are split over "tensor": q/k/v and gate/up are column-parallel, out and
+  down row-parallel with an all-reduce over the tensor group, the
+  embedding masks the rows it does not own and all-reduces, and the LM
+  head returns this rank's slice of the vocabulary.  Attention is ring
+  attention over "sequence" when that axis is populated.  Layers read
+  their local sizes from their parameters' shapes.
 - Entry points build on "cuda" unless the caller passes device="cpu".
 """
 
@@ -36,6 +47,8 @@ from torch.utils.checkpoint import (
 )
 
 from ..ops.attention import attention, decode_attention
+from ..parallel.collectives import copy_to, reduce_from
+from ..parallel.mesh import axis_group, axis_rank, axis_size
 from .configs import TransformerConfig
 from .quant import Int4Linear, Int8Linear, StackedInt8Linear, _as_tuple
 
@@ -64,6 +77,12 @@ def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+def logical(param: nn.Parameter, axes: tuple) -> nn.Parameter:
+    """Record the reference's logical axis names on a parameter."""
+    param.logical_axes = axes
+    return param
+
+
 class RMSNorm(nn.Module):
     """fp32 statistics and an fp32 scale; the output in `dtype`."""
 
@@ -71,8 +90,8 @@ class RMSNorm(nn.Module):
                  device="cuda"):
         super().__init__()
         self.eps, self.dtype = eps, dtype
-        self.scale = nn.Parameter(
-            torch.ones(dim, dtype=torch.float32, device=device))
+        self.scale = logical(nn.Parameter(
+            torch.ones(dim, dtype=torch.float32, device=device)), ("norm",))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.to(torch.float32)
@@ -102,25 +121,31 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 class DenseGeneral(nn.Module):
     """Bias-free dense layer over the trailing `contract` dims, kernel in
     the reference's [contract..., features...] layout; kernel and input
-    are cast to `dtype` for the product (flax DenseGeneral)."""
+    are cast to `dtype` for the product (flax DenseGeneral).  `axes` are
+    the kernel's logical names.  The product takes its sizes from the
+    kernel, so a tensor-parallel shard computes its own block."""
 
     def __init__(self, contract, features, dtype=torch.bfloat16,
-                 param_dtype=torch.float32, device="cuda"):
+                 param_dtype=torch.float32, device="cuda", axes=None):
         super().__init__()
         self.contract, self.features = _as_tuple(contract), _as_tuple(features)
         self.dtype = dtype
-        self.kernel = nn.Parameter(torch.zeros(
-            self.contract + self.features, dtype=param_dtype, device=device))
+        self.kernel = logical(nn.Parameter(torch.zeros(
+            self.contract + self.features, dtype=param_dtype,
+            device=device)), axes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        k, n = prod(self.contract), prod(self.features)
-        lead = x.shape[:x.dim() - len(self.contract)]
+        nc = len(self.contract)
+        shape = self.kernel.shape
+        k = prod(shape[:nc])
+        lead = x.shape[:x.dim() - nc]
         out = x.to(self.dtype).reshape(-1, k) @ \
-            self.kernel.to(self.dtype).reshape(k, n)
-        return out.reshape(lead + self.features)
+            self.kernel.to(self.dtype).reshape(k, -1)
+        return out.reshape(lead + shape[nc:])
 
 
-def _dense(contract, features, cfg: TransformerConfig, device) -> nn.Module:
+def _dense(contract, features, cfg: TransformerConfig, device,
+           axes: tuple) -> nn.Module:
     """bf16/fp32, int8 or int4 dense layer, per cfg.weight_dtype."""
     dtype = torch_dtype(cfg.dtype)
     if cfg.weight_dtype in ("int8", "int4"):
@@ -129,7 +154,7 @@ def _dense(contract, features, cfg: TransformerConfig, device) -> nn.Module:
     if cfg.weight_dtype:
         raise ValueError(f"unknown weight_dtype {cfg.weight_dtype!r}")
     return DenseGeneral(contract, features, dtype,
-                        torch_dtype(cfg.param_dtype), device)
+                        torch_dtype(cfg.param_dtype), device, axes)
 
 
 class KVCache:
@@ -146,24 +171,29 @@ class KVCache:
         self.index = 0
 
 
+_QKV = ("embed", "heads", "kv")
+
+
 class Attention(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device="cuda"):
+    def __init__(self, cfg: TransformerConfig, device="cuda", mesh=None):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.mesh = cfg, mesh
         d, h, kvh, hd = (cfg.embed_dim, cfg.num_heads, cfg.num_kv_heads,
                          cfg.head_dim)
         if cfg.fused_projections:
-            self.qkv = _dense(d, (h + 2 * kvh, hd), cfg, device)
+            self.qkv = _dense(d, (h + 2 * kvh, hd), cfg, device, _QKV)
         else:
-            self.q = _dense(d, (h, hd), cfg, device)
-            self.k = _dense(d, (kvh, hd), cfg, device)
-            self.v = _dense(d, (kvh, hd), cfg, device)
-        self.out = _dense((h, hd), d, cfg, device)
+            self.q = _dense(d, (h, hd), cfg, device, _QKV)
+            self.k = _dense(d, (kvh, hd), cfg, device, _QKV)
+            self.v = _dense(d, (kvh, hd), cfg, device, _QKV)
+        self.out = _dense((h, hd), d, cfg, device, ("heads", "kv", "embed"))
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 kv: Optional[tuple] = None, cur: int = 0) -> torch.Tensor:
         cfg = self.cfg
         h, kvh = cfg.num_heads, cfg.num_kv_heads
+        tp = axis_group(self.mesh, "tensor")
+        x = copy_to(x, tp)
         if cfg.fused_projections:
             qkv = self.qkv(x)
             q, k, v = qkv[..., :h, :], qkv[..., h:h + kvh, :], \
@@ -186,30 +216,40 @@ class Attention(nn.Module):
             k_cache[:, :, cur:cur + q_len] = k.transpose(1, 2)
             v_cache[:, :, cur:cur + q_len] = v.transpose(1, 2)
             out = decode_attention(q, k_cache, v_cache, q_offset=cur)
+        elif cfg.attention_impl == "ring" or \
+                axis_size(self.mesh, "sequence") > 1:
+            # a sequence-sharded mesh always takes the ring: a local
+            # attention would miss the other ranks' keys
+            out = attention(q, k, v, causal=True, impl="ring",
+                            positions=positions,
+                            group=axis_group(self.mesh, "sequence"))
         else:
             out = attention(q, k, v, causal=True, impl=cfg.attention_impl)
-        return self.out(out)
+        return reduce_from(self.out(out), tp)
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device="cuda"):
+    def __init__(self, cfg: TransformerConfig, device="cuda", mesh=None):
         super().__init__()
-        self.fused = cfg.fused_projections
+        self.fused, self.mesh = cfg.fused_projections, mesh
         d, m = cfg.embed_dim, cfg.mlp_dim
         if self.fused:
-            self.gate_up = _dense(d, (2, m), cfg, device)
+            self.gate_up = _dense(d, (2, m), cfg, device,
+                                  ("embed", None, "mlp"))
         else:
-            self.gate = _dense(d, m, cfg, device)
-            self.up = _dense(d, m, cfg, device)
-        self.down = _dense(m, d, cfg, device)
+            self.gate = _dense(d, m, cfg, device, ("embed", "mlp"))
+            self.up = _dense(d, m, cfg, device, ("embed", "mlp"))
+        self.down = _dense(m, d, cfg, device, ("mlp", "embed"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        tp = axis_group(self.mesh, "tensor")
+        x = copy_to(x, tp)
         if self.fused:
             gu = self.gate_up(x)
             gate, up = gu[..., 0, :], gu[..., 1, :]
         else:
             gate, up = self.gate(x), self.up(x)
-        return self.down(F.silu(gate) * up)
+        return reduce_from(self.down(F.silu(gate) * up), tp)
 
 
 class DecoderLayer(nn.Module):
@@ -217,18 +257,18 @@ class DecoderLayer(nn.Module):
     configs (cfg.moe_experts > 0) hold a `moe` MoEMLP in place of `mlp`
     and return (stream, load-balance loss)."""
 
-    def __init__(self, cfg: TransformerConfig, device="cuda"):
+    def __init__(self, cfg: TransformerConfig, device="cuda", mesh=None):
         super().__init__()
         dtype = torch_dtype(cfg.dtype)
         self.attn_norm = RMSNorm(cfg.embed_dim, cfg.norm_eps, dtype, device)
-        self.attn = Attention(cfg, device)
+        self.attn = Attention(cfg, device, mesh)
         self.mlp_norm = RMSNorm(cfg.embed_dim, cfg.norm_eps, dtype, device)
         if cfg.moe_experts > 0:
             from .moe import MoEMLP
 
-            self.moe = MoEMLP(cfg, device)
+            self.moe = MoEMLP(cfg, device, mesh)
         else:
-            self.mlp = MLP(cfg, device)
+            self.mlp = MLP(cfg, device, mesh)
 
     def forward(self, x, positions, kv=None, cur: int = 0):
         x = x + self.attn(self.attn_norm(x), positions, kv, cur)
@@ -239,15 +279,32 @@ class DecoderLayer(nn.Module):
 
 
 class Embed(nn.Module):
+    """The [V, D] table; on a tensor mesh this rank holds the rows of its
+    block of the vocabulary, looks up the tokens that fall in it (zeros
+    for the rest) and all-reduces over the tensor group."""
+
     def __init__(self, vocab: int, dim: int, dtype, param_dtype,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         super().__init__()
-        self.dtype = dtype
-        self.embedding = nn.Parameter(
-            torch.zeros((vocab, dim), dtype=param_dtype, device=device))
+        self.dtype, self.mesh = dtype, mesh
+        self.embedding = logical(nn.Parameter(
+            torch.zeros((vocab, dim), dtype=param_dtype, device=device)),
+            ("vocab", "embed"))
+
+    def vocab_start(self) -> int:
+        """The first vocabulary row this rank holds."""
+        return axis_rank(self.mesh, "tensor") * self.embedding.shape[0]
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens, self.embedding).to(self.dtype)
+        tp = axis_group(self.mesh, "tensor")
+        if tp is None:
+            return F.embedding(tokens, self.embedding).to(self.dtype)
+        rows = self.embedding.shape[0]
+        local = tokens - self.vocab_start()
+        inside = (local >= 0) & (local < rows)
+        found = F.embedding(local.clamp(0, rows - 1), self.embedding)
+        found = torch.where(inside[..., None], found, 0.0)
+        return reduce_from(found, tp).to(self.dtype)
 
 
 class Transformer(nn.Module):
@@ -259,25 +316,36 @@ class Transformer(nn.Module):
     cache at `cache.index`, attention reads the cache, and the index
     advances by the number of tokens."""
 
-    def __init__(self, cfg: TransformerConfig, device="cuda"):
+    def __init__(self, cfg: TransformerConfig, device="cuda", mesh=None):
         super().__init__()
         if cfg.moe_experts > 0 and cfg.weight_dtype == "int4":
             raise ValueError(
                 "weight_dtype='int4' does not support MoE configs "
                 "(moe_experts > 0): int4 packing covers dense kernels "
                 "only.  Use weight_dtype='int8' for quantized MoE serving.")
-        self.cfg = cfg
+        if mesh is not None:
+            check_mesh(cfg, mesh)
+        self.cfg, self.mesh = cfg, mesh
         self.device = torch.device(device)
         dtype, pdtype = torch_dtype(cfg.dtype), torch_dtype(cfg.param_dtype)
         self.embed = Embed(cfg.vocab_size, cfg.embed_dim, dtype, pdtype,
-                           device)
+                           device, mesh)
         self.layers = nn.ModuleList(
-            [DecoderLayer(cfg, device) for _ in range(cfg.num_layers)])
+            [DecoderLayer(cfg, device, mesh) for _ in range(cfg.num_layers)])
         self.final_norm = RMSNorm(cfg.embed_dim, cfg.norm_eps, dtype, device)
         if not cfg.tie_embeddings:
-            self.lm_head = _dense(cfg.embed_dim, cfg.vocab_size, cfg, device)
+            self.lm_head = _dense(cfg.embed_dim, cfg.vocab_size, cfg, device,
+                                  ("embed", "vocab"))
+
+    def vocab_shard(self) -> Optional[tuple]:
+        """(tensor group, first vocabulary index) when the logits are this
+        rank's slice of the vocabulary; None when they are all of it."""
+        tp = axis_group(self.mesh, "tensor")
+        return None if tp is None else (tp, self.embed.vocab_start())
 
     def new_cache(self, batch: int) -> KVCache:
+        if self.mesh is not None:
+            raise ValueError("the KV-cache decode path runs on one device")
         return KVCache(self.cfg, batch, torch_dtype(self.cfg.dtype),
                        self.device)
 
@@ -319,6 +387,7 @@ class Transformer(nn.Module):
         x = self.final_norm(x)
         if return_hidden:
             return x
+        x = copy_to(x, axis_group(self.mesh, "tensor"))
         if cfg.tie_embeddings:
             dtype = torch_dtype(cfg.dtype)
             logits = x.to(dtype) @ self.embed.embedding.to(dtype).T
@@ -335,7 +404,9 @@ class Transformer(nn.Module):
                 return_hidden: bool = False, return_aux: bool = False):
         """Logits [B, S, V] fp32 (the final hidden state with
         return_hidden), and with return_aux also the summed MoE
-        load-balance loss."""
+        load-balance loss.  On a mesh, tokens are this rank's block and
+        positions their global positions; the logits are this rank's
+        slice of the vocabulary (`vocab_shard`)."""
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device
                                      ).expand(tokens.shape)
@@ -343,6 +414,27 @@ class Transformer(nn.Module):
         x, aux = self.run_stack(x, positions, cache)
         out = self.head(x, return_hidden)
         return (out, aux) if return_aux else out
+
+
+def check_mesh(cfg: TransformerConfig, mesh) -> None:
+    """Raise ValueError unless `cfg` can train sharded on `mesh`: bf16/fp32
+    weights in separate projections, heads, kv heads, MLP and vocabulary
+    divisible by the tensor degree, experts by the expert degree."""
+    if cfg.weight_dtype or cfg.fused_projections:
+        raise ValueError("a mesh trains bf16/fp32 weights in separate "
+                         "projections (weight_dtype '' and "
+                         "fused_projections False)")
+    tp, ep = axis_size(mesh, "tensor"), axis_size(mesh, "expert")
+    dims = {"num_heads": cfg.num_heads, "num_kv_heads": cfg.num_kv_heads,
+            "vocab_size": cfg.vocab_size,
+            "mlp_dim": (cfg.moe_mlp_dim or cfg.mlp_dim)
+            if cfg.moe_experts else cfg.mlp_dim}
+    bad = {k: v for k, v in dims.items() if v % tp}
+    if bad:
+        raise ValueError(f"{bad} not divisible by the tensor degree {tp}")
+    if cfg.moe_experts % ep:
+        raise ValueError(f"moe_experts={cfg.moe_experts} not divisible by "
+                         f"the expert degree {ep}")
 
 
 # flax's lecun_normal draws from N(0, 1) truncated to [-2, 2] and divides
@@ -381,5 +473,5 @@ def init_params(model: Transformer, generator: torch.Generator) -> None:
 
 
 __all__ = ["Attention", "DecoderLayer", "DenseGeneral", "KVCache", "MLP",
-           "REMAT_POLICIES", "RMSNorm", "Transformer", "init_params", "rope",
-           "torch_dtype"]
+           "REMAT_POLICIES", "RMSNorm", "Transformer", "check_mesh",
+           "init_params", "logical", "rope", "torch_dtype"]

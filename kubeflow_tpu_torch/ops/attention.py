@@ -7,10 +7,10 @@ layout the decode products consume directly.  Scores are computed and
 soft-maxed in fp32 and the probabilities are cast to v's dtype before
 the PV product, as in kubeflow_tpu/ops/attention.py.
 
-`attention()` picks between "xla" (`xla_attention`, the einsum reference)
-and "flash" (`ops/flash_attention.py`: the hand-written Hopper kernels on
-a CUDA tensor, their plain versions on a CPU tensor).  Ring attention is
-not ported yet.
+`attention()` picks between "xla" (`xla_attention`, the einsum reference),
+"flash" (`ops/flash_attention.py`: the hand-written Hopper kernels on
+a CUDA tensor, their plain versions on a CPU tensor) and "ring"
+(`ops/ring_attention.py`: exact attention over a sequence-sharded group).
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from .flash_attention import flash_attention, unsupported
+from .ring_attention import ring_attention
 
 
 def causal_mask_bias(q_len: int, kv_len: int, q_offset: int = 0,
@@ -84,7 +85,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, impl: str = "auto",
               softmax_scale: Optional[float] = None,
-              q_offset: int = 0) -> torch.Tensor:
+              q_offset: int = 0, positions: Optional[torch.Tensor] = None,
+              group=None) -> torch.Tensor:
     """Dispatch, as the reference's `attention()` does on its TPU.
 
     - "auto": flash on a CUDA tensor when the kernels take the shape
@@ -94,7 +96,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     - "flash": the kernels on a CUDA tensor, raising on a shape they do
       not take (never a quiet fallback); the plain version on a CPU
       tensor;
-    - "xla": the einsum reference.
+    - "xla": the einsum reference;
+    - "ring": `ring_attention` of this rank's sequence block over the
+      sequence `group` (None for one rank), `positions` the block's
+      global token positions.
 
     The reference's flash tile sizes (`flash_block_q`/`flash_block_k` of
     the config) are TPU VMEM tiles; nothing in the port reads them: the
@@ -111,7 +116,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return xla_attention(q, k, v, causal=causal, q_offset=q_offset,
                              softmax_scale=softmax_scale)
     if impl == "ring":
-        raise NotImplementedError("ring attention is not ported yet")
+        if q_offset:
+            raise ValueError("ring attention takes positions, not q_offset")
+        return ring_attention(q, k, v, positions, group, causal,
+                              softmax_scale)
     raise ValueError(f"unknown attention impl {impl!r}")
 
 

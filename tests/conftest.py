@@ -43,6 +43,8 @@ def pytest_configure(config):
         "markers", "compute: XLA-compile-heavy compute-plane tests")
     config.addinivalue_line(
         "markers", "controlplane: in-memory control-plane tests (fast lane)")
+    config.addinivalue_line(
+        "markers", "slow: long multi-process runs, left out of tier-1")
 
 
 def pytest_collection_modifyitems(config, items):

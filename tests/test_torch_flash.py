@@ -170,8 +170,14 @@ class TestDispatch:
 
     def test_ring_raises_and_unknown_impl_raises(self):
         q, k, v = self._qkv()
-        with pytest.raises(NotImplementedError):
-            attention(q, k, v, impl="ring")
+        # on one rank (no sequence group) the ring is exact attention over
+        # the whole sequence; a q_offset, which the ring does not take,
+        # raises, as does an unknown impl
+        torch.testing.assert_close(attention(q, k, v, impl="ring"),
+                                   xla_attention(q, k, v), rtol=1e-5,
+                                   atol=1e-5)
+        with pytest.raises(ValueError):
+            attention(q, k, v, impl="ring", q_offset=4)
         with pytest.raises(ValueError):
             attention(q, k, v, impl="pallas")
 

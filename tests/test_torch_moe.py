@@ -32,7 +32,7 @@ from kubeflow_tpu.models.generate import generate as jgenerate
 from kubeflow_tpu.models.generate import prepare_decode as jprepare_decode
 from kubeflow_tpu.models.transformer import Transformer as JTransformer
 from kubeflow_tpu.parallel.mesh import MeshConfig, make_mesh
-from kubeflow_tpu_torch import bench
+from kubeflow_tpu_torch import bench, dryrun
 from kubeflow_tpu_torch.models import configs, moe, quant, train
 from kubeflow_tpu_torch.models.convert import (
     params_from_flax,
@@ -284,6 +284,35 @@ def test_three_train_steps_match_reference(loss_chunks):
     assert set(got) == set(params3)
     for name, tensor in got.items():
         _close(tensor, params3[name].numpy())
+
+
+def test_expert_parallel_step_on_four_processes_matches_reference():
+    """The dry run's MoE proxy (4 experts, top-2, capacity 2.0) at seq 256,
+    batch 8: the reference's setup_training step on one device
+    (optax.sgd(0.05)) against the port's step on 4 gloo processes at
+    expert 2 x tensor 2, from the reference's converted initial params:
+    loss within 1e-3, every parameter within rtol = atol = 1e-4."""
+    cfg = dryrun.proxy_config(256, moe=True)
+    jcfg = jconfigs.TransformerConfig(**dataclasses.asdict(cfg))
+    rs = np.random.RandomState(17)
+    inputs = rs.randint(0, cfg.vocab_size, (8, 256)).astype(np.int32)
+    batch = {"inputs": inputs, "targets": np.roll(inputs, -1, axis=1)}
+    mesh = make_mesh(MeshConfig(data=1), devices=jax.devices()[:1])
+    setup = jtrain.setup_training(jcfg, mesh, optimizer=optax.sgd(0.05),
+                                  batch_shape=(8, 256))
+    before = state_dict_from_flax(_np(setup.state.params))
+    state, metrics = setup.train_step(setup.state,
+                                      jax.tree.map(jnp.asarray, batch))
+    after = state_dict_from_flax(_np(state.params))
+    reference = {"loss": float(metrics["loss"]), "params": after,
+                 "moved": max(float((after[n] - before[n]).abs().max())
+                              for n in after)}
+    result = dryrun.launch(4, dryrun.sharded_step, (
+        cfg, MeshConfig(tensor=2, expert=2),
+        {k: torch.tensor(v).long() for k, v in batch.items()}, reference,
+        before), timeout=600)
+    assert result["mesh"]["expert"] == result["mesh"]["tensor"] == 2
+    assert dryrun.failures(result) == [], result
 
 
 # -- conversion, quantization, serving ----------------------------------------

@@ -13,6 +13,7 @@ counts match, and the bench prints its JSON line."""
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 from math import prod
@@ -30,7 +31,7 @@ from kubeflow_tpu.models import configs as jconfigs
 from kubeflow_tpu.models import train as jtrain
 from kubeflow_tpu.parallel.mesh import MeshConfig, make_mesh
 from kubeflow_tpu.runtime import roofline as jroofline
-from kubeflow_tpu_torch import bench
+from kubeflow_tpu_torch import bench, dryrun
 from kubeflow_tpu_torch.models import configs, train
 from kubeflow_tpu_torch.models.convert import (
     params_from_flax,
@@ -238,6 +239,30 @@ def test_sgd_train_step_matches_reference(impl, remat):
         _close(tensor, want[name].numpy())
         moved = max(moved, float((want[name] - before[name]).abs().max()))
     assert moved > 0.0
+
+
+def test_sharded_step_on_four_processes_matches_reference():
+    """The dry run's proxy at seq 256 (4 layers, GQA 8/4 heads of 16, fp32,
+    remat), batch 8: the reference's setup_training step on one device
+    (optax.sgd(0.05)) against the port's step on 4 gloo processes at
+    sequence 2 x tensor 2 (ring attention, vocab-parallel loss), started
+    from the reference's initial params converted by the port's
+    converter: loss within 1e-3 and every parameter within rtol = atol =
+    1e-4 of the reference's step, after an update that moved."""
+    cfg = dryrun.proxy_config(256)
+    jcfg = jconfigs.TransformerConfig(**dataclasses.asdict(cfg))
+    batch = _batch(cfg, 8, cfg.max_seq_len, seed=17)
+    params0, params1, loss, _ = _reference_step(jcfg, batch)
+    before = state_dict_from_flax(params0)
+    after = state_dict_from_flax(params1)
+    reference = {"loss": loss, "params": after, "moved": max(
+        float((after[n] - before[n]).abs().max()) for n in after)}
+    tbatch = {k: torch.tensor(v).long() for k, v in batch.items()}
+    result = dryrun.launch(4, dryrun.sharded_step, (
+        cfg, MeshConfig(sequence=2, tensor=2), tbatch, reference, before),
+        timeout=600)
+    assert result["mesh"]["sequence"] == result["mesh"]["tensor"] == 2
+    assert dryrun.failures(result) == [], result
 
 
 def test_remat_policies_change_no_number():

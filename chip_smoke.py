@@ -11,9 +11,10 @@ non-zero without its result line):
 2. build: compile csrc/int4_matmul.cu and csrc/flash_attention.cu with
    nvcc from this checkout, one nvcc each, at once; ptxas's registers and
    spills for each kernel, and the HGMMA (wgmma) instructions of each in
-   `cuobjdump -sass`.  Every kernel (int4, flash forward, dK/dV and dQ)
-   must show 0 bytes of spill stores, since a spill there also serialises
-   its wgmma, and at least one HGMMA: all four run on the tensor cores;
+   `cuobjdump -sass`.  Every kernel (int4, flash forward, dK/dV and dQ,
+   the flash ones at head dims 64, 128 and 256) must show 0 bytes of
+   spill stores, since a spill there also serialises its wgmma, and at
+   least one HGMMA: all four run on the tensor cores;
 3. kernel: the int4 dequant-matmul kernel against its plain version on the
    card at the four shapes of ci/int4_kernel_check.py, the ten shapes
    of Llama-2-7B serving (decode M=16 and prefill M=2048) and the five
@@ -65,10 +66,16 @@ non-zero without its result line):
    their plain versions at the three shapes of ci/flash_numerics.py, three
    shapes the kernels' tiles must handle (head dim 64 with GQA; S = 320,
    which leaves half of the last 128-row tile past the end; causal=False)
-   and the training step's (40, 2048, 12, 12, 128), N(0, 1) bf16 inputs
-   and cotangent; each case's causal flag goes to the kernels, the plain
-   chain and SDPA alike.  The plain backward starts from the plain
-   forward's lse and di = rowsum(dO * plain O), never from the kernels'.
+   and the training step's (40, 2048, 12, 12, 128); from a generator of
+   their own, the long-context modes' sequences at batch 1,
+   (1, 4096, 12, 12, 128) and (1, 8192, 12, 12, 128); then, from another,
+   head dim 256 (GEMMA_7B's) at 16 heads and 2048, with GQA, at S = 320
+   and non-causal, and the Gemma training step's (2, 8192, 16, 16, 256).
+   Every case is compared and timed at its whole batch.  N(0, 1) bf16
+   inputs and cotangent; each case's
+   causal flag goes to the kernels, the plain chain and SDPA alike.  The
+   plain backward starts from the plain forward's lse and
+   di = rowsum(dO * plain O), never from the kernels'.
    Gates, for each of o, dq, dk and dv: max abs error <= 3e-2 forward and
    <= 6e-2 for the gradients (ci/flash_numerics.py's limits), max abs
    error / max |ref| <= 2e-2, and RMS error / RMS of the reference
@@ -90,6 +97,20 @@ non-zero without its result line):
    per parameter with gradient cosine >= 0.99; five SGD(0.05) steps on
    one repeated batch lower the loss.  Step time, tokens/s and MFU
    against the card's bf16 peak come from the bench's timed windows;
+   gemma_train: GEMMA_7B at full width (3072 wide, 16 x 256 heads, MLP
+   24576, vocabulary 256128 tied, softcap 30, attention_impl "auto"),
+   depth cut to 8 layers (the whole model's weights, gradients and AdamW
+   state are ~119 GB), 32 loss chunks, batch 2 x 8192, AdamW with a bf16
+   first moment: one step must launch exactly 16 flash forwards (8
+   layers, again in the remat recompute), 8 dK/dV and 8 dQ, all at head
+   dim 256; a fresh setup repeats the first loss bit for bit; at batch 1
+   the kernel path against the plain path with the train phase's gates;
+   three SGD(0.05) steps lower the loss.  Step time, tokens/s, MFU, peak
+   memory, the chunked loss's time alone and the profiled step's device
+   time by kind (flash, fp32 GEMMs, other GEMMs, the rest) are printed;
+   long_context: one step of each of the bench's long-context modes
+   (BENCH_CHIP at 20 x 4096 and at 8 x 8192): exactly 20/10/10 flash
+   launches and a finite loss each;
 7. moe_train: the same for BENCH_MOE (4 experts, top-2, hybrid dispatch)
    at full width and depth, batch 16 x 2048: 20/10/10 flash launches a
    step, the first loss repeated bit for bit by a fresh setup (the
@@ -133,8 +154,10 @@ non-zero without its result line):
 
 It prints one JSON line per kernel shape and per slice, then a "kernels"
 line (each kernel's launches on its main path, and beside them the
-speculative run's int4 launches, one MoE step's and one mesh step's flash
-launches), the nvidia-smi line, and last {"ok": true, "device": {...}}.
+speculative run's int4 launches, one MoE step's, one mesh step's and one
+long-context step's flash launches; the head-dim-256 flash kernels as
+entries of their own, *_d256, on the Gemma step), the nvidia-smi line,
+and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -205,6 +228,20 @@ FLASH_SHAPES = [(2, 2048, 12, 12, 128, True), (2, 1024, 16, 4, 128, True),
 TRAIN_SHAPE = (40, 2048, 12, 12, 128)
 TRAIN_CASE = TRAIN_SHAPE + (True,)
 TRAIN_BATCH, COMPARE_BATCH = 40, 8
+# the long-context modes' attention (BENCH_CHIP at seq 4096 and 8192), at
+# batch 1, from a generator of their own
+FLASH_LONG_SHAPES = [(1, 4096, 12, 12, 128, True),
+                     (1, 8192, 12, 12, 128, True)]
+# head dim 256 (GEMMA_7B), from a generator of their own: 16 heads at 2048,
+# GQA, half a 128-row tile past the end, non-causal; then the Gemma
+# training step's attention (GEMMA_CASE) at its batch 2
+FLASH_D256_SHAPES = [(2, 2048, 16, 16, 256, True), (2, 1024, 16, 8, 256, True),
+                     (2, 320, 4, 4, 256, True), (2, 256, 4, 4, 256, False)]
+GEMMA_SHAPE = (2, 8192, 16, 16, 256)
+GEMMA_CASE = GEMMA_SHAPE + (True,)
+GEMMA_LAYERS, GEMMA_LOSS_CHUNKS = 8, 32   # depth cut to fit one card
+GEMMA_COMPARE_BATCH = 1
+GEMMA_SGD_STEPS = 3
 FLASH_REPLACES = {
     "flash_fwd": "kubeflow_tpu/ops/attention.py:173 -> jax/experimental/"
                  "pallas/ops/tpu/flash_attention.py:758",
@@ -842,29 +879,32 @@ def _errors(got, ref) -> dict:
             "rms_rel": (diff.norm() / ref.norm()).item()}
 
 
-def flash_phase(gen, device, peak, flush) -> dict:
-    """Each flash kernel against its plain version at every case; returns
-    {(batch, seq, heads, kv heads, head dim, causal): {kernel name:
-    result}}."""
+def flash_phase(gen, long_gen, d256_gen, device, peak, flush) -> dict:
+    """Each flash kernel against its plain version at every case, the
+    long-context cases drawn from `long_gen` and the head-dim-256 cases
+    from `d256_gen`; returns {(batch, seq, heads, kv heads, head dim,
+    causal): {kernel name: result}}."""
     import torch
     import torch.nn.functional as F
 
     from kubeflow_tpu_torch.ops import flash_attention as fa
 
     results, failed = {}, []
-    for case in FLASH_SHAPES + [TRAIN_CASE]:
+    cases = [(gen, case) for case in FLASH_SHAPES + [TRAIN_CASE]]
+    cases += [(long_gen, case) for case in FLASH_LONG_SHAPES]
+    cases += [(d256_gen, case) for case in FLASH_D256_SHAPES + [GEMMA_CASE]]
+    for draw, case in cases:
         *shape, causal = case
         shape = tuple(shape)
         batch, seq, heads, kv_heads, dim = shape
         scale = dim ** -0.5
-        q = torch.randn((batch, seq, heads, dim), generator=gen,
+        q = torch.randn((batch, seq, heads, dim), generator=draw,
                         device=device).to(torch.bfloat16)
-        k, v = (torch.randn((batch, seq, kv_heads, dim), generator=gen,
+        k, v = (torch.randn((batch, seq, kv_heads, dim), generator=draw,
                             device=device).to(torch.bfloat16)
                 for _ in range(2))
-        do = torch.randn((batch, seq, heads, dim), generator=gen,
+        do = torch.randn((batch, seq, heads, dim), generator=draw,
                          device=device).to(torch.bfloat16)
-
         o, lse = fa.flash_forward(q, k, v, scale, causal)
         di = fa.row_dot(o, do)
         dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, di, scale, causal)
@@ -899,11 +939,11 @@ def flash_phase(gen, device, peak, flush) -> dict:
                for name, ts in outputs.items()}
 
         # the library yardstick, in its [B, H, S, D] layout
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                      for t in (q, k, v))
         sdpa = functools.partial(F.scaled_dot_product_attention,
                                  is_causal=causal,
                                  enable_gqa=kv_heads != heads)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
         lo = sdpa(qt, kt, vt)
         lgrads = torch.autograd.grad(lo, (qt, kt, vt), do.transpose(1, 2),
                                      retain_graph=True)
@@ -1009,12 +1049,63 @@ def _loss_and_grads(model, batch):
     return loss.detach(), torch.autograd.grad(loss, params)
 
 
+def kernel_vs_plain(model, batch, device) -> dict:
+    """`model` (the kernel path) against a copy of its weights on the plain
+    path (attention_impl="xla", the einsum reference) on `batch`: both
+    losses and global gradient norms, and each parameter's gradient
+    cosine.  While the plain path runs, the kernel path's fp32 gradients
+    and `model` itself wait on the host, so the card holds one copy of
+    the weights and one set of gradients (GEMMA_7B's are 12 GB each)."""
+    import torch
+
+    from kubeflow_tpu_torch.models import train
+    from kubeflow_tpu_torch.models.transformer import Transformer
+
+    loss_k, grads_k = _loss_and_grads(model, batch)
+    norm_k = train.global_norm(grads_k).item()
+    grads_k = [g.cpu() for g in grads_k]
+    model_p = Transformer(model.cfg.with_(attention_impl="xla"), device)
+    model_p.load_state_dict(model.state_dict())
+    model.cpu()
+    torch.cuda.empty_cache()
+    loss_p, grads_p = _loss_and_grads(model_p, batch)
+    del model_p
+    norm_p = train.global_norm(grads_p).item()
+    model.to(device)
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    cosines = {n: torch.nn.functional.cosine_similarity(
+        a.to(device).flatten().float(), b.flatten().float(), dim=0).item()
+        for n, a, b in zip(names, grads_k, grads_p)}
+    del grads_k, grads_p
+    torch.cuda.empty_cache()
+    loss_k, loss_p = loss_k.item(), loss_p.item()
+    worst = min(cosines, key=cosines.get)
+    return {"loss_kernel": loss_k, "loss_plain": loss_p,
+            "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
+            "grad_norm_kernel": norm_k, "grad_norm_plain": norm_p,
+            "grad_norm_rel_err": abs(norm_k - norm_p) / norm_p,
+            "min_grad_cosine": cosines[worst],
+            "min_grad_cosine_param": worst}
+
+
+def check_kernel_vs_plain(cmp: dict, what: str) -> None:
+    """The training phases' gates on `kernel_vs_plain`'s result."""
+    if (cmp["loss_rel_err"] > TRAIN_LOSS_TOL
+            or cmp["grad_norm_rel_err"] > TRAIN_NORM_TOL
+            or cmp["min_grad_cosine"] < TRAIN_MIN_COSINE):
+        raise RuntimeError(
+            f"{what}: kernel path and plain path disagree: loss rel "
+            f"{cmp['loss_rel_err']} (limit {TRAIN_LOSS_TOL}), grad norm rel "
+            f"{cmp['grad_norm_rel_err']} (limit {TRAIN_NORM_TOL}), gradient "
+            f"cosine of {cmp['min_grad_cosine_param']} "
+            f"{cmp['min_grad_cosine']} (limit {TRAIN_MIN_COSINE})")
+
+
 def train_phase(device, device_name, flash_results, flush) -> dict:
     import torch
 
     from kubeflow_tpu_torch.models import train
     from kubeflow_tpu_torch.models.configs import BENCH_CHIP
-    from kubeflow_tpu_torch.models.transformer import Transformer
     from kubeflow_tpu_torch.ops import flash_attention as fa
     from kubeflow_tpu_torch.runtime.roofline import mfu, train_estimate
 
@@ -1073,22 +1164,8 @@ def train_phase(device, device_name, flash_results, flush) -> dict:
 
     # kernel path against the plain path, same weights and batch
     small = _batch(cfg.vocab_size, COMPARE_BATCH, seq, SEED + 1, device)
-    model_k = setup.model
-    loss_k, grads_k = _loss_and_grads(model_k, small)
-    model_p = Transformer(cfg.with_(attention_impl="xla"), device)
-    model_p.load_state_dict(model_k.state_dict())
-    loss_p, grads_p = _loss_and_grads(model_p, small)
-    del model_p
-    norm_k = train.global_norm(grads_k).item()
-    norm_p = train.global_norm(grads_p).item()
-    names = [n for n, p in model_k.named_parameters() if p.requires_grad]
-    cosines = {n: torch.nn.functional.cosine_similarity(
-        a.flatten().float(), b.flatten().float(), dim=0).item()
-        for n, a, b in zip(names, grads_k, grads_p)}
-    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-    norm_rel = abs(norm_k - norm_p) / norm_p
-    worst = min(cosines, key=cosines.get)
-    del grads_k, grads_p, setup, state, model_k
+    cmp = kernel_vs_plain(setup.model, small, device)
+    del setup, state
     torch.cuda.empty_cache()
 
     # five SGD(0.05) steps on one repeated batch lower the loss
@@ -1100,7 +1177,7 @@ def train_phase(device, device_name, flash_results, flush) -> dict:
         sgd_losses.append(m["loss"])
     sgd_losses = [x.item() for x in sgd_losses]
     del sgd, state
-    losses += sgd_losses + [loss_k.item(), loss_p.item()]
+    losses += sgd_losses + [cmp["loss_kernel"], cmp["loss_plain"]]
 
     main = flash_results[TRAIN_CASE]
     flash_ms = sum(main[name]["ms"] * launches[key] for name, key in
@@ -1125,11 +1202,7 @@ def train_phase(device, device_name, flash_results, flush) -> dict:
         "flash_ms_per_step": flash_ms,
         "flash_share": flash_ms / 1e3 / timed["step_time_s"],
         "chunked_ce_fwd_bwd_ms": ce_ms,
-        "compare_batch": COMPARE_BATCH,
-        "loss_kernel": loss_k.item(), "loss_plain": loss_p.item(),
-        "loss_rel_err": loss_rel, "grad_norm_kernel": norm_k,
-        "grad_norm_plain": norm_p, "grad_norm_rel_err": norm_rel,
-        "min_grad_cosine": cosines[worst], "min_grad_cosine_param": worst,
+        "compare_batch": COMPARE_BATCH, **cmp,
         "sgd_losses": sgd_losses, "losses_finite": finite,
     }
     emit(res)
@@ -1140,17 +1213,220 @@ def train_phase(device, device_name, flash_results, flush) -> dict:
         raise RuntimeError("a training loss was not finite, or a fresh "
                            "setup from the same seed gave another first "
                            "loss")
-    if (loss_rel > TRAIN_LOSS_TOL or norm_rel > TRAIN_NORM_TOL
-            or cosines[worst] < TRAIN_MIN_COSINE):
-        raise RuntimeError(
-            f"kernel path and plain path disagree: loss rel {loss_rel} "
-            f"(limit {TRAIN_LOSS_TOL}), grad norm rel {norm_rel} (limit "
-            f"{TRAIN_NORM_TOL}), gradient cosine of {worst} "
-            f"{cosines[worst]} (limit {TRAIN_MIN_COSINE})")
+    check_kernel_vs_plain(cmp, "BENCH_CHIP")
     if not sgd_losses[-1] < sgd_losses[0]:
         raise RuntimeError(f"five SGD steps did not lower the loss: "
                            f"{sgd_losses}")
     return res
+
+
+def profile_split(profile: dict) -> dict:
+    """Device ms of a profiled step (`bench.profile_step` with every
+    kernel) by kind: the flash kernels, the fp32 GEMMs (the chunked
+    loss's logits and their two gradients: cuBLAS names them sgemm or
+    f32f32), the other GEMMs (bf16: the layers), and the rest."""
+    split = {"flash": 0.0, "fp32_gemm": 0.0, "other_gemm": 0.0, "rest": 0.0}
+    for k in profile["kernels"]:
+        name = k["name"].lower()
+        if "flash_" in name:
+            split["flash"] += k["ms"]
+        elif "gemm" in name or "nvjet" in name:
+            fp32 = "sgemm" in name or "f32f32" in name
+            split["fp32_gemm" if fp32 else "other_gemm"] += k["ms"]
+        else:
+            split["rest"] += k["ms"]
+    total = sum(split.values())
+    return {**split, "shares": {key: ms / total for key, ms in split.items()}}
+
+
+def gemma_train_phase(device, device_name, smi: str, flash_results,
+                      flush) -> dict:
+    """GEMMA_7B at full width (head dim 256, tied embeddings, softcap 30),
+    depth cut to GEMMA_LAYERS, 32 loss chunks, batch 2 x 8192, through
+    setup_training and its train step, AdamW with a bf16 first moment;
+    attention_impl "auto" takes the head-dim-256 flash kernels."""
+    import torch
+
+    from kubeflow_tpu_torch import bench
+    from kubeflow_tpu_torch.models import train
+    from kubeflow_tpu_torch.models.configs import GEMMA_7B
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.runtime.roofline import mfu, train_estimate
+
+    phase_t0 = time.perf_counter()
+    cfg = GEMMA_7B.with_(num_layers=GEMMA_LAYERS,
+                         loss_chunks=GEMMA_LOSS_CHUNKS)
+    batch, seq = GEMMA_SHAPE[0], cfg.max_seq_len
+    seed = SEED + 11
+    data = _batch(cfg.vocab_size, batch, seq, seed, device)
+
+    def setup(optimizer=None):
+        return train.setup_training(
+            cfg, device=device, seed=seed,
+            optimizer=optimizer or train.default_optimizer(
+                mu_dtype="bfloat16"))
+
+    t0 = time.perf_counter()
+    run = setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # the main path: one step, every flash launch counted
+    torch.cuda.reset_peak_memory_stats()
+    for key in fa.launches:
+        fa.launches[key] = 0
+    t0 = time.perf_counter()
+    state, metrics = run.train_step(run.state, data)
+    first_loss = metrics["loss"].clone()
+    losses = [first_loss.item()]
+    first_step_s = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    grad_norm0 = metrics["grad_norm"].item()
+
+    # 3 windows of 2 steps, the first after one warm-up step; then one
+    # step under the profiler
+    windows = [train.timed_steps(run, data, num_steps=2,
+                                 warmup=1 if w == 0 else 0)
+               for w in range(3)]
+    losses += [w["loss"] for w in windows]
+    peak_mem = torch.cuda.max_memory_allocated()
+    ranked = sorted(windows[1:], key=lambda r: r["tokens_per_s"])
+    timed = ranked[len(ranked) // 2]
+    est = train_estimate(cfg, batch, seq, device_name)
+    achieved = mfu(timed["tokens_per_s"], cfg, seq, 1, device_name)
+    profile = bench.profile_step(run, data, top=100_000)
+    split = profile_split(profile)
+    del run, state, metrics
+    torch.cuda.empty_cache()
+
+    # the same seed, a fresh setup: the first loss repeats bit for bit
+    again = setup()
+    _, metrics2 = again.train_step(again.state, data)
+    same_bits = torch.equal(metrics2["loss"], first_loss)
+    del again, metrics2
+    torch.cuda.empty_cache()
+
+    # the chunked loss alone, forward and backward (fp32 logits over the
+    # 256128-token vocabulary, softcapped)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    hidden = torch.randn((batch, seq, cfg.embed_dim), generator=gen,
+                         device=device).to(torch.bfloat16).requires_grad_()
+    head = (torch.randn((cfg.embed_dim, cfg.vocab_size), generator=gen,
+                        device=device) * 0.02).requires_grad_()
+    ce_ms = timed_ms(lambda: torch.autograd.grad(
+        train.chunked_cross_entropy(hidden, data["targets"], head,
+                                    cfg.loss_chunks, cfg.logits_softcap),
+        (hidden, head)), flush, reps=3)
+    del hidden, head
+    torch.cuda.empty_cache()
+
+    # kernel path against the plain path at batch 1 (the plain path's
+    # [1, 16, 8192, 8192] fp32 scores), then SGD(0.05) steps on that batch
+    # lower the loss
+    small = _batch(cfg.vocab_size, GEMMA_COMPARE_BATCH, seq, seed + 2,
+                   device)
+    sgd = setup(train.SGD(0.05))
+    cmp = kernel_vs_plain(sgd.model, small, device)
+    sgd_losses, state = [], sgd.state
+    for _ in range(GEMMA_SGD_STEPS):
+        state, m = sgd.train_step(state, small)
+        sgd_losses.append(m["loss"])
+    sgd_losses = [x.item() for x in sgd_losses]
+    del sgd, state
+    torch.cuda.empty_cache()
+    losses += sgd_losses + [cmp["loss_kernel"], cmp["loss_plain"]]
+
+    main = flash_results[GEMMA_CASE]
+    flash_ms = sum(main[name]["ms"] * launches[key] for name, key in
+                   (("flash_fwd", "fwd"), ("flash_bwd_dkv", "dkv"),
+                    ("flash_bwd_dq", "dq")))
+    expected = {"fwd": 2 * cfg.num_layers, "dkv": cfg.num_layers,
+                "dq": cfg.num_layers}
+    finite = all(math.isfinite(x) for x in losses + [grad_norm0])
+    res = {
+        "phase": "gemma_train", "model": "gemma-7b", "nvidia_smi": smi,
+        "layers": cfg.num_layers, "head_dim": cfg.head_dim,
+        "vocab": cfg.vocab_size, "batch": batch, "seq": seq,
+        "loss_chunks": cfg.loss_chunks, "attention_impl":
+        cfg.attention_impl, "remat_policy": cfg.remat_policy,
+        "params": cfg.num_params, "setup_s": setup_s,
+        "first_step_s": first_step_s, "first_loss": losses[0],
+        "first_grad_norm": grad_norm0, "flash_launches": launches,
+        "expected_launches": expected, "peak_mem_gb": peak_mem / 1e9,
+        "same_loss_bits": same_bits, "step_time_s": timed["step_time_s"],
+        "tokens_per_s": timed["tokens_per_s"],
+        "window_step_time_s": [w["step_time_s"] for w in windows],
+        "mfu": achieved, "step_floor_s": est.step_floor_s,
+        "bound": est.bound, "flops_per_step": est.flops,
+        "flash_ms_per_step": flash_ms,
+        "flash_share": flash_ms / 1e3 / timed["step_time_s"],
+        "chunked_ce_fwd_bwd_ms": ce_ms,
+        "chunked_ce_share": ce_ms / 1e3 / timed["step_time_s"],
+        "profile": {"wall_ms": profile["wall_ms"],
+                    "device_ms": profile["device_ms"],
+                    "idle_share": profile["idle_share"], "split_ms": split,
+                    "top": profile["kernels"][:15]},
+        "compare_batch": GEMMA_COMPARE_BATCH, **cmp,
+        "sgd_losses": sgd_losses, "losses_finite": finite,
+        "phase_s": time.perf_counter() - phase_t0,
+    }
+    emit(res)
+    if launches != expected:
+        raise RuntimeError(f"one Gemma training step launched the flash "
+                           f"kernels {launches} times, expected {expected}")
+    if not (finite and same_bits):
+        raise RuntimeError("a Gemma training loss was not finite, or a fresh "
+                           "setup from the same seed gave another first "
+                           "loss")
+    check_kernel_vs_plain(cmp, "GEMMA_7B")
+    if not sgd_losses[-1] < sgd_losses[0]:
+        raise RuntimeError(f"{GEMMA_SGD_STEPS} SGD steps did not lower the "
+                           f"Gemma loss: {sgd_losses}")
+    return res
+
+
+def long_context_phase(device) -> dict:
+    """One training step of each of the bench's long-context modes
+    (BENCH_CHIP at 20 x 4096 and 8 x 8192, AdamW with a bf16 first
+    moment): exactly 20/10/10 flash launches and a finite loss each; a
+    second step is timed, for the record only."""
+    import torch
+
+    from kubeflow_tpu_torch import bench
+    from kubeflow_tpu_torch.models import train
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    results = {}
+    for i, long_context in enumerate(sorted(bench.LONG_CONTEXT)):
+        cfg, batch, seq = bench.workload(long_context=long_context)
+        data = _batch(cfg.vocab_size, batch, seq, SEED + 13 + i, device)
+        run = train.setup_training(
+            cfg, device=device, seed=SEED,
+            optimizer=train.default_optimizer(mu_dtype="bfloat16"))
+        for key in fa.launches:
+            fa.launches[key] = 0
+        state, metrics = run.train_step(run.state, data)
+        loss = metrics["loss"].item()
+        launches = dict(fa.launches)
+        t0 = time.perf_counter()
+        state, metrics = run.train_step(state, data)
+        metrics["loss"].item()
+        step_s = time.perf_counter() - t0
+        del run, state, metrics
+        torch.cuda.empty_cache()
+        expected = {"fwd": 2 * cfg.num_layers, "dkv": cfg.num_layers,
+                    "dq": cfg.num_layers}
+        res = {"phase": "long_context", "model": "bench-chip",
+               "batch": batch, "seq": seq, "flash_launches": launches,
+               "expected_launches": expected, "first_loss": loss,
+               "second_step_s": step_s}
+        emit(res)
+        if launches != expected or not math.isfinite(loss):
+            raise RuntimeError(f"the long-context step at seq {seq} launched "
+                               f"{launches} (expected {expected}) or gave a "
+                               f"non-finite loss {loss}")
+        results[seq] = res
+    return results
 
 
 class SharedRouting:
@@ -1583,36 +1859,56 @@ def mesh_train_phase(device, smi: str, train_step_s) -> dict:
     return res
 
 
-def flash_kernel_lines(flash_results, launches: dict,
-                       moe_launches: dict, mesh_launches: dict) -> list:
-    """The kernels line's flash entries: the training-shape medians times
-    the main path's launches per step; beside them the launches of one
-    BENCH_MOE step and of one sharded (mesh) BENCH_CHIP step."""
+def flash_kernel_lines(flash_results, launches: dict, moe_launches: dict,
+                       mesh_launches: dict, gemma_launches: dict,
+                       long_context: dict) -> list:
+    """The kernels line's flash entries.  Head dims 64 and 128: the
+    training-shape medians times the BENCH_CHIP step's launches, and beside
+    them the launches of one BENCH_MOE step, one sharded (mesh) BENCH_CHIP
+    step and one step of each long-context mode.  Head dim 256 (entries
+    named *_d256): the Gemma-shape medians times the Gemma step's
+    launches."""
     entries = []
-    main = flash_results[TRAIN_CASE]
     for name, key in (("flash_fwd", "fwd"), ("flash_bwd_dkv", "dkv"),
                       ("flash_bwd_dq", "dq")):
-        r, n = main[name], launches[key]
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": "kubeflow_tpu_torch/csrc/flash_attention.cu",
-            "replaces": FLASH_REPLACES[name], "launches": n,
-            "max_abs_err": max(flash_results[case][name]["max_abs_err"]
-                               for case in flash_results),
-            "ms": r["ms"] * n, "plain_ms": r["plain_ms"] * n,
-            "bound_ms": None if r["bound_ms"] is None else r["bound_ms"] * n,
-            "bound_by": r["bound_by"],
-            "library_ms": (None if r["library_ms"] is None
-                           else r["library_ms"] * n),
-            "library_call": r["library_call"],
-            **{key: r[key] for key in ("library_covers", "library_covered_by")
-               if key in r},
-            "moe_step_launches": moe_launches[key],
-            "mesh_step_launches": mesh_launches[key],
-            "ms_per_launch": r["ms"], "shape": list(TRAIN_SHAPE),
-            "basis": "per-launch medians at the training shape times one "
-                     "training step's launches",
-        })
+        for d256 in (False, True):
+            case = GEMMA_CASE if d256 else TRAIN_CASE
+            r = flash_results[case][name]
+            n = (gemma_launches if d256 else launches)[key]
+            entry = {
+                "name": name + ("_d256" if d256 else ""), "route": "cuda",
+                "source": "kubeflow_tpu_torch/csrc/flash_attention.cu",
+                "replaces": FLASH_REPLACES[name], "launches": n,
+                "max_abs_err": max(
+                    flash_results[c][name]["max_abs_err"]
+                    for c in flash_results if (c[4] == 256) == d256),
+                "ms": r["ms"] * n, "plain_ms": r["plain_ms"] * n,
+                "bound_ms": (None if r["bound_ms"] is None
+                             else r["bound_ms"] * n),
+                "bound_by": r["bound_by"],
+                "library_ms": (None if r["library_ms"] is None
+                               else r["library_ms"] * n),
+                "library_call": r["library_call"],
+                **{k: r[k] for k in ("library_covers", "library_covered_by")
+                   if k in r},
+                "ms_per_launch": r["ms"], "shape": list(case[:5]),
+            }
+            if d256:
+                entry.update(
+                    head_dim=256, main_path="gemma_train",
+                    basis="per-launch medians at the Gemma training shape "
+                          "times one gemma_train step's launches")
+            else:
+                entry.update(
+                    head_dim=[64, 128], main_path="train",
+                    moe_step_launches=moe_launches[key],
+                    mesh_step_launches=mesh_launches[key],
+                    long_context_step_launches={
+                        str(seq): res["flash_launches"][key]
+                        for seq, res in long_context.items()},
+                    basis="per-launch medians at the training shape times "
+                          "one training step's launches")
+            entries.append(entry)
     return entries
 
 
@@ -1722,16 +2018,21 @@ def main() -> int:
         gen, torch.Generator(device=device).manual_seed(SEED + 2),
         torch.Generator(device=device).manual_seed(SEED + 3), device,
         peak, flush)
-    # its own generator, so the slice draws the same weights as before
+    # its own generators, so the slice draws the same weights as before
     flash_results = flash_phase(
-        torch.Generator(device=device).manual_seed(SEED + 1), device, peak,
+        torch.Generator(device=device).manual_seed(SEED + 1),
+        torch.Generator(device=device).manual_seed(SEED + 15),
+        torch.Generator(device=device).manual_seed(SEED + 10), device, peak,
         flush)
     sl, model = slice_phase(gen, device, device_name)
     sp = speculative_phase(model, device)
     del model
     torch.cuda.empty_cache()
     tr = train_phase(device, device_name, flash_results, flush)
+    gemma = gemma_train_phase(device, device_name, smi, flash_results,
+                              flush)
     del flush
+    long_context = long_context_phase(device)
     mt = moe_train_phase(device, device_name)
     moe_serve_phase(device)
     mesh = mesh_train_phase(device, smi, tr["step_time_s"])
@@ -1752,8 +2053,8 @@ def main() -> int:
                  "prefill and speculative_round over one decode step's, "
                  "one prefill's and one speculative round's",
     }] + flash_kernel_lines(flash_results, tr["flash_launches"],
-                            mt["flash_launches"],
-                            mesh["flash_launches"])})
+                            mt["flash_launches"], mesh["flash_launches"],
+                            gemma["flash_launches"], long_context)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                  "count": torch.cuda.device_count()}})

@@ -1,12 +1,17 @@
 """Training benchmark of the port: the BENCH_CHIP step on one card.
 
-    python -m kubeflow_tpu_torch.bench [steps] [--moe] [--best-of] [--cpu]
-                                       [--profile]
+    python -m kubeflow_tpu_torch.bench [steps] [--moe]
+                                       [--long-context[=8192]] [--best-of]
+                                       [--cpu] [--profile]
 
-The port of `bench.py`'s default and `--moe` modes: `BENCH_CHIP` at batch
-40 x seq 2048 (the reference's tokens per step), or with --moe
-`BENCH_MOE` (4 experts, top-2) at batch 16 x 2048, metric
-`train_mfu_h100_moe` with MFU by the activated experts' FLOPs; flash
+The port of `bench.py`'s default, `--moe` and `--long-context` modes:
+`BENCH_CHIP` at batch 40 x seq 2048 (the reference's tokens per step), or
+with --moe `BENCH_MOE` (4 experts, top-2) at batch 16 x 2048, metric
+`train_mfu_h100_moe` with MFU by the activated experts' FLOPs; with
+--long-context the config at batch 20 x seq 4096, or with
+--long-context=8192 at batch 8 x seq 8192 (max_seq_len 8192), metric
+`train_mfu_h100_seq{seq}` (the reference's long-context shapes; its
+flash tile sizes are TPU tiles, which the port does not read).  Flash
 attention on the Hopper kernels, AdamW with a bf16 first moment, random
 tokens from a seeded generator.  It runs 6 windows of `steps` steps (default 10; the first
 window after 2 warm-up steps) and reports the median of windows 2-6
@@ -15,7 +20,7 @@ one JSON line: `value` is the MFU against the card's own bf16 peak
 (`runtime/roofline.py:GPU_PEAKS`), `roofline_fraction` and `bound` come
 from `train_estimate`.
 
---cpu runs `TINY` at batch 4 x seq 128 on the CPU, one window, in either
+--cpu runs `TINY` at batch 4 x seq 128 on the CPU, one window, in any
 mode (as the reference does on its CPU backend, and under the dense
 metric name, since that is what it measures): a smoke run of the same
 code, whose `value` and roofline fields are null, since a CPU run
@@ -88,13 +93,47 @@ def profile_step(setup, data: dict, top: int = 15) -> dict:
     }
 
 
+# --long-context[=seq]: the batch of each of the reference's long-context
+# sequences
+LONG_CONTEXT = {4096: 20, 8192: 8}
+
+
+def workload(moe: bool = False, long_context: int = 0):
+    """(config, batch, seq) of a card run: BENCH_CHIP at 40 x 2048 or
+    BENCH_MOE at 16 x 2048 (the reference's batch 16; MFU counts the
+    activated experts, so dispatch and combine are overhead, not
+    numerator). A long-context mode takes precedence over `moe`, as in
+    the reference bench: BENCH_CHIP at the mode's batch and seq."""
+    if long_context:
+        config = (BENCH_CHIP.with_(max_seq_len=8192) if long_context == 8192
+                  else BENCH_CHIP)
+        return config, LONG_CONTEXT[long_context], long_context
+    return (BENCH_MOE, 16, 2048) if moe else (BENCH_CHIP, 40, 2048)
+
+
+def long_context_seq(argv: list) -> int:
+    """The sequence of --long-context[=seq] in argv (4096 without a
+    value), or 0 without the flag."""
+    for arg in argv:
+        if arg == "--long-context":
+            return 4096
+        if arg.startswith("--long-context="):
+            seq = int(arg.split("=", 1)[1])
+            if seq not in LONG_CONTEXT:
+                raise SystemExit(f"--long-context takes one of "
+                                 f"{sorted(LONG_CONTEXT)}, not {seq}")
+            return seq
+    return 0
+
+
 def main(argv: Optional[list] = None) -> dict:
     argv = sys.argv[1:] if argv is None else list(argv)
     numeric = [a for a in argv if a.isdigit()]
     num_steps = int(numeric[0]) if numeric else 10
     on_cpu = "--cpu" in argv
     best_of = "--best-of" in argv
-    moe = "--moe" in argv and not on_cpu
+    long_context = 0 if on_cpu else long_context_seq(argv)
+    moe = "--moe" in argv and not on_cpu and not long_context
     if on_cpu:
         device, name = torch.device("cpu"), "cpu"
         config, batch, seq = TINY, 4, 128
@@ -106,10 +145,7 @@ def main(argv: Optional[list] = None) -> dict:
         torch.backends.cudnn.allow_tf32 = False
         device = torch.device("cuda", 0)
         name = torch.cuda.get_device_name(0)
-        # BENCH_MOE at the reference's batch 16; MFU counts the activated
-        # experts, so dispatch and combine are overhead, not numerator
-        config, batch, seq = ((BENCH_MOE, 16, 2048) if moe
-                              else (BENCH_CHIP, 40, 2048))
+        config, batch, seq = workload(moe, long_context)
 
     setup = setup_training(config, device=device,
                            optimizer=default_optimizer(mu_dtype="bfloat16"))
@@ -136,7 +172,8 @@ def main(argv: Optional[list] = None) -> dict:
     fraction = None if on_cpu else est.roofline_fraction(
         result["step_time_s"])
     record = {
-        "metric": "train_mfu_h100_moe" if moe else "train_mfu_h100",
+        "metric": (f"train_mfu_h100_seq{seq}" if long_context
+                   else "train_mfu_h100_moe" if moe else "train_mfu_h100"),
         "value": _round(achieved, 4),
         "unit": "fraction",
         "vs_baseline": None,

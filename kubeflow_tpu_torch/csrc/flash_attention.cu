@@ -35,7 +35,8 @@
 // forward at the main path's shape (B 40, S 2048, H 12, D 128) does
 // 4*B*H*S^2*D/2 = 5.2e11 FLOPs and moves 0.8 GB; the two backward
 // kernels do 4 and 3 such products.  At 989 TFLOP/s bf16 that is 0.52,
-// 1.04 and 0.78 ms, above the bytes' 0.2-0.3 ms.  Every design keeps S
+// 1.04 and 0.78 ms, above the bytes' 0.2-0.3 ms (at the Gemma step's
+// B 2, S 8192, H 16, D 256: 1.11, 2.22 and 1.67 ms).  Every design keeps S
 // and P out of device memory (scores in registers, P fed back to the
 // tensor cores from the registers that hold it) and skips the tiles
 // wholly above the diagonal, which halves the work.
@@ -87,6 +88,20 @@
 //     with K read MN-major, as the forward reads V.  64-key tiles keep
 //     S, dP and the dQ accumulator (32 + 32 + 64 fp32 at D = 128) within
 //     the consumers' registers.  Each head's longest rows first.
+// Head dim 256 (Gemma) keeps the three designs with the tiles cut to fit
+// 227 KB of shared memory and 240 registers a consumer thread (`Tiles`):
+//   - forward: 64-key K and V tiles (192 KB); a consumer holds a 64 x 256
+//     fp32 O (128 registers) and a 64 x 64 S (32).  A causal block's last
+//     tile is wholly masked for consumer 0's rows and adds zeros;
+//   - dK/dV: two 64 x 256 fp32 accumulators do not fit one thread's
+//     registers, so a block owns 64 keys and its two consumers share them:
+//     consumer 0 forms P^T and sums dV += P^T dO, consumer 1 forms dP^T,
+//     takes P^T (fp32, 16 KB) through shared memory and sums
+//     dK += dS^T Q.  Each does two of the four products, and two named
+//     barriers hand the P^T buffer back and forth (208 KB);
+//   - dQ: 32-key K and V tiles (192 KB).
+// A 256-column product with P or dS is two m64n128k16 on the
+// accumulator's halves.
 // S need only be a multiple of 64, so a 128-row tile can run half past
 // the end: the TMA fills those rows with zeros, keys at or past S are
 // masked (a zero key would score 0, not -inf) and rows at or past S are
@@ -142,9 +157,62 @@ constexpr int HOPPER_THREADS = 3 * WG_THREADS;   // producer + 2 consumers
 constexpr int CONSUMER_WARPS = 8;
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 constexpr int STAGES = 2;
-constexpr int FWD_BQ = 128, FWD_BK = 128;
-constexpr int DKV_BK = 128, DKV_BQ = 64;
-constexpr int DQ_BQ = 128, DQ_BK = 64;
+constexpr int FWD_BQ = 128, DKV_BQ = 64, DQ_BQ = 128;
+
+// the key tiles of each head dim (D 64 and 128: 128, 128 and 64)
+template <int D>
+struct Tiles {
+    static constexpr int FWD_BK = D == 256 ? 64 : 128;
+    static constexpr int DKV_BK = D == 256 ? 64 : 128;
+    // the two consumers share the block's keys, one summing dV, one dK
+    static constexpr bool DKV_SPLIT = D == 256;
+    static constexpr int DQ_BK = D == 256 ? 32 : 64;
+};
+
+// named barriers (0 is __syncthreads) over the two consumer warpgroups of
+// the split dK/dV kernel: P^T written, P^T read
+constexpr int P_FULL = 1, P_EMPTY = 2, CONSUMER_THREADS = 2 * WG_THREADS;
+
+__device__ __forceinline__ void named_sync(int id) {
+    asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(CONSUMER_THREADS)
+                 : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id) {
+    asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "n"(CONSUMER_THREADS)
+                 : "memory");
+}
+
+__device__ __forceinline__ void sts_f4(uint32_t addr, float a, float b,
+                                       float c, float d) {
+    asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n"
+                 :: "r"(addr), "f"(a), "f"(b), "f"(c), "f"(d) : "memory");
+}
+
+__device__ __forceinline__ float4 lds_f4(uint32_t addr) {
+    float4 v;
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr)
+                 : "memory");
+    return v;
+}
+
+// d += a B, B MN-major (read through the transpose bit) in 64-column
+// boxes box_bytes apart, d holding D / 2 floats: one m64nDk16 up to
+// D = 128, two m64n128k16 on the accumulator's halves at D = 256
+template <int D>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[D / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, uint32_t box_bytes) {
+    if constexpr (D <= 128) {
+        wgmma_rs<1>(d, a, b);
+    } else {
+        static_assert(D == 256, "head dims 64, 128 and 256");
+        wgmma_rs<1>(*reinterpret_cast<float(*)[64]>(&d[0]), a, b);
+        wgmma_rs<1>(*reinterpret_cast<float(*)[64]>(&d[64]), a,
+                    b + 2 * box_bytes / 16);
+    }
+}
 
 // two floats from shared memory at a 32-bit shared address (a generic
 // pointer per column would cost two registers each, hoisted out of the loop)
@@ -160,7 +228,7 @@ __device__ __forceinline__ float2 lds_f2(uint32_t addr) {
 template <int D>
 struct FwdSmem {
     static constexpr int Q_BYTES = FWD_BQ * D * 2;
-    static constexpr int KV_BYTES = FWD_BK * D * 2;
+    static constexpr int KV_BYTES = Tiles<D>::FWD_BK * D * 2;
     static constexpr int Q_OFF = 0;
     static constexpr int KV_OFF = Q_BYTES;   // stage s: K, then V
     static constexpr int BAR_OFF = KV_OFF + STAGES * 2 * KV_BYTES;
@@ -169,21 +237,24 @@ struct FwdSmem {
 
 template <int D>
 struct DkvSmem {
-    static constexpr int KV_BYTES = DKV_BK * D * 2;
+    static constexpr int KV_BYTES = Tiles<D>::DKV_BK * D * 2;
     static constexpr int QT_BYTES = DKV_BQ * D * 2;
     static constexpr int K_OFF = 0, V_OFF = KV_BYTES;
     static constexpr int STAGE_OFF = 2 * KV_BYTES;   // stage s: Q, then dO
     static constexpr int ROWS_OFF = STAGE_OFF + STAGES * 2 * QT_BYTES;
                                                      // stage s: lse, di
     static constexpr int ROW_BYTES_F = DKV_BQ * 4;
-    static constexpr int BAR_OFF = ROWS_OFF + STAGES * 2 * ROW_BYTES_F;
+    static constexpr int P_OFF = ROWS_OFF + STAGES * 2 * ROW_BYTES_F;
+    // the split kernel's P^T, 64 keys x 64 queries fp32
+    static constexpr int P_BYTES = Tiles<D>::DKV_SPLIT ? 64 * DKV_BQ * 4 : 0;
+    static constexpr int BAR_OFF = P_OFF + P_BYTES;
     static constexpr int BYTES = BAR_OFF + 64 + 1024;
 };
 
 template <int D>
 struct DqSmem {
     static constexpr int QT_BYTES = DQ_BQ * D * 2;   // Q or dO
-    static constexpr int KV_BYTES = DQ_BK * D * 2;
+    static constexpr int KV_BYTES = Tiles<D>::DQ_BK * D * 2;
     static constexpr int Q_OFF = 0, DO_OFF = QT_BYTES;
     static constexpr int KV_OFF = 2 * QT_BYTES;      // stage s: K, then V
     static constexpr int BAR_OFF = KV_OFF + STAGES * 2 * KV_BYTES;
@@ -201,6 +272,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                  int KVH, float scale, int causal) {
     using L = FwdSmem<D>;
     constexpr int BOXES = D / BOX;
+    constexpr int FWD_BK = Tiles<D>::FWD_BK;
     extern __shared__ unsigned char smem_raw[];
     const uint32_t raw = smem_u32(smem_raw);
     const uint32_t base = (raw + 1023) & ~1023u;
@@ -215,7 +287,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     const int b = bh / H, h = bh % H;
     const int kvh = h / (H / KVH);
     const int qb = nqb - 1 - blockIdx.x % nqb;
-    const int nkb = causal ? qb + 1 : (S + FWD_BK - 1) / FWD_BK;
+    // key tiles up to the block's last row (causal) or all of them
+    const int nkt = (S + FWD_BK - 1) / FWD_BK;
+    const int nkb = causal ? min((qb + 1) * (FWD_BQ / FWD_BK), nkt) : nkt;
     const int wg = threadIdx.x / WG_THREADS;
 
     if (threadIdx.x == 0) {
@@ -258,9 +332,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
         const int tid = threadIdx.x % WG_THREADS;
         const int warp = tid / 32, lane = tid % 32;
         const int t2 = (lane & 3) * 2;
-        const int row0 = qb * FWD_BQ + c * 64 + warp * 16 + (lane >> 2);
-                                                        // and row0 + 8
+        const int row_lo = qb * FWD_BQ + c * 64;
+        const int row0 = row_lo + warp * 16 + (lane >> 2);   // and row0 + 8
         const uint32_t sq = base + L::Q_OFF + c * 64 * ROW_BYTES;
+        // when causal, the key tiles from diag on are masked for these rows
+        // (at FWD_BK 64 consumer 0's second one wholly: it adds zeros)
+        const int diag = row_lo / FWD_BK;
 
         float acc[D / 2];
 #pragma unroll
@@ -276,7 +353,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
             const uint32_t sk = base + L::KV_OFF + s * 2 * L::KV_BYTES;
             const uint32_t sv = sk + L::KV_BYTES;
 
-            // S = Q K^T: this consumer's 64 rows x 128 keys
+            // S = Q K^T: this consumer's 64 rows x FWD_BK keys
             float sc[FWD_BK / 2];
             const uint64_t qd = opaque(sw128_desc(sq, 16));
             const uint64_t kd = opaque(sw128_desc(sk, 16));
@@ -292,13 +369,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
             wgmma_wait<0>();
             fence_regs(sc);
 
-            // online softmax in log2 units.  Only the diagonal tile and a
+            // online softmax in log2 units.  Only the diagonal tiles and a
             // tile that runs past S are masked, in a pass of their own:
             // element 4j + e is key kb*BK + t2 + 8j + (e & 1) of row
             // row0 + 8 (e / 2), so each test is a constant against a limit
 #pragma unroll
             for (int i = 0; i < FWD_BK / 2; ++i) sc[i] *= sl2;
-            if ((causal && kb == qb) || (kb + 1) * FWD_BK > S) {
+            if ((causal && kb >= diag) || (kb + 1) * FWD_BK > S) {
                 const int past_row = causal ? row0 - kb * FWD_BK - t2
                                             : FWD_BK;
                 const int past_seq = S - kb * FWD_BK - t2;
@@ -360,7 +437,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
             wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < FWD_BK / 16; ++kk)
-                wgmma_rs<1>(acc, pa[kk], vd + kk * 16 * ROW_BYTES / 16);
+                wgmma_rs_mn<D>(acc, pa[kk], vd + kk * 16 * ROW_BYTES / 16,
+                               FWD_BK * ROW_BYTES);
             wgmma_commit();
             wgmma_wait<0>();
             fence_regs(acc);
@@ -405,6 +483,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                      float scale, int causal) {
     using L = DkvSmem<D>;
     constexpr int BOXES = D / BOX;
+    constexpr int DKV_BK = Tiles<D>::DKV_BK;
     extern __shared__ unsigned char smem_raw[];
     const uint32_t raw = smem_u32(smem_raw);
     const uint32_t base = (raw + 1023) & ~1023u;
@@ -469,7 +548,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                           full);
             }
         }
-    } else {
+    } else if constexpr (!Tiles<D>::DKV_SPLIT) {
         // consumer c: keys 64c..64c+63 of the block's 128
         regs_inc<CONSUMER_REGS>();
         const int c = wg - 1;
@@ -579,10 +658,12 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                 wgmma_fence();
 #pragma unroll
                 for (int kk = 0; kk < DKV_BQ / 16; ++kk)
-                    wgmma_rs<1>(dva, pa[kk], dot + kk * 16 * ROW_BYTES / 16);
+                    wgmma_rs_mn<D>(dva, pa[kk], dot + kk * 16 * ROW_BYTES / 16,
+                                   DKV_BQ * ROW_BYTES);
 #pragma unroll
                 for (int kk = 0; kk < DKV_BQ / 16; ++kk)
-                    wgmma_rs<1>(dka, dsa[kk], qt + kk * 16 * ROW_BYTES / 16);
+                    wgmma_rs_mn<D>(dka, dsa[kk], qt + kk * 16 * ROW_BYTES / 16,
+                                   DKV_BQ * ROW_BYTES);
                 wgmma_commit();
                 wgmma_wait<0>();
                 fence_regs(dva);
@@ -612,6 +693,138 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                                           dva[4 * j + 2 * r + 1]);
             }
         }
+    } else {
+        // both consumers take the block's 64 keys: consumer 0 forms P^T and
+        // sums dV, consumer 1 forms dP^T, takes P^T through shared memory
+        // and sums dK.  Every tile starts at or below the diagonal (64-row
+        // query tiles from the block's own), so both run every iteration
+        // and meet at the barriers in step.
+        regs_inc<CONSUMER_REGS>();
+        const int c = wg - 1;
+        const int tid = threadIdx.x % WG_THREADS;
+        const int warp = tid / 32, lane = tid % 32;
+        const int t2 = (lane & 3) * 2;
+        const int key_lo = kb * DKV_BK;
+        const int key0 = key_lo + warp * 16 + (lane >> 2);   // and key0 + 8
+        const uint32_t sk = base + L::K_OFF, sv = base + L::V_OFF;
+        // this thread's 32 values of P^T, four at a time, the same thread of
+        // the other consumer holding the same elements of dP^T
+        const uint32_t sp = base + L::P_OFF + tid * 16;
+
+        float acc[D / 2];   // dV (consumer 0) or dK (consumer 1)
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+        const float sl2 = scale * LOG2E;
+
+        mbar_wait(kv_full, 0);
+        for (int it = 0; it < iters; ++it) {
+            const int s = it % STAGES;
+            const int q0 = (qt0 + it % nqt) * DKV_BQ;
+            mbar_wait(full0 + 8 * s, (it / STAGES) & 1);
+            const uint32_t sq = base + L::STAGE_OFF + s * 2 * L::QT_BYTES;
+            const uint32_t sdo = sq + L::QT_BYTES;
+            const uint32_t slse = base + L::ROWS_OFF
+                + s * 2 * L::ROW_BYTES_F + t2 * 4;
+            const uint32_t sdi = slse + L::ROW_BYTES_F;
+
+            // S^T = K Q^T (consumer 0) or dP^T = V dO^T (consumer 1)
+            float st[DKV_BQ / 2];
+            const uint64_t ad = opaque(sw128_desc(c == 0 ? sk : sv, 16));
+            const uint64_t bd = opaque(sw128_desc(c == 0 ? sq : sdo, 16));
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+                const int off = (kk % 4) * 32;
+                wgmma_ss(st, ad + ((kk / 4) * DKV_BK * ROW_BYTES + off) / 16,
+                         bd + ((kk / 4) * DKV_BQ * ROW_BYTES + off) / 16,
+                         kk > 0);
+            }
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(st);
+
+            uint32_t a[DKV_BQ / 16][4];
+            if (c == 0) {
+                // P^T from the forward's log-sum-exp (element 4j + e is key
+                // key0 + 8 (e / 2) and query q0 + t2 + 8j + (e & 1))
+                const bool diag = causal && q0 < key_lo + 64;
+                const int before = key0 - q0 - t2;
+#pragma unroll
+                for (int j = 0; j < DKV_BQ / 8; ++j) {
+                    const float2 l2 = lds_f2(slse + j * 32);
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        float p = exp2f(st[4 * j + e] * sl2
+                                        - ((e & 1) ? l2.y : l2.x) * LOG2E);
+                        if (diag && j * 8 + (e & 1) < before + (e >> 1) * 8)
+                            p = 0.f;
+                        st[4 * j + e] = p;
+                    }
+                }
+                // to consumer 1, once it has read the last P^T
+                if (it > 0) named_sync(P_EMPTY);
+#pragma unroll
+                for (int i = 0; i < DKV_BQ / 2; i += 4)
+                    sts_f4(sp + i / 4 * WG_THREADS * 16, st[i], st[i + 1],
+                           st[i + 2], st[i + 3]);
+                named_arrive(P_FULL);
+                // P^T rounded to bf16 for dV += P^T dO
+#pragma unroll
+                for (int kk = 0; kk < DKV_BQ / 16; ++kk)
+                    acc_to_a_wg(a[kk], st, kk);
+            } else {
+                // dS^T = P^T (dP^T - di) * scale, rounded to bf16 for
+                // dK += dS^T Q
+                named_sync(P_FULL);
+#pragma unroll
+                for (int i = 0; i < DKV_BQ / 2; i += 4) {
+                    const float4 p = lds_f4(sp + i / 4 * WG_THREADS * 16);
+                    const float2 d2 = lds_f2(sdi + (i / 4) * 32);
+                    st[i] = p.x * (st[i] - d2.x) * scale;
+                    st[i + 1] = p.y * (st[i + 1] - d2.y) * scale;
+                    st[i + 2] = p.z * (st[i + 2] - d2.x) * scale;
+                    st[i + 3] = p.w * (st[i + 3] - d2.y) * scale;
+                }
+                if (it + 1 < iters) named_arrive(P_EMPTY);
+#pragma unroll
+                for (int kk = 0; kk < DKV_BQ / 16; ++kk)
+                    acc_to_a_wg(a[kk], st, kk);
+            }
+
+            // dV += P^T dO or dK += dS^T Q, dO or Q read MN-major
+            const uint64_t bt = opaque(
+                sw128_desc(c == 0 ? sdo : sq, DKV_BQ * ROW_BYTES));
+            fence_regs(a);
+            fence_regs(acc);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < DKV_BQ / 16; ++kk)
+                wgmma_rs_mn<D>(acc, a[kk], bt + kk * 16 * ROW_BYTES / 16,
+                               DKV_BQ * ROW_BYTES);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(acc);
+            fence_regs(a);
+
+            // this warp is done with the stage
+            __syncwarp();
+            if (lane == 0) mbar_arrive(empty0 + 8 * s);
+            __syncwarp();
+        }
+
+        bf16* out = c == 0 ? dv : dk;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const int key = key0 + r * 8;
+            if (key >= S) continue;
+            const long long off = (((long long)b * S + key) * KVH + kvh) * D
+                + t2;
+#pragma unroll
+            for (int j = 0; j < D / 8; ++j)
+                *reinterpret_cast<__nv_bfloat162*>(out + off + j * 8) =
+                    __floats2bfloat162_rn(acc[4 * j + 2 * r],
+                                          acc[4 * j + 2 * r + 1]);
+        }
     }
 }
 
@@ -628,6 +841,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                     int S, int H, int KVH, float scale, int causal) {
     using L = DqSmem<D>;
     constexpr int BOXES = D / BOX;
+    constexpr int DQ_BK = Tiles<D>::DQ_BK;
     extern __shared__ unsigned char smem_raw[];
     const uint32_t raw = smem_u32(smem_raw);
     const uint32_t base = (raw + 1023) & ~1023u;
@@ -696,9 +910,10 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
         const uint32_t sdo = base + L::DO_OFF + c * 64 * ROW_BYTES;
         // S is a multiple of 64, so this consumer's rows are all in S or
         // all past it (half of the last 128-row tile, zero-filled by TMA);
-        // when causal its last key tile is the diagonal one
+        // when causal its key tiles from diag to last hold its diagonal
         const bool live = row_lo < S;
-        const int last = causal ? row_lo / DQ_BK : nkb - 1;
+        const int diag = row_lo / DQ_BK;
+        const int last = causal ? (row_lo + 63) / DQ_BK : nkb - 1;
 
         // each row's lse (log2 units) and di, held for the whole loop
         float lse2[2] = {0.f, 0.f}, dir[2] = {0.f, 0.f};
@@ -723,7 +938,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                 const uint32_t sk = base + L::KV_OFF + s * 2 * L::KV_BYTES;
                 const uint32_t sv = sk + L::KV_BYTES;
 
-                // S = Q K^T and dP = dO V^T: 64 rows x 64 keys each
+                // S = Q K^T and dP = dO V^T: 64 rows x DQ_BK keys each
                 float st[DQ_BK / 2], dpt[DQ_BK / 2];
                 const uint64_t qd = opaque(sw128_desc(sq, 16));
                 const uint64_t dod = opaque(sw128_desc(sdo, 16));
@@ -752,10 +967,10 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                 fence_regs(st);
 
                 // P = 2^(S * scale * log2e - lse * log2e) while dP runs.
-                // Only the diagonal tile is masked, in a pass of its own:
-                // element 4j + e is key kb*BK + t2 + 8j + (e & 1) of row
-                // row0 + 8 (e / 2)
-                if (causal && kb == last) {
+                // Only the diagonal tiles are masked, in a pass of their
+                // own: element 4j + e is key kb*BK + t2 + 8j + (e & 1) of
+                // row row0 + 8 (e / 2)
+                if (causal && kb >= diag) {
                     const int past = row0 - kb * DQ_BK - t2;
 #pragma unroll
                     for (int j = 0; j < DQ_BK / 8; ++j)
@@ -787,7 +1002,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                 wgmma_fence();
 #pragma unroll
                 for (int kk = 0; kk < DQ_BK / 16; ++kk)
-                    wgmma_rs<1>(dqa, dsa[kk], kt + kk * 16 * ROW_BYTES / 16);
+                    wgmma_rs_mn<D>(dqa, dsa[kk], kt + kk * 16 * ROW_BYTES / 16,
+                                   DQ_BK * ROW_BYTES);
                 wgmma_commit();
                 wgmma_wait<0>();
                 fence_regs(dqa);
@@ -843,6 +1059,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
                float scale, Strides qs, Strides ks, Strides vs,
                cudaStream_t stream) {
     CUtensorMap tq, tk, tv;
+    constexpr int FWD_BK = Tiles<D>::FWD_BK;
     if (!encode_bshd(&tq, q, B, S, H, D, qs, FWD_BQ)
         || !encode_bshd(&tk, k, B, S, KVH, D, ks, FWD_BK)
         || !encode_bshd(&tv, v, B, S, KVH, D, vs, FWD_BK))
@@ -861,6 +1078,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                int S, int H, int KVH, int causal, float scale, Strides qs,
                Strides ks, Strides vs, Strides dos, cudaStream_t stream) {
     CUtensorMap tq, tk, tv, tdo;
+    constexpr int DKV_BK = Tiles<D>::DKV_BK;
     if (!encode_bshd(&tq, q, B, S, H, D, qs, DKV_BQ)
         || !encode_bshd(&tk, k, B, S, KVH, D, ks, DKV_BK)
         || !encode_bshd(&tv, v, B, S, KVH, D, vs, DKV_BK)
@@ -881,6 +1099,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               int KVH, int causal, float scale, Strides qs, Strides ks,
               Strides vs, Strides dos, cudaStream_t stream) {
     CUtensorMap tq, tk, tv, tdo;
+    constexpr int DQ_BK = Tiles<D>::DQ_BK;
     if (!encode_bshd(&tq, q, B, S, H, D, qs, DQ_BQ)
         || !encode_bshd(&tk, k, B, S, KVH, D, ks, DQ_BK)
         || !encode_bshd(&tv, v, B, S, KVH, D, vs, DQ_BK)
@@ -917,6 +1136,9 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
     if (!shape_ok(B, S, H, KVH)) return BAD_SHAPE;
     const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
     const cudaStream_t st = (cudaStream_t)stream;
+    if (D == 256)
+        return launch_fwd<256>(q, k, v, o, lse, B, S, H, KVH, causal, scale,
+                               qs, ks, vs, st);
     if (D == 128)
         return launch_fwd<128>(q, k, v, o, lse, B, S, H, KVH, causal, scale,
                                qs, ks, vs, st);
@@ -937,6 +1159,9 @@ extern "C" int flash_bwd_dkv_bf16(
     const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
         dos{dsb, dss, dsh};
     const cudaStream_t st = (cudaStream_t)stream;
+    if (D == 256)
+        return launch_dkv<256>(q, k, v, dout, lse, di, dk, dv, B, S, H, KVH,
+                               causal, scale, qs, ks, vs, dos, st);
     if (D == 128)
         return launch_dkv<128>(q, k, v, dout, lse, di, dk, dv, B, S, H, KVH,
                                causal, scale, qs, ks, vs, dos, st);
@@ -957,6 +1182,9 @@ extern "C" int flash_bwd_dq_bf16(
     const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
         dos{dsb, dss, dsh};
     const cudaStream_t st = (cudaStream_t)stream;
+    if (D == 256)
+        return launch_dq<256>(q, k, v, dout, lse, di, dq, B, S, H, KVH,
+                              causal, scale, qs, ks, vs, dos, st);
     if (D == 128)
         return launch_dq<128>(q, k, v, dout, lse, di, dq, B, S, H, KVH,
                               causal, scale, qs, ks, vs, dos, st);

@@ -167,6 +167,24 @@ __device__ __forceinline__ uint64_t opaque(uint64_t d) {
 //             2t..2t+1), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..) of the
 //             warp's 16 x 16 slice, which is the accumulator layout of
 //             cols 16k..16k+15
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
+                                         uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17,"
+        " p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
                                          uint64_t b, int scale_d) {
     asm volatile(

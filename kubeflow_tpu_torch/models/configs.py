@@ -1,8 +1,9 @@
 """Decoder configuration for the PyTorch port.
 
 A copy of the reference package's `TransformerConfig` (field for field,
-so a config prints and compares the same on both sides) and the presets
-the port runs: `LLAMA2_7B` (the serving slice), `BENCH_CHIP` (the
+so a config prints and compares the same on both sides) and its presets:
+`LLAMA2_7B` (the serving slice), `LLAMA2_13B`, `GEMMA_7B` (head dim 256,
+tied embeddings, logits softcap 30), `LLAMA2_350M`, `BENCH_CHIP` (the
 training slice, the step `python -m kubeflow_tpu_torch.bench` times),
 `BENCH_MOE` (its Mixture-of-Experts twin, `bench --moe`) and the test
 config `TINY`.  The port keeps its own copy rather than
@@ -106,6 +107,38 @@ class TransformerConfig:
 
 LLAMA2_7B = TransformerConfig()
 
+LLAMA2_13B = TransformerConfig(
+    num_layers=40,
+    embed_dim=5120,
+    num_heads=40,
+    num_kv_heads=40,
+    head_dim=128,
+    mlp_dim=13_824,
+)
+
+GEMMA_7B = TransformerConfig(
+    vocab_size=256_128,
+    num_layers=28,
+    embed_dim=3072,
+    num_heads=16,
+    num_kv_heads=16,
+    head_dim=256,
+    mlp_dim=24_576,
+    max_seq_len=8192,
+    tie_embeddings=True,
+    logits_softcap=30.0,
+)
+
+LLAMA2_350M = TransformerConfig(
+    num_layers=24,
+    embed_dim=1024,
+    num_heads=16,
+    num_kv_heads=16,
+    head_dim=64,
+    mlp_dim=2816,
+    max_seq_len=2048,
+)
+
 # The flagship training config (~0.47B parameters): 10 layers 1536 wide,
 # 12 heads of 128, MLP 6144, seq 2048, flash attention, cross-entropy in
 # 32 chunks so the [tokens, vocab] fp32 logits never exist at once.
@@ -153,8 +186,10 @@ TINY = TransformerConfig(
     param_dtype="float32",
 )
 
-PRESETS = {"llama2-7b": LLAMA2_7B, "bench-chip": BENCH_CHIP,
-           "bench-moe": BENCH_MOE, "tiny": TINY}
+PRESETS = {"llama2-7b": LLAMA2_7B, "llama2-13b": LLAMA2_13B,
+           "gemma-7b": GEMMA_7B, "llama2-350m": LLAMA2_350M,
+           "bench-chip": BENCH_CHIP, "bench-moe": BENCH_MOE, "tiny": TINY}
 
-__all__ = ["BENCH_CHIP", "BENCH_MOE", "LLAMA2_7B", "PRESETS", "TINY",
+__all__ = ["BENCH_CHIP", "BENCH_MOE", "GEMMA_7B", "LLAMA2_13B",
+           "LLAMA2_350M", "LLAMA2_7B", "PRESETS", "TINY",
            "TransformerConfig"]

@@ -41,7 +41,7 @@ import torch
 from . import _build
 
 SOURCE = _build.CSRC / "flash_attention.cu"
-HEAD_DIMS = (64, 128)   # head dims the kernels are built for
+HEAD_DIMS = (64, 128, 256)   # head dims the kernels are built for
 SEQ_TILE = 64           # the kernels' sequence tile: S must be a multiple
 
 launches = {"fwd": 0, "dkv": 0, "dq": 0}  # kernel launches since import

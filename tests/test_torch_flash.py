@@ -63,12 +63,16 @@ def _max_err(got: torch.Tensor, want) -> float:
     pytest.param((1, 256, 2, 1, 128), False, id="noncausal"),
     pytest.param((1, 256, 4, 2, 64), True, id="d64-gqa"),
     pytest.param((1, 256, 4, 4, 64), False, id="d64-noncausal"),
+    pytest.param((1, 256, 2, 2, 256), True, id="d256"),
+    pytest.param((1, 256, 4, 2, 256), True, id="d256-gqa"),
+    pytest.param((1, 256, 2, 2, 256), False, id="d256-noncausal"),
 ])
 def test_plain_versions_match_interpreted_pallas_kernels(shape, causal):
     """bf16: the plain forward and backward against the Pallas forward,
     dK/dV and dQ kernels (jax.vjp of the reference's flash_attention),
-    causal or not, head dim 128 or 64, with and without GQA: the plain
-    versions are what the CUDA kernels are held to on the card."""
+    causal or not, head dim 64, 128 or 256 (Gemma's), with and without
+    GQA: the plain versions are what the CUDA kernels are held to on the
+    card."""
     q, k, v, g = _inputs(shape, seed=shape[2], dtype=jnp.bfloat16)
     with pltpu.force_tpu_interpret_mode():
         out, vjp = jax.vjp(
@@ -142,11 +146,14 @@ class TestDispatch:
         return [torch.randn((1, seq, 2, dim), generator=gen)
                 for _ in range(3)]
 
-    def test_auto_on_cpu_is_xla(self, monkeypatch):
+    @pytest.mark.parametrize("dim", [16, 256])
+    def test_auto_on_cpu_is_xla(self, monkeypatch, dim):
+        """"auto" on a CPU tensor is the einsum path at any head dim, the
+        kernels' (256, Gemma's) included."""
         calls = []
         monkeypatch.setattr(fa, "flash_forward_reference",
                             lambda *a, **k: calls.append(1))
-        q, k, v = self._qkv()
+        q, k, v = self._qkv(dim=dim)
         out = attention(q, k, v, impl="auto")
         assert not calls
         torch.testing.assert_close(out, xla_attention(q, k, v))
@@ -189,8 +196,10 @@ class TestDispatch:
     @pytest.mark.parametrize("shape,reason", [
         ((1, 100, 2, 2, 128), "multiple of 64"),
         ((1, 128, 2, 2, 96), "head dim"),
+        ((1, 128, 2, 2, 512), "head dim"),
         ((1, 128, 3, 2, 128), "kv heads"),
         ((1, 320, 2, 2, 128), None),
+        ((1, 320, 4, 2, 256), None),
     ])
     def test_kernel_shape_rules(self, shape, reason):
         """What the CUDA kernels refuse, checked before any launch.  The
@@ -210,3 +219,4 @@ class TestDispatch:
         q = torch.zeros((1, 2048, 12, 128), dtype=torch.bfloat16)
         assert fa.unsupported(q, q, q) is None
         assert fa.unsupported(q.float(), q, q) is not None
+

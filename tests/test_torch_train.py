@@ -213,15 +213,25 @@ def _port_step(cfg, params0, batch: dict):
     return model, float(metrics["loss"]), float(metrics["grad_norm"])
 
 
-@pytest.mark.parametrize("impl,remat", [("xla", True), ("flash", False)])
-def test_sgd_train_step_matches_reference(impl, remat):
+# GEMMA_7B's shape at TINY's size: head dim 256, tied embeddings, logits
+# softcap 30
+GEMMA_LIKE = {"head_dim": 256, "tie_embeddings": True, "logits_softcap": 30.0}
+
+
+@pytest.mark.parametrize("impl,remat,shape", [
+    pytest.param("xla", True, {}, id="xla-True"),
+    pytest.param("flash", False, {}, id="flash-False"),
+    pytest.param("flash", False, GEMMA_LIKE, id="gemma-flash"),
+])
+def test_sgd_train_step_matches_reference(impl, remat, shape):
     """TINY (2 layers, GQA 4/2, fp32), batch 2 x 128, SGD 0.05: loss, grad
     norm and every updated parameter within 1e-5.  "flash" runs the
     reference's Pallas kernels in TPU interpret mode, with remat off
     (interpret mode does not run under remat), and the port's plain
-    flash versions."""
-    jcfg = jconfigs.TINY.with_(attention_impl=impl, remat=remat)
-    cfg = configs.TINY.with_(attention_impl=impl, remat=remat)
+    flash versions; "gemma-flash" does so with GEMMA_7B's head dim 256,
+    tied embeddings and logits softcap."""
+    jcfg = jconfigs.TINY.with_(attention_impl=impl, remat=remat, **shape)
+    cfg = configs.TINY.with_(attention_impl=impl, remat=remat, **shape)
     batch = _batch(cfg, 2, 128, seed=5)
     ctx = (pltpu.force_tpu_interpret_mode() if impl == "flash"
            else contextlib.nullcontext())
@@ -352,7 +362,8 @@ def test_init_params_draws_flax_distributions():
             assert want.abs().max().item() <= bound * (1 + 1e-6)
 
 
-@pytest.mark.parametrize("name", ["TINY", "BENCH_CHIP", "LLAMA2_7B"])
+@pytest.mark.parametrize("name", ["TINY", "BENCH_CHIP", "LLAMA2_7B",
+                                  "GEMMA_7B", "LLAMA2_13B", "LLAMA2_350M"])
 def test_roofline_counts_match_reference(name):
     cfg, jcfg = getattr(configs, name), getattr(jconfigs, name)
     for batch, seq in ((4, 128), (40, 2048)):
@@ -377,6 +388,32 @@ def test_mfu_uses_the_cards_own_peak():
         40 * 2048 * cfg.flops_per_token(2048) / 989e12)
     assert roofline.train_estimate(cfg, 40, 2048, "cpu"
                                    ).roofline_fraction(1.0) is None
+
+
+def test_bench_long_context_modes():
+    """--long-context[=8192]: the reference bench's shapes, BENCH_CHIP at
+    20 x 4096, or at 8 x 8192 with max_seq_len 8192; another value is
+    refused, --long-context takes precedence over --moe as in the
+    reference bench, and --cpu keeps TINY under the dense metric."""
+    assert bench.long_context_seq(["3", "--long-context"]) == 4096
+    assert bench.long_context_seq(["--long-context=8192"]) == 8192
+    assert bench.long_context_seq(["--moe"]) == 0
+    with pytest.raises(SystemExit):
+        bench.long_context_seq(["--long-context=2048"])
+    assert bench.workload() == (configs.BENCH_CHIP, 40, 2048)
+    assert bench.workload(long_context=4096) == (configs.BENCH_CHIP, 20,
+                                                 4096)
+    cfg, batch, seq = bench.workload(long_context=8192)
+    assert (batch, seq) == (8, 8192)
+    assert cfg == configs.BENCH_CHIP.with_(max_seq_len=8192)
+    for seq in (4096, 8192):
+        assert bench.workload(moe=True, long_context=seq) == \
+            bench.workload(long_context=seq)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        record = bench.main(["--cpu", "1", "--long-context=8192"])
+    assert record["metric"] == "train_mfu_h100"
+    assert record["detail"]["seq"] == 128
 
 
 def test_bench_cpu_prints_one_json_line():

@@ -150,14 +150,32 @@ non-zero without its result line):
    gradient norm within 2e-2, every parameter's gradient cosine >= 0.99;
    BENCH_MOE at batch 4: one mesh step with 20/10/10 flash launches and a
    loss within 1e-3 relative of the unsharded kernel path's.  The
-   process group is destroyed at the end.
+   process group is destroyed at the end;
+10. pipeline_train: BENCH_CHIP at full width and depth in 2 pipeline
+   stages of 5 layers (parallel/pipeline.py), under GPipe and under 1F1B.
+   The machine has one card, so first two processes ask NCCL for an
+   all-reduce on it and what it says is printed; the stages then run as
+   two processes on the one card over a gloo process group, whose
+   stage-to-stage sends go through pinned host memory (the transport is
+   printed); compute, the flash kernels and the optimizer stay on the
+   card.  At batch 8 from the same seed, 4 microbatches, against the
+   unsharded kernel path: loss within 1e-3 relative, global gradient
+   norm within 2e-2, every parameter's gradient cosine >= 0.99, and the
+   flash launches of both stages summed exactly 4 x 20/10/10.  Each
+   stage's peak memory (torch.cuda.max_memory_allocated) at 8
+   microbatches is printed, of the schedule alone (the stage's forwards
+   and backwards) and of the whole step (with the gradients'
+   all-reduces and norm); stage 0's schedule peak under 1F1B must be
+   below its under GPipe.  The step times are printed as what they are,
+   two stages time-sharing one card.
 
 It prints one JSON line per kernel shape and per slice, then a "kernels"
 line (each kernel's launches on its main path, and beside them the
-speculative run's int4 launches, one MoE step's, one mesh step's and one
-long-context step's flash launches; the head-dim-256 flash kernels as
-entries of their own, *_d256, on the Gemma step), the nvidia-smi line,
-and last {"ok": true, "device": {...}}.
+speculative run's int4 launches, one MoE step's, one mesh step's, one
+pipelined step's of each schedule and one long-context step's flash
+launches; the head-dim-256 flash kernels as entries of their own,
+*_d256, on the Gemma step), the nvidia-smi line, and last
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -242,6 +260,12 @@ GEMMA_CASE = GEMMA_SHAPE + (True,)
 GEMMA_LAYERS, GEMMA_LOSS_CHUNKS = 8, 32   # depth cut to fit one card
 GEMMA_COMPARE_BATCH = 1
 GEMMA_SGD_STEPS = 3
+# pipeline_train: BENCH_CHIP's 10 layers in 2 stages of 5, one process a
+# stage on the one card; gates at batch COMPARE_BATCH and PIPE_MICRO
+# microbatches, peak memory at PIPE_MEMORY_MICRO
+PIPE_STAGES, PIPE_MICRO, PIPE_MEMORY_MICRO = 2, 4, 8
+PIPE_TIMED_STEPS = 3
+PIPE_TIMEOUT_S = 420
 FLASH_REPLACES = {
     "flash_fwd": "kubeflow_tpu/ops/attention.py:173 -> jax/experimental/"
                  "pallas/ops/tpu/flash_attention.py:758",
@@ -1859,15 +1883,265 @@ def mesh_train_phase(device, smi: str, train_step_s) -> dict:
     return res
 
 
+def _nccl_probe_rank(rank: int, port: int, queue) -> None:
+    """One of two ranks on card 0: an NCCL all-reduce, and what came of
+    it.  The process ends without tearing NCCL down."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                rank=rank, world_size=2)
+        t = torch.ones(1, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        said = f"ran: the all-reduce gave {t.item()}"
+    except Exception as exc:  # what NCCL says is what the probe records
+        said = f"{type(exc).__name__}: {exc}"
+    queue.put((rank, said))
+    queue.close()
+    queue.join_thread()
+    os._exit(0)
+
+
+def nccl_probe() -> dict:
+    """Whether NCCL takes two ranks on the one card: {rank: what it
+    said}, "no answer" from a rank that neither failed nor finished in
+    180 s."""
+    import multiprocessing
+    import queue as queues
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_nccl_probe_rank, args=(rank, port, results))
+             for rank in range(2)]
+    for p in procs:
+        p.start()
+    said = {}
+    deadline = time.monotonic() + 180
+    try:
+        while len(said) < 2 and time.monotonic() < deadline:
+            try:
+                rank, text = results.get(timeout=max(
+                    0.1, deadline - time.monotonic()))
+            except queues.Empty:
+                break
+            said[rank] = text
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    return {rank: said.get(rank, "no answer") for rank in range(2)}
+
+
+def _pipeline_rank(reference_path: str, batch: dict) -> list:
+    """One pipeline stage of BENCH_CHIP on card 0, in a gloo world of
+    PIPE_STAGES processes: per schedule, the kernel-path gradients against
+    the unsharded ones at `reference_path`, the flash launches, step
+    times and, at PIPE_MEMORY_MICRO microbatches, the peak memory of the
+    schedule alone and of the whole step.  Every rank's report, ordered
+    by stage."""
+    import torch
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.models import train
+    from kubeflow_tpu_torch.models.configs import BENCH_CHIP
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.parallel import pipeline
+    from kubeflow_tpu_torch.parallel.mesh import (
+        MeshConfig,
+        axis_group,
+        make_mesh,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    mesh = make_mesh(MeshConfig(pipeline=PIPE_STAGES), device="cuda")
+    stage = mesh.get_local_rank("pipeline")
+    want = torch.load(reference_path, mmap=True, weights_only=True)
+    batch = {k: v.to(device) for k, v in batch.items()}
+    mine = {"stage": stage, "backend": dist.get_backend(),
+            "transport": pipeline.transport(axis_group(mesh, "pipeline"),
+                                            device)}
+    for schedule in train.SCHEDULES:
+        run = train.setup_training(
+            BENCH_CHIP, mesh, device=device, seed=SEED,
+            optimizer=train.SGD(0.05), pipeline_microbatches=PIPE_MICRO,
+            pipeline_schedule=schedule)
+        names = [n for n, p in run.model.named_parameters()
+                 if p.requires_grad]
+        for key in fa.launches:
+            fa.launches[key] = 0
+        metrics, _, grads, norm = train.mesh_loss_and_grads(
+            run.model, batch, PIPE_MICRO, schedule)
+        launches = dict(fa.launches)
+        cosines = {n: torch.nn.functional.cosine_similarity(
+            g.flatten().float(), want[n].to(device).flatten(), dim=0).item()
+            for n, g in zip(names, grads)}
+        del grads
+        steps_s = []
+        for _ in range(PIPE_TIMED_STEPS + 1):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            _, step_metrics = run.train_step(run.state, batch)
+            float(step_metrics["loss"])
+            torch.cuda.synchronize()
+            steps_s.append(time.perf_counter() - t0)
+        # the schedule's peak (forward and backward of the stage), then
+        # the whole step's (with the gradients' all-reduces and norm)
+        peaks = []
+        for whole_step in (False, True):
+            torch.cuda.empty_cache()
+            dist.barrier()
+            torch.cuda.reset_peak_memory_stats()
+            if whole_step:
+                train.mesh_loss_and_grads(run.model, batch,
+                                          PIPE_MEMORY_MICRO, schedule)
+            else:
+                train.pipeline_backward(run.model, batch, PIPE_MEMORY_MICRO,
+                                        schedule)
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated())
+            run.model.zero_grad(set_to_none=True)
+        del run
+        torch.cuda.empty_cache()
+        mine[schedule] = {
+            "loss": metrics["loss"].item(), "grad_norm": norm.item(),
+            "cosines": cosines, "flash_launches": launches,
+            "step_times_s": steps_s[1:], "first_step_s": steps_s[0],
+            "schedule_peak_bytes": peaks[0], "step_peak_bytes": peaks[1]}
+    reports = [None] * dist.get_world_size()
+    dist.all_gather_object(reports, mine)
+    return sorted(reports, key=lambda r: r["stage"])
+
+
+def pipeline_train_phase(device, smi: str) -> dict:
+    """BENCH_CHIP at full width and depth in PIPE_STAGES pipeline stages
+    under GPipe and 1F1B: one process a stage on the one card, over
+    gloo, held to the unsharded kernel path."""
+    import tempfile
+
+    import torch
+
+    from kubeflow_tpu_torch import dryrun
+    from kubeflow_tpu_torch.models import train
+    from kubeflow_tpu_torch.models.configs import BENCH_CHIP
+
+    phase_t0 = time.perf_counter()
+    cfg, seq = BENCH_CHIP, BENCH_CHIP.max_seq_len
+    nccl = nccl_probe()
+    per_step = {"fwd": 2 * cfg.num_layers, "dkv": cfg.num_layers,
+                "dq": cfg.num_layers}
+    expected = {k: PIPE_MICRO * n for k, n in per_step.items()}
+    small = _batch(cfg.vocab_size, COMPARE_BATCH, seq, SEED + 1, device)
+    single = train.setup_training(cfg, device=device, seed=SEED,
+                                  optimizer=train.SGD(0.05))
+    names = [n for n, p in single.model.named_parameters()
+             if p.requires_grad]
+    loss_s, grads_s = _loss_and_grads(single.model, small)
+    loss_s, norm_s = loss_s.item(), train.global_norm(grads_s).item()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "single_grads.pt")
+        torch.save({n: g.float().cpu() for n, g in zip(names, grads_s)},
+                   path)
+        del single, grads_s
+        torch.cuda.empty_cache()
+        reports = dryrun.launch(
+            PIPE_STAGES, _pipeline_rank,
+            (path, {k: v.cpu() for k, v in small.items()}),
+            timeout=PIPE_TIMEOUT_S)
+    schedules = {}
+    for schedule in train.SCHEDULES:
+        runs = [r[schedule] for r in reports]
+        cosines = {}
+        for r in runs:
+            cosines.update(r["cosines"])
+        worst = min(cosines, key=cosines.get)
+        launches = {k: sum(r["flash_launches"][k] for r in runs)
+                    for k in expected}
+        loss_p, norm_p = runs[-1]["loss"], runs[-1]["grad_norm"]
+        schedules[schedule] = {
+            "loss_pipeline": loss_p, "loss_single": loss_s,
+            "loss_rel_err": abs(loss_p - loss_s) / abs(loss_s),
+            "loss_by_stage": [r["loss"] for r in runs],
+            "grad_norm_pipeline": norm_p, "grad_norm_single": norm_s,
+            "grad_norm_rel_err": abs(norm_p - norm_s) / norm_s,
+            "params_compared": len(cosines),
+            "min_grad_cosine": cosines[worst],
+            "min_grad_cosine_param": worst,
+            "flash_launches": launches, "expected_launches": expected,
+            "flash_launches_by_stage": [r["flash_launches"] for r in runs],
+            "schedule_peak_bytes_by_stage": [r["schedule_peak_bytes"]
+                                             for r in runs],
+            "step_peak_bytes_by_stage": [r["step_peak_bytes"]
+                                         for r in runs],
+            "step_time_s_by_stage": [statistics.median(r["step_times_s"])
+                                     for r in runs],
+            "first_step_s_by_stage": [r["first_step_s"] for r in runs],
+        }
+    res = {
+        "phase": "pipeline_train", "model": "bench-chip",
+        "layers": cfg.num_layers, "stages": PIPE_STAGES,
+        "layers_per_stage": cfg.num_layers // PIPE_STAGES,
+        "backend": reports[0]["backend"],
+        "transport": reports[0]["transport"],
+        "nccl_two_ranks_one_card": nccl, "batch": COMPARE_BATCH, "seq": seq,
+        "microbatches": PIPE_MICRO,
+        "memory_microbatches": PIPE_MEMORY_MICRO,
+        "schedules": schedules, "nvidia_smi": smi,
+        "timing_note": "two stage processes time-sharing one card over "
+                       "gloo and host memory: not a multi-GPU speed",
+        "phase_s": time.perf_counter() - phase_t0,
+    }
+    emit(res)
+    bad = []
+    for schedule, r in schedules.items():
+        if r["params_compared"] != len(names):
+            bad.append(f"{schedule}: {r['params_compared']} of "
+                       f"{len(names)} parameters compared")
+        if r["flash_launches"] != expected:
+            bad.append(f"{schedule} launched the flash kernels "
+                       f"{r['flash_launches']} times, expected {expected}")
+        if (r["loss_rel_err"] > TRAIN_LOSS_TOL
+                or r["grad_norm_rel_err"] > TRAIN_NORM_TOL
+                or r["min_grad_cosine"] < TRAIN_MIN_COSINE):
+            bad.append(
+                f"{schedule} and the unsharded kernel path disagree: loss "
+                f"rel {r['loss_rel_err']} (limit {TRAIN_LOSS_TOL}), grad "
+                f"norm rel {r['grad_norm_rel_err']} (limit "
+                f"{TRAIN_NORM_TOL}), gradient cosine of "
+                f"{r['min_grad_cosine_param']} {r['min_grad_cosine']} "
+                f"(limit {TRAIN_MIN_COSINE})")
+        if not all(math.isfinite(x) for x in r["step_time_s_by_stage"]
+                   + r["loss_by_stage"]):
+            bad.append(f"{schedule}: a loss or step time was not finite")
+    gpipe_peak = schedules["gpipe"]["schedule_peak_bytes_by_stage"][0]
+    f1b_peak = schedules["1f1b"]["schedule_peak_bytes_by_stage"][0]
+    if not f1b_peak < gpipe_peak:
+        bad.append(f"stage 0's 1F1B schedule peak {f1b_peak} B is not "
+                   f"below its GPipe peak {gpipe_peak} B")
+    if bad:
+        raise RuntimeError("pipeline_train: " + "; ".join(bad))
+    return res
+
+
 def flash_kernel_lines(flash_results, launches: dict, moe_launches: dict,
                        mesh_launches: dict, gemma_launches: dict,
-                       long_context: dict) -> list:
+                       long_context: dict, pipeline_steps: dict) -> list:
     """The kernels line's flash entries.  Head dims 64 and 128: the
     training-shape medians times the BENCH_CHIP step's launches, and beside
     them the launches of one BENCH_MOE step, one sharded (mesh) BENCH_CHIP
-    step and one step of each long-context mode.  Head dim 256 (entries
-    named *_d256): the Gemma-shape medians times the Gemma step's
-    launches."""
+    step, one pipelined step of each schedule (both stages) and one step
+    of each long-context mode.  Head dim 256 (entries named *_d256): the
+    Gemma-shape medians times the Gemma step's launches."""
     entries = []
     for name, key in (("flash_fwd", "fwd"), ("flash_bwd_dkv", "dkv"),
                       ("flash_bwd_dq", "dq")):
@@ -1903,6 +2177,9 @@ def flash_kernel_lines(flash_results, launches: dict, moe_launches: dict,
                     head_dim=[64, 128], main_path="train",
                     moe_step_launches=moe_launches[key],
                     mesh_step_launches=mesh_launches[key],
+                    pipeline_step_launches={
+                        schedule: res["flash_launches"][key]
+                        for schedule, res in pipeline_steps.items()},
                     long_context_step_launches={
                         str(seq): res["flash_launches"][key]
                         for seq, res in long_context.items()},
@@ -2036,6 +2313,7 @@ def main() -> int:
     mt = moe_train_phase(device, device_name)
     moe_serve_phase(device)
     mesh = mesh_train_phase(device, smi, tr["step_time_s"])
+    pipe = pipeline_train_phase(device, smi)
 
     totals = main_path_totals(results, sl["int4_launches"])
     emit({"kernels": [{
@@ -2054,7 +2332,8 @@ def main() -> int:
                  "one prefill's and one speculative round's",
     }] + flash_kernel_lines(flash_results, tr["flash_launches"],
                             mt["flash_launches"], mesh["flash_launches"],
-                            gemma["flash_launches"], long_context)})
+                            gemma["flash_launches"], long_context,
+                            pipe["schedules"])})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                  "count": torch.cuda.device_count()}})

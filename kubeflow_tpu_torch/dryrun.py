@@ -4,21 +4,23 @@ __graft_entry__.py:dryrun_multichip.
     python -m kubeflow_tpu_torch.dryrun [N]      # N processes, default 8
 
 runs the sharded step on N gloo processes on the CPU, one rank each,
-over the reference's meshes without a pipeline axis, and checks each for
-correctness, not just that it runs: one SGD(0.05) step on a llama-family
-proxy (GQA 8/4 heads of 16, gated MLP, rope, remat; 4 layers, embed 128,
-MLP 256, vocab 512, seq 1024, fp32) must give a loss in (0, 20) within
-1e-3 of a single-process step on the same batch, and every parameter
-within rtol = atol = 1e-4 of it, after an update that moved.  Under SGD
-the parameter delta is proportional to the gradient, so the allclose is
-a gradient check: a wrong sharding, a missing all-reduce or a broken
-ring step changes the update and fails it.
+over the reference's meshes, and checks each for correctness, not just
+that it runs: one SGD(0.05) step on a llama-family proxy (GQA 8/4 heads
+of 16, gated MLP, rope, remat; 4 layers, embed 128, MLP 256, vocab 512,
+seq 1024, fp32) must give a loss in (0, 20) within 1e-3 of a
+single-process step on the same batch, and every parameter within rtol =
+atol = 1e-4 of it, after an update that moved.  Under SGD the parameter
+delta is proportional to the gradient, so the allclose is a gradient
+check: a wrong sharding, a missing all-reduce, a broken ring step or a
+misrouted microbatch changes the update and fails it.
 
-Meshes (the reference's selection at N devices, its pipeline meshes
-left out): dense fsdp x sequence x tensor, and two slices of data
-parallelism with sequence x tensor inside (N a multiple of 8); MoE (4
-experts, top-2, capacity 2.0) expert x tensor x data and expert x
-sequence x tensor (N a multiple of 8).  It prints one `ok` line per mesh.
+Meshes (the reference's selection at N devices): dense fsdp x sequence x
+tensor; two slices of data parallelism with sequence x tensor inside;
+pipeline 2 x sequence x tensor under GPipe and under 1F1B; MoE (4
+experts, top-2, capacity 2.0) expert x tensor x data, expert x sequence
+x tensor and expert 2 x pipeline 2 x tensor under GPipe (all but the
+first N a multiple of 8).  The pipeline meshes take the reference's
+microbatch counts (`microbatches`).  It prints one `ok` line per mesh.
 
 The per-rank workers live here, so spawned processes import this package
 and nothing else.  `sharded_step` is also what the tests run on their
@@ -62,7 +64,8 @@ def dryrun_meshes(n: int) -> tuple[list, list, int]:
     """(dense meshes, MoE meshes, batch) at n devices, as the reference
     picks them: tensor 2 when n is even, sequence 2 when n % 4 == 0, the
     rest to the largest power of two of fsdp that divides it; the batch
-    rounds 8 up to a multiple of the data*fsdp group."""
+    rounds 8 up to a multiple of the data*fsdp group.  Each mesh is a
+    (MeshConfig, pipeline schedule) pair."""
     tensor = 2 if n % 2 == 0 else 1
     sequence = 2 if n % 4 == 0 else 1
     group = max(1, n // (tensor * sequence))
@@ -75,13 +78,31 @@ def dryrun_meshes(n: int) -> tuple[list, list, int]:
         dense.append(MeshConfig(data=-1, fsdp=max(1, fsdp // 2),
                                 sequence=sequence, tensor=tensor,
                                 num_slices=2))
+    dense = [(m, "gpipe") for m in dense]
     moe = []
     if n % 8 == 0:
-        moe.append(MeshConfig(data=-1, tensor=tensor, expert=2))
-        moe.append(MeshConfig(data=-1, sequence=sequence, tensor=tensor,
-                              expert=2))
+        staged = MeshConfig(data=-1, sequence=sequence, tensor=tensor,
+                            pipeline=2)
+        dense += [(staged, "gpipe"), (staged, "1f1b")]
+        moe += [(MeshConfig(data=-1, tensor=tensor, expert=2), "gpipe"),
+                (MeshConfig(data=-1, sequence=sequence, tensor=tensor,
+                            expert=2), "gpipe"),
+                (MeshConfig(data=-1, tensor=tensor, expert=2, pipeline=2),
+                 "gpipe")]
     batch = group * max(1, -(-8 // group))
     return dense, moe, batch
+
+
+def microbatches(resolved: MeshConfig, schedule: str, batch: int) -> int:
+    """The reference dry run's microbatch count on a resolved mesh (0
+    without a pipeline): each microbatch divides by data*fsdp, and under
+    1F1B each rank's share of one holds at least two rows."""
+    if resolved.pipeline <= 1:
+        return 0
+    group = max(1, resolved.data * resolved.fsdp)
+    if schedule == "1f1b":
+        return max(2, batch // (2 * group))
+    return max(2, batch // group)
 
 
 def make_batch(vocab: int, batch: int, seq: int,
@@ -92,22 +113,27 @@ def make_batch(vocab: int, batch: int, seq: int,
     return {"inputs": inputs, "targets": torch.roll(inputs, -1, dims=1)}
 
 
-def _setup(cfg: TransformerConfig, mesh, state_dict: Optional[dict]):
+def _setup(cfg: TransformerConfig, mesh, state_dict: Optional[dict],
+           schedule: str = "gpipe", micro: int = 0):
     """(model, train_step, state) for one SGD(LR) step: setup_training's
-    weights from seed 0, or `state_dict`'s full tensors."""
+    weights from seed 0, or `state_dict`'s full tensors (a pipeline
+    stage loads those of its own layers)."""
     from .models import train
     from .models.transformer import Transformer
 
     if state_dict is None:
         setup = train.setup_training(cfg, mesh, device="cpu",
-                                     optimizer=train.SGD(LR))
+                                     optimizer=train.SGD(LR),
+                                     pipeline_microbatches=micro,
+                                     pipeline_schedule=schedule)
         return setup.model, setup.train_step, setup.state
     model = Transformer(cfg, "cpu", mesh)
-    model.load_state_dict(state_dict, strict=True)
+    model.load_state_dict({k: state_dict[k] for k in model.state_dict()},
+                          strict=True)
     if mesh is not None:
         train.parallelize(model, mesh)
     optimizer = train.SGD(LR)
-    return (model, train.make_train_step(model, optimizer),
+    return (model, train.make_train_step(model, optimizer, micro, schedule),
             train.TrainState(model, optimizer))
 
 
@@ -126,13 +152,16 @@ def reference_step(cfg: TransformerConfig, batch: dict,
 
 def sharded_step(cfg: TransformerConfig, mesh_config: MeshConfig,
                  batch: dict, reference: dict,
-                 state_dict: Optional[dict] = None) -> dict:
+                 state_dict: Optional[dict] = None, schedule: str = "gpipe",
+                 micro: int = 0) -> dict:
     """One sharded SGD(LR) step on `mesh_config` over the default process
     group, held to `reference` (see `reference_step`): every rank compares
-    its shards with the same blocks of the reference's parameters.
-    Returns, alike on every rank, the mesh, the loss, the reference's, the
-    largest parameter error and the names of parameters outside rtol =
-    atol = 1e-4."""
+    its shards with the same blocks of the reference's parameters (a
+    pipeline stage, its own layers').  A pipeline mesh runs `schedule`
+    with `micro` microbatches (0: the default).  Returns, alike on every
+    rank, the mesh, the loss, the reference's, the global gradient norm,
+    the largest parameter error and the names of parameters outside rtol
+    = atol = 1e-4 (or held by no rank)."""
     import torch.distributed as dist
 
     from .models.train import local_tensor
@@ -140,27 +169,37 @@ def sharded_step(cfg: TransformerConfig, mesh_config: MeshConfig,
     from .parallel.sharding import local_shard
 
     mesh = make_mesh(mesh_config, device="cpu")
-    model, step, state = _setup(cfg, mesh, state_dict)
+    model, step, state = _setup(cfg, mesh, state_dict, schedule, micro)
     _, metrics = step(state, batch)
-    names, excess, errors = [], [], []
+    mine = {}
     with torch.no_grad():
         for name, param in model.named_parameters():
             want = local_shard(reference["params"][name],
                                model.param_specs[name], mesh)
             err = (local_tensor(param) - want).abs()
-            names.append(name)
-            errors.append(err.max())
-            excess.append((err - PARAM_ATOL - PARAM_RTOL * want.abs()).max())
-    worst = torch.stack([torch.stack(excess), torch.stack(errors)])
-    dist.all_reduce(worst, dist.ReduceOp.MAX)
+            mine[name] = (float(err.max()), float(
+                (err - PARAM_ATOL - PARAM_RTOL * want.abs()).max()))
+    # pipeline stages hold different layers: merge the ranks' reports
+    reports = [None] * dist.get_world_size()
+    dist.all_gather_object(reports, mine)
+    worst: dict = {}
+    for report in reports:
+        for name, (err, excess) in report.items():
+            old = worst.get(name, (0.0, float("-inf")))
+            worst[name] = (max(old[0], err), max(old[1], excess))
     resolved = mesh_config.resolved(dist.get_world_size())
     return {
         "mesh": dict(zip(MESH_AXES, resolved.shape)),
-        "slices": resolved.num_slices,
+        "slices": resolved.num_slices, "schedule": schedule,
+        "microbatches": micro,
         "loss": float(metrics["loss"]), "ref_loss": reference["loss"],
-        "moved": reference["moved"], "max_param_err": float(worst[1].max()),
-        "mismatches": [f"{n}: {float(e):.2e}" for n, x, e in
-                       zip(names, worst[0], worst[1]) if x > 0],
+        "grad_norm": float(metrics["grad_norm"]),
+        "moved": reference["moved"],
+        "max_param_err": max(err for err, _ in worst.values()),
+        "mismatches": [f"{n}: {err:.2e}" for n, (err, excess) in
+                       sorted(worst.items()) if excess > 0]
+        + [f"{n}: held by no rank"
+           for n in sorted(set(reference["params"]) - set(worst))],
     }
 
 
@@ -182,8 +221,15 @@ def failures(result: dict) -> list:
 
 def run_meshes(cfg: TransformerConfig, meshes: list, batch: dict,
                reference: dict) -> list:
-    """Rank worker: `sharded_step` on each mesh in turn."""
-    return [sharded_step(cfg, m, batch, reference) for m in meshes]
+    """Rank worker: `sharded_step` on each (mesh, schedule) in turn, with
+    the reference's microbatch count."""
+    import torch.distributed as dist
+
+    rows, world = batch["inputs"].shape[0], dist.get_world_size()
+    return [sharded_step(cfg, m, batch, reference, schedule=schedule,
+                         micro=microbatches(m.resolved(world), schedule,
+                                            rows))
+            for m, schedule in meshes]
 
 
 def _rank_main(rank: int, world: int, init: str, out: str, target,
@@ -259,8 +305,11 @@ def main(n: int) -> int:
             failed |= bool(bad)
             mesh = {k: v for k, v in result["mesh"].items()}
             status = "FAILED " + "; ".join(bad) if bad else "ok"
+            staged = (f" schedule={result['schedule']} microbatches="
+                      f"{result['microbatches']}"
+                      if result["mesh"]["pipeline"] > 1 else "")
             print(f"dryrun_multichip {status} [{label}]: mesh={mesh} "
-                  f"slices={result['slices']} devices={n} seq={SEQ} "
+                  f"slices={result['slices']}{staged} devices={n} seq={SEQ} "
                   f"loss={result['loss']:.4f} ref_loss="
                   f"{result['ref_loss']:.4f} max_param_err="
                   f"{result['max_param_err']:.2e} (ring attention: "

@@ -1,11 +1,11 @@
 """Training: loss, optimizer, train step, MFU accounting.
 
 The port of kubeflow_tpu/models/train.py, dense and MoE, on one card or
-on a device mesh, with no pipeline schedule yet.  JAX's functional train
-state becomes a mutable one: the model holds the parameters, the
-optimizer its moments, and `train_step(state, batch)` updates both in
-place and returns the same state with the metrics, keeping the
-reference's call shape.
+on a device mesh, with the reference's two pipeline schedules.  JAX's
+functional train state becomes a mutable one: the model holds the
+parameters, the optimizer its moments, and `train_step(state, batch)`
+updates both in place and returns the same state with the metrics,
+keeping the reference's call shape.
 
 The optimizer follows optax, not torch.optim: `default_optimizer` is
 clip_by_global_norm then AdamW on a warmup-cosine schedule, with optax's
@@ -26,6 +26,23 @@ step on its mesh:
   and tensor and expert ranks hold the same loss, so the gradient is
   that of the global mean.  `grad_norm` is the global norm, and the
   optimizer steps each rank's shards and holds only their moments.
+
+A populated "pipeline" axis (parallel/pipeline.py) runs the layer stack
+under `pipeline_schedule`, "gpipe" or "1f1b", with
+`pipeline_microbatches` microbatches (default 2 x stages):
+- each rank holds its stage's layers (FSDP2 over data and fsdp as
+  above) and the embedding, final norm and head whole over the pipeline
+  and over data and fsdp, since FSDP2's root wrapping needs the whole
+  model's forward, which a stage never runs;
+- microbatch m is rows [m B/M, (m+1) B/M) of the global batch, cut over
+  data, fsdp and sequence like a batch; stage 0 embeds, the last stage
+  runs the head and the loss (inside the 1F1B schedule, per microbatch)
+  and the backward comes back to stage 0, which carries it through the
+  embedding;
+- the embedding, final norm and head gradients are summed over the
+  stages (with tied embeddings: the lookup's on stage 0 and the head's
+  on the last) and averaged over data and fsdp; a layer's gradient
+  counts once in the global norm, on its stage.
 """
 
 from __future__ import annotations
@@ -42,7 +59,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel.collectives import copy_to, mean_over, reduce_from
-from ..parallel.mesh import axis_group, axis_size
+from ..parallel.mesh import axis_group, axis_rank, axis_size
 from ..parallel.sharding import (
     local_shard,
     logical_to_spec,
@@ -53,6 +70,8 @@ from ..runtime.roofline import mfu as roofline_mfu
 from ..runtime.roofline import train_step_flops
 from .configs import TransformerConfig
 from .transformer import Transformer, init_params, logical, torch_dtype
+
+SCHEDULES = ("gpipe", "1f1b")
 
 
 # -- schedules ----------------------------------------------------------------
@@ -265,6 +284,23 @@ class TrainSetup:
     config: TransformerConfig
 
 
+def head_cross_entropy(model: Transformer, out: torch.Tensor,
+                       targets: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of the model's output `out` against `targets`:
+    `out` is the final hidden state when cfg.loss_chunks > 0 (chunked
+    against the head kernel, the embedding's transpose when tied), else
+    the logits."""
+    cfg, vocab = model.cfg, model.vocab_shard()
+    if cfg.loss_chunks > 0:
+        if cfg.tie_embeddings:
+            kernel = model.embed.embedding.T
+        else:
+            kernel = model.lm_head.kernel
+        return chunked_cross_entropy(out, targets, kernel, cfg.loss_chunks,
+                                     cfg.logits_softcap, vocab)
+    return cross_entropy_loss(out, targets, vocab)
+
+
 def loss_terms(model: Transformer, batch: dict
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(total, cross-entropy, MoE aux) of `batch` ({"inputs", "targets"}
@@ -274,20 +310,9 @@ def loss_terms(model: Transformer, batch: dict
     cfg.moe_aux_weight times the summed load-balance loss for MoE configs
     and is the cross-entropy otherwise."""
     cfg = model.cfg
-    positions, vocab = batch.get("positions"), model.vocab_shard()
-    if cfg.loss_chunks > 0:
-        hidden, aux = model(batch["inputs"], positions, return_hidden=True,
-                            return_aux=True)
-        if cfg.tie_embeddings:
-            kernel = model.embed.embedding.T
-        else:
-            kernel = model.lm_head.kernel
-        ce = chunked_cross_entropy(hidden, batch["targets"], kernel,
-                                   cfg.loss_chunks, cfg.logits_softcap,
-                                   vocab)
-    else:
-        logits, aux = model(batch["inputs"], positions, return_aux=True)
-        ce = cross_entropy_loss(logits, batch["targets"], vocab)
+    out, aux = model(batch["inputs"], batch.get("positions"),
+                     return_hidden=cfg.loss_chunks > 0, return_aux=True)
+    ce = head_cross_entropy(model, out, batch["targets"])
     total = ce + cfg.moe_aux_weight * aux if cfg.moe_experts > 0 else ce
     return total, ce, aux
 
@@ -332,19 +357,51 @@ def shard_parameters(module: nn.Module, mesh) -> dict:
     return specs
 
 
+def _is_layer(name: str) -> bool:
+    return name.startswith("layers.")
+
+
+def _without(spec: tuple, axis: str) -> tuple:
+    """`spec` with `axis` taken out of every entry."""
+    out = []
+    for entry in spec:
+        kept = tuple(a for a in spec_axes(entry) if a != axis)
+        out.append(None if not kept else kept[0] if len(kept) == 1
+                   else kept)
+    return tuple(out)
+
+
+def _fsdp_applies(mesh, device: torch.device) -> bool:
+    """Whether FSDP2 wraps the model: not where its data x fsdp group has
+    one rank and the backend is gloo on CUDA tensors, whose all-gather
+    and reduce-scatter have no CUDA path (the group is left out)."""
+    return mesh["data", "fsdp"].size() > 1 or not (
+        dist.get_backend() == "gloo" and device.type == "cuda")
+
+
 def parallelize(model: Transformer, mesh) -> dict:
     """Shard a model built on `mesh` whose parameters are still full:
     `shard_parameters`, then FSDP2 `fully_shard` over the ("data",
     "fsdp") sub-mesh on every layer and the root, each parameter sharded
-    on the dim its spec gives "fsdp".  Returns {parameter name: spec},
+    on the dim its spec gives "fsdp".  On a pipeline mesh the root is not
+    wrapped: the embedding, final norm and head stay whole over data and
+    fsdp (their specs lose "fsdp").  Returns {parameter name: spec},
     which `make_train_step` reads from `model.param_specs`."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
     specs = shard_parameters(model, mesh)
+    staged = axis_size(mesh, "pipeline") > 1
+    if staged:
+        specs.update({name: _without(spec, "fsdp")
+                      for name, spec in specs.items() if not _is_layer(name)})
+    model.param_specs = specs
+    if not _fsdp_applies(mesh, model.device):
+        return specs
     fsdp_dim = {param: next(d for d, e in enumerate(specs[name])
                             if "fsdp" in spec_axes(e))
-                for name, param in model.named_parameters()}
+                for name, param in model.named_parameters()
+                if _is_layer(name) or not staged}
     dp_mesh = mesh["data", "fsdp"]
 
     def placement(param):
@@ -352,8 +409,8 @@ def parallelize(model: Transformer, mesh) -> dict:
 
     for layer in model.layers:
         fully_shard(layer, mesh=dp_mesh, shard_placement_fn=placement)
-    fully_shard(model, mesh=dp_mesh, shard_placement_fn=placement)
-    model.param_specs = specs
+    if not staged:
+        fully_shard(model, mesh=dp_mesh, shard_placement_fn=placement)
     return specs
 
 
@@ -361,13 +418,32 @@ def shard_batch(batch: dict, mesh) -> dict:
     """This rank's block of a global {"inputs", "targets"} [B, S] batch:
     its rows over ("data", "fsdp") and its sequence block over
     "sequence", with "positions", their global positions."""
-    spec = logical_to_spec(("batch", "seq"), rules_for_mesh(mesh))
+    local = shard_microbatches(batch, mesh, 1)
+    return {"inputs": local["inputs"][0], "targets": local["targets"][0],
+            "positions": local["positions"]}
+
+
+def shard_microbatches(batch: dict, mesh, microbatches: int) -> dict:
+    """This rank's blocks of `microbatches` microbatches of a global
+    {"inputs", "targets"} [B, S] batch, microbatch m being rows
+    [m B/M, (m+1) B/M) as the reference splits it: "inputs" and "targets"
+    [M, mb, s], each microbatch's rows over ("data", "fsdp") and its
+    sequence block over "sequence", and "positions" [mb, s], their global
+    positions (alike in every microbatch)."""
     inputs = batch["inputs"]
-    positions = torch.arange(inputs.shape[1], device=inputs.device
-                             ).expand(inputs.shape)
-    return {"inputs": local_shard(inputs, spec, mesh).contiguous(),
-            "targets": local_shard(batch["targets"], spec, mesh
-                                   ).contiguous(),
+    rows, seq = inputs.shape
+    if rows % microbatches:
+        raise ValueError(f"batch {rows} not divisible by {microbatches} "
+                         f"microbatches")
+    spec = logical_to_spec(("batch", "seq"), rules_for_mesh(mesh))
+    shape = (microbatches, rows // microbatches, seq)
+
+    def cut(t):
+        return local_shard(t.reshape(shape), (None,) + spec, mesh
+                           ).contiguous()
+
+    positions = torch.arange(seq, device=inputs.device).expand(shape[1:])
+    return {"inputs": cut(inputs), "targets": cut(batch["targets"]),
             "positions": local_shard(positions, spec, mesh).contiguous()}
 
 
@@ -395,28 +471,101 @@ def _sharded_norm(grads: list, axes: list, mesh) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def mesh_loss_and_grads(model: Transformer, batch: dict):
+def pipeline_backward(model: Transformer, batch: dict, microbatches: int,
+                      schedule: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """Forward and backward of the global `batch` through this rank's
+    pipeline stage under `schedule`, the gradients left in the
+    parameters' `.grad`: (cross-entropy, MoE aux), each the mean over
+    this rank's tokens, alike on every stage."""
+    from ..parallel import pipeline
+
+    mesh, cfg = model.mesh, model.cfg
+    moe = cfg.moe_experts > 0
+    weight = cfg.moe_aux_weight if moe else 0.0
+    local = shard_microbatches(batch, mesh, microbatches)
+    inputs = local["inputs"].flatten(0, 1)
+    targets = local["targets"].flatten(0, 1)
+    stage, stages = axis_rank(mesh, "pipeline"), axis_size(mesh, "pipeline")
+    if stage == 0:
+        x = model.embed_tokens(inputs)
+    else:
+        x = torch.empty(inputs.shape + (cfg.embed_dim,),
+                        dtype=torch_dtype(cfg.dtype), device=inputs.device)
+
+    def run_stage(x_mb):
+        y, aux = model.run_stack(x_mb, local["positions"])
+        return (y, aux) if moe else y
+
+    def head_loss(y, t):
+        out = model.head(y, return_hidden=cfg.loss_chunks > 0)
+        return head_cross_entropy(model, out, t)
+
+    if schedule == "1f1b":
+        ce, aux, _, _, dx = pipeline.pipeline_1f1b(
+            run_stage, head_loss, x, targets, mesh, microbatches,
+            layer_has_aux=moe, aux_weight=weight)
+    else:
+        run = pipeline.gpipe(run_stage, x, mesh, microbatches,
+                             layer_has_aux=moe)
+        ce = head_loss(run.out, targets) if stage == stages - 1 else None
+        dx = run.backward(ce, weight)
+        ce = pipeline.stage_sum(x.new_zeros((), dtype=torch.float32)
+                                if ce is None else ce,
+                                axis_group(mesh, "pipeline"))
+        aux = run.aux
+    if dx is not None:
+        x.backward(dx)
+    return ce, aux
+
+
+def mesh_loss_and_grads(model: Transformer, batch: dict,
+                        microbatches: int = 0, schedule: str = "gpipe"):
     """One forward and backward of a parallelized model on the global
     `batch`: (metrics, local parameters, local gradients, grad_norm), the
     metrics "loss", "ce_loss" and "moe_aux_loss" as global means, the
-    gradients those of the global mean loss, each rank's shards."""
-    mesh = model.mesh
-    total, ce, aux = loss_terms(model, shard_batch(batch, mesh))
-    total.backward()
-    names = [n for n, p in model.named_parameters() if p.requires_grad]
-    params = [p for p in model.parameters() if p.requires_grad]
+    gradients those of the global mean loss, each rank's shards.  A
+    pipeline mesh runs `schedule` with `microbatches` microbatches
+    (default 2 x stages)."""
+    mesh, cfg = model.mesh, model.cfg
+    stages = axis_size(mesh, "pipeline")
+    if stages > 1:
+        ce, aux = pipeline_backward(model, batch,
+                                    microbatches or 2 * stages, schedule)
+        total = ce + cfg.moe_aux_weight * aux if cfg.moe_experts > 0 else ce
+    else:
+        total, ce, aux = loss_terms(model, shard_batch(batch, mesh))
+        total.backward()
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     with torch.no_grad():
-        local = [local_tensor(p) for p in params]
-        grads = [local_tensor(p.grad) for p in params]
-        for p in params:
+        local = [local_tensor(p) for _, p in named]
+        grads = [torch.zeros_like(t) if p.grad is None
+                 else local_tensor(p.grad) for t, (_, p) in zip(local, named)]
+        for _, p in named:
             p.grad = None
+        if stages > 1:
+            # the embedding, final norm and head: summed over the stages,
+            # averaged over data and fsdp, where they are whole
+            pp = axis_group(mesh, "pipeline")
+            dp = [g for g in (axis_group(mesh, a) for a in ("data", "fsdp"))
+                  if g is not None]
+            for (name, _), g in zip(named, grads):
+                if _is_layer(name):
+                    continue
+                dist.all_reduce(g, group=pp)
+                for group in dp:
+                    dist.all_reduce(g, group=group)
+                    g.div_(dist.get_world_size(group))
         sp = axis_group(mesh, "sequence")
         if sp is not None:
             for g in grads:
                 dist.all_reduce(g, group=sp)
                 g.div_(dist.get_world_size(sp))
+        # a layer's gradient lives on one stage: its squares are summed
+        # over the pipeline too
         axes = [[a for e in model.param_specs[n] for a in spec_axes(e)
-                 if axis_size(mesh, a) > 1] for n in names]
+                 if axis_size(mesh, a) > 1]
+                + (["pipeline"] if stages > 1 and _is_layer(n) else [])
+                for n, _ in named]
         grad_norm = _sharded_norm(grads, axes, mesh)
         tokens = [axis_group(mesh, a) for a in ("data", "fsdp", "sequence")]
         metrics = {"loss": mean_over(total.detach(), tokens),
@@ -425,23 +574,24 @@ def mesh_loss_and_grads(model: Transformer, batch: dict):
     return metrics, local, grads, grad_norm
 
 
-def make_train_step(model: Transformer, optimizer):
+def make_train_step(model: Transformer, optimizer,
+                    pipeline_microbatches: int = 0,
+                    pipeline_schedule: str = "gpipe"):
     """step(state, batch) -> (state, metrics): loss and gradients of every
     parameter, the optimizer's update in place; metrics "loss",
     "grad_norm" (of the unclipped gradients) and "step" (before the
     update), and for MoE configs "ce_loss" and "moe_aux_loss".  A model
-    on a mesh (after `parallelize`) takes the sharded step; a populated
-    pipeline axis is refused: the pipeline schedules are not ported
-    yet."""
+    on a mesh (after `parallelize`) takes the sharded step, and on a
+    populated pipeline axis runs `pipeline_schedule` ("gpipe" or "1f1b")
+    with `pipeline_microbatches` microbatches (default 2 x stages)."""
+    if pipeline_schedule not in SCHEDULES:
+        raise ValueError(f"unknown pipeline schedule {pipeline_schedule!r}")
     moe = model.cfg.moe_experts > 0
     if model.mesh is not None:
-        if axis_size(model.mesh, "pipeline") > 1:
-            raise NotImplementedError("pipeline schedules are not ported yet")
-
         def mesh_step(state: TrainState, batch: dict
                       ) -> tuple[TrainState, dict]:
             metrics, params, grads, grad_norm = mesh_loss_and_grads(
-                model, batch)
+                model, batch, pipeline_microbatches, pipeline_schedule)
             state.optimizer.step(params, grads, grad_norm)
             metrics.update(grad_norm=grad_norm, step=state.step)
             if not moe:
@@ -469,16 +619,23 @@ def make_train_step(model: Transformer, optimizer):
 
 
 def setup_training(config: TransformerConfig, mesh=None, device="cuda",
-                   seed: int = 0, optimizer=None) -> TrainSetup:
+                   seed: int = 0, optimizer=None,
+                   pipeline_microbatches: int = 0,
+                   pipeline_schedule: str = "gpipe") -> TrainSetup:
     """Build the model on `device`, draw its weights with `init_params`
     from a generator seeded with `seed` on that device, and initialize
     `optimizer` (default: `default_optimizer()`).  With a `mesh`
-    (parallel.mesh.make_mesh) every rank draws the full weights alike,
-    then `parallelize` shards them and the optimizer holds each rank's
-    shards only."""
+    (parallel.mesh.make_mesh) every rank draws the full weights alike
+    (a pipeline stage those of its own layers), then `parallelize`
+    shards them and the optimizer holds each rank's shards only.  A
+    populated "pipeline" axis runs the layer stack under
+    `pipeline_schedule`: "gpipe" (a forward pipeline, then the backward
+    stage by stage) or "1f1b" (parallel.pipeline.pipeline_1f1b, at most
+    `stages` microbatch graphs held a stage), with `pipeline_microbatches`
+    microbatches (default 2 x stages)."""
+    if pipeline_schedule not in SCHEDULES:
+        raise ValueError(f"unknown pipeline schedule {pipeline_schedule!r}")
     device = torch.device(device)
-    if mesh is not None and axis_size(mesh, "pipeline") > 1:
-        raise NotImplementedError("pipeline schedules are not ported yet")
     model = Transformer(config, device, mesh)
     init_params(model, torch.Generator(device=device).manual_seed(seed))
     if mesh is not None:
@@ -488,8 +645,9 @@ def setup_training(config: TransformerConfig, mesh=None, device="cuda",
         optimizer.init([local_tensor(p) for p in model.parameters()
                         if p.requires_grad])
     state = TrainState(model, optimizer)
-    return TrainSetup(model, state, make_train_step(model, optimizer),
-                      config)
+    step = make_train_step(model, optimizer, pipeline_microbatches,
+                           pipeline_schedule)
+    return TrainSetup(model, state, step, config)
 
 
 # -- MFU accounting -----------------------------------------------------------
@@ -526,10 +684,12 @@ def timed_steps(setup: TrainSetup, batch: dict, num_steps: int = 10,
     }
 
 
-__all__ = ["AdamW", "SGD", "TrainSetup", "TrainState", "chunked_cross_entropy",
-           "cross_entropy_loss", "default_optimizer", "global_norm",
+__all__ = ["AdamW", "SCHEDULES", "SGD", "TrainSetup", "TrainState",
+           "chunked_cross_entropy", "cross_entropy_loss",
+           "default_optimizer", "global_norm", "head_cross_entropy",
            "local_tensor", "loss_fn", "loss_terms", "make_train_step",
            "mesh_loss_and_grads", "mfu", "model_flops_per_step",
-           "parallelize", "param_spec", "setup_training", "shard_batch",
+           "parallelize", "param_spec", "pipeline_backward",
+           "setup_training", "shard_batch", "shard_microbatches",
            "shard_parameters", "timed_steps",
            "warmup_cosine_decay_schedule"]

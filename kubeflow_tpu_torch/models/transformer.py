@@ -29,6 +29,12 @@ transformer.py for the serving and training paths.
   head returns this rank's slice of the vocabulary.  Attention is ring
   attention over "sequence" when that axis is populated.  Layers read
   their local sizes from their parameters' shapes.
+- On a mesh with a populated "pipeline" axis each rank builds only its
+  stage's decoder layers (parallel/pipeline.py:stage_layers), named by
+  their global indices (`layers.4.attn.q.kernel` on the second of two
+  stages of 8 layers), beside the embedding, final norm and head, which
+  every stage holds; such a model trains through models/train.py's
+  pipelined step, not through `forward`.
 - Entry points build on "cuda" unless the caller passes device="cpu".
 """
 
@@ -49,6 +55,7 @@ from torch.utils.checkpoint import (
 from ..ops.attention import attention, decode_attention
 from ..parallel.collectives import copy_to, reduce_from
 from ..parallel.mesh import axis_group, axis_rank, axis_size
+from ..parallel.pipeline import stage_layers
 from .configs import TransformerConfig
 from .quant import Int4Linear, Int8Linear, StackedInt8Linear, _as_tuple
 
@@ -307,6 +314,17 @@ class Embed(nn.Module):
         return reduce_from(found, tp).to(self.dtype)
 
 
+class StageLayers(nn.ModuleList):
+    """A pipeline stage's decoder layers, registered under their global
+    indices so that parameter names match the whole model's; iterated in
+    order like a ModuleList."""
+
+    def __init__(self, layers: dict):
+        super().__init__()
+        for index, layer in layers.items():
+            self.add_module(str(index), layer)
+
+
 class Transformer(nn.Module):
     """Decoder-only LM: tokens [B, S] int64 -> logits [B, S, V] fp32.
 
@@ -330,8 +348,12 @@ class Transformer(nn.Module):
         dtype, pdtype = torch_dtype(cfg.dtype), torch_dtype(cfg.param_dtype)
         self.embed = Embed(cfg.vocab_size, cfg.embed_dim, dtype, pdtype,
                            device, mesh)
-        self.layers = nn.ModuleList(
-            [DecoderLayer(cfg, device, mesh) for _ in range(cfg.num_layers)])
+        stages = axis_size(mesh, "pipeline")
+        self.layer_ids = stage_layers(cfg.num_layers, stages,
+                                      axis_rank(mesh, "pipeline"))
+        layers = {i: DecoderLayer(cfg, device, mesh) for i in self.layer_ids}
+        self.layers = (StageLayers(layers) if stages > 1
+                       else nn.ModuleList(layers.values()))
         self.final_norm = RMSNorm(cfg.embed_dim, cfg.norm_eps, dtype, device)
         if not cfg.tie_embeddings:
             self.lm_head = _dense(cfg.embed_dim, cfg.vocab_size, cfg, device,
@@ -407,6 +429,11 @@ class Transformer(nn.Module):
         load-balance loss.  On a mesh, tokens are this rank's block and
         positions their global positions; the logits are this rank's
         slice of the vocabulary (`vocab_shard`)."""
+        if axis_size(self.mesh, "pipeline") > 1:
+            raise ValueError(f"this pipeline stage holds layers "
+                             f"{list(self.layer_ids)} of "
+                             f"{self.cfg.num_layers}: it trains through "
+                             f"the pipelined train step")
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device
                                      ).expand(tokens.shape)
@@ -419,7 +446,8 @@ class Transformer(nn.Module):
 def check_mesh(cfg: TransformerConfig, mesh) -> None:
     """Raise ValueError unless `cfg` can train sharded on `mesh`: bf16/fp32
     weights in separate projections, heads, kv heads, MLP and vocabulary
-    divisible by the tensor degree, experts by the expert degree."""
+    divisible by the tensor degree, experts by the expert degree, layers
+    by the pipeline degree."""
     if cfg.weight_dtype or cfg.fused_projections:
         raise ValueError("a mesh trains bf16/fp32 weights in separate "
                          "projections (weight_dtype '' and "
@@ -435,11 +463,34 @@ def check_mesh(cfg: TransformerConfig, mesh) -> None:
     if cfg.moe_experts % ep:
         raise ValueError(f"moe_experts={cfg.moe_experts} not divisible by "
                          f"the expert degree {ep}")
+    pp = axis_size(mesh, "pipeline")
+    if cfg.num_layers % pp:
+        raise ValueError(f"{cfg.num_layers} layers not divisible by {pp} "
+                         f"stages")
 
 
 # flax's lecun_normal draws from N(0, 1) truncated to [-2, 2] and divides
 # by this, the standard deviation of that truncated normal
 _TRUNC_STD = 0.87962566103423978
+
+
+def _drawn_modules(model: nn.Module):
+    """`model.modules()` in the whole model's order; a layer this pipeline
+    stage does not hold comes as a scratch layer, drawn and dropped."""
+    if not isinstance(model, Transformer) or \
+            axis_size(model.mesh, "pipeline") == 1:
+        yield from model.modules()
+        return
+    held = dict(zip(model.layer_ids, model.layers))
+    scratch = None
+    for name, child in model.named_children():
+        if name != "layers":
+            yield from child.modules()
+            continue
+        for i in range(model.cfg.num_layers):
+            if i not in held and scratch is None:
+                scratch = DecoderLayer(model.cfg, model.device)
+            yield from held.get(i, scratch).modules()
 
 
 def init_params(model: Transformer, generator: torch.Generator) -> None:
@@ -451,11 +502,13 @@ def init_params(model: Transformer, generator: torch.Generator) -> None:
     scales ones.  A MoE layer's router is a DenseGeneral [D, E]; its
     stacked expert kernels draw each expert's own lecun_normal, fan_in D
     for gate and up and the expert hidden M for down (the reference's
-    vmapped experts).  `generator` lives on the model's device."""
+    vmapped experts).  `generator` lives on the model's device.  A
+    pipeline stage draws the whole model's sequence and keeps its own
+    layers' draws, so its weights are the whole model's."""
     from .moe import StackedDense
 
     with torch.no_grad():
-        for mod in model.modules():
+        for mod in _drawn_modules(model):
             if isinstance(mod, (DenseGeneral, StackedDense)):
                 fan_in = (mod.contract if isinstance(mod, StackedDense)
                           else prod(mod.contract))
@@ -473,5 +526,6 @@ def init_params(model: Transformer, generator: torch.Generator) -> None:
 
 
 __all__ = ["Attention", "DecoderLayer", "DenseGeneral", "KVCache", "MLP",
-           "REMAT_POLICIES", "RMSNorm", "Transformer", "check_mesh",
+           "REMAT_POLICIES", "RMSNorm", "StageLayers", "Transformer",
+           "check_mesh",
            "init_params", "logical", "rope", "torch_dtype"]

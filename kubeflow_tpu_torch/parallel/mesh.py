@@ -6,8 +6,7 @@ The six axes keep the reference's names and order (outermost first):
   fsdp     - parameter, gradient and optimizer-state sharding (FSDP2)
   sequence - sequence parallelism (ops/ring_attention.py)
   tensor   - tensor (Megatron) parallelism of heads, MLP and vocabulary
-  pipeline - pipeline stages (not ported yet: a degree > 1 is refused by
-             the train step)
+  pipeline - pipeline stages (parallel/pipeline.py: GPipe and 1F1B)
   expert   - MoE expert parallelism (models/moe.py)
 
 `make_mesh` is `init_device_mesh` over the default process group with

@@ -133,8 +133,11 @@ def test_single_host_is_noop():
 
 
 def test_pipeline_degree_is_refused():
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        train.setup_training(TINY, MeshConfig(pipeline=2).resolved(2),
+    """A pipeline degree that does not divide the layers (TINY has 2) is
+    refused before anything is built."""
+    with pytest.raises(ValueError, match="2 layers not divisible by 4 "
+                                         "stages"):
+        train.setup_training(TINY, MeshConfig(pipeline=4).resolved(4),
                              device="cpu")
 
 
@@ -334,10 +337,12 @@ def test_adamw_steps_lower_the_loss_on_sharded_moments(battery):
 
 
 @pytest.mark.slow
-def test_dryrun_passes_its_four_meshes_on_eight_processes():
+def test_dryrun_passes_its_seven_meshes_on_eight_processes():
     """`python -m kubeflow_tpu_torch.dryrun 8`: 8 gloo processes, seq 1024,
-    the dense fsdp x sequence x tensor and two-slice meshes and the MoE
-    expert x tensor x data and expert x sequence x tensor meshes."""
+    the dense fsdp x sequence x tensor and two-slice meshes, pipeline 2 x
+    sequence x tensor under GPipe and under 1F1B, and the MoE expert x
+    tensor x data, expert x sequence x tensor and expert x pipeline x
+    tensor meshes."""
     import subprocess
     import sys
     from pathlib import Path
@@ -348,4 +353,4 @@ def test_dryrun_passes_its_four_meshes_on_eight_processes():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     ok = [line for line in proc.stdout.splitlines()
           if line.startswith("dryrun_multichip ok")]
-    assert len(ok) == 4, proc.stdout
+    assert len(ok) == 7, proc.stdout

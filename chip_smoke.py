@@ -167,13 +167,39 @@ non-zero without its result line):
    and backwards) and of the whole step (with the gradients'
    all-reduces and norm); stage 0's schedule peak under 1F1B must be
    below its under GPipe.  The step times are printed as what they are,
-   two stages time-sharing one card.
+   two stages time-sharing one card;
+11. notebook_train: the in-notebook runtime (runtime/data.py, telemetry.py,
+   checkpoint.py) driving BENCH_CHIP at full width and depth, batch 8,
+   AdamW (warmup 2, bf16 first moment), over a corpus of seeded
+   ascending token runs.  Run A: 12 steps through input_pipeline
+   (prefetch 2, pinned copies on a side stream) with a TelemetryAgent,
+   one boundary a step after the host read of the loss.  Run B, the
+   same seed: the cull request file appears before step 6's
+   checkpoint_on_cull hook, which saves through the local backend and
+   acknowledges; the loop exits and the pipeline closes.  A truncated
+   copy of the checkpoint as step 7 and a leftover temp file are
+   planted; a fresh setup from another seed restores (step 6, both
+   deleted) and runs the pipeline's batches 7-12.  Then one dcp save
+   and restore of the mesh setup on a world-1 NCCL group: a fresh mesh
+   setup resumes it for 2 steps against the uninterrupted mesh run.
+   Last, `python -m kubeflow_tpu_torch.examples.train_llm` as a
+   subprocess must print RESULT: OK.  Gates: exactly 20/10/10 flash
+   launches every step of runs A and B; every batch a step takes equals
+   its TokenBatches batch bit for bit (compared on the step's stream,
+   before it); the hook fires at step 6 only and the ack exists; the
+   resumed losses and final parameters equal run A's steps 7-12 bit for
+   bit, and the dcp round's too; the telemetry summary round-trips
+   through annotation_payload/parse_annotation with a float mfu; run
+   A's loss falls.  Printed: checkpoint bytes, save and restore seconds
+   and GB/s, run A's median step time against the same setup's
+   resident-batch timed_steps step time (the loader's cost), the
+   telemetry summary.
 
 It prints one JSON line per kernel shape and per slice, then a "kernels"
 line (each kernel's launches on its main path, and beside them the
 speculative run's int4 launches, one MoE step's, one mesh step's, one
-pipelined step's of each schedule and one long-context step's flash
-launches; the head-dim-256 flash kernels as entries of their own,
+pipelined step's of each schedule, one long-context step's and one
+runtime-loop step's flash launches; the head-dim-256 flash kernels as entries of their own,
 *_d256, on the Gemma step), the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -266,6 +292,10 @@ GEMMA_SGD_STEPS = 3
 PIPE_STAGES, PIPE_MICRO, PIPE_MEMORY_MICRO = 2, 4, 8
 PIPE_TIMED_STEPS = 3
 PIPE_TIMEOUT_S = 420
+# notebook_train: BENCH_CHIP at batch 8 through the runtime, 12 steps, the
+# cull request before step 6's hook; the corpus is NB_RUNS seeded runs
+NB_BATCH, NB_STEPS, NB_CULL_STEP, NB_RUNS = 8, 12, 6, 16384
+NB_EXAMPLE_TIMEOUT_S = 240
 FLASH_REPLACES = {
     "flash_fwd": "kubeflow_tpu/ops/attention.py:173 -> jax/experimental/"
                  "pallas/ops/tpu/flash_attention.py:758",
@@ -1652,21 +1682,6 @@ def moe_train_phase(device, device_name) -> dict:
     return res
 
 
-def flax_tree(model) -> dict:
-    """A port model's parameters in the reference's tree layout (what the
-    quantizers and `generate` take): `layers.3.x` becomes `layer_3/x`."""
-    tree = {}
-    for name, tensor in model.state_dict().items():
-        parts = name.split(".")
-        if parts[0] == "layers":
-            parts = [f"layer_{parts[1]}"] + parts[2:]
-        node = tree
-        for key in parts[:-1]:
-            node = node.setdefault(key, {})
-        node[parts[-1]] = tensor
-    return tree
-
-
 def moe_serve_phase(device) -> dict:
     """BENCH_MOE quantized to int8 (experts per expert and output
     channel, the router kept fp32) served by `generate` at batch 16,
@@ -1674,7 +1689,7 @@ def moe_serve_phase(device) -> dict:
     import torch
 
     from kubeflow_tpu_torch.models.configs import BENCH_MOE
-    from kubeflow_tpu_torch.models.convert import params_from_flax
+    from kubeflow_tpu_torch.models.convert import flax_tree, params_from_flax
     from kubeflow_tpu_torch.models.generate import generate, prepare_decode
     from kubeflow_tpu_torch.models.quant import quantize_params
     from kubeflow_tpu_torch.models.transformer import Transformer, init_params
@@ -2133,14 +2148,327 @@ def pipeline_train_phase(device, smi: str) -> dict:
     return res
 
 
+def _corpus(vocab: int, seed: int):
+    """Seeded ascending token runs (the example's corpus), so the loss can
+    fall: NB_RUNS runs of 16 tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, vocab - 64, size=NB_RUNS)
+    return np.concatenate([np.arange(s, s + 16) % vocab for s in starts])
+
+
+def _nb_steps(setup, pipe, want: list, hook=None, before_hook=None,
+              agent=None) -> dict:
+    """Drive `setup` over `pipe` as a notebook loop does: each step's flash
+    launches (counts reset before it), whether the batch the step takes
+    equals `want`'s numpy batch (compared on the step's stream, before
+    it), the loss read on the host, then the agent's boundary and
+    `hook(step, train_state_dict)`; stops when the hook fires."""
+    import numpy as np
+    import torch
+
+    from kubeflow_tpu_torch.models import train
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    device = next(setup.model.parameters()).device
+    expect = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+               for k, v in b.items()} for b in want]
+    state, out = setup.state, {"losses": [], "launches": [], "same": [],
+                               "hook": []}
+    if agent is not None:
+        agent.step_boundary()
+    for ref, batch in zip(expect, pipe):
+        same = torch.stack([(batch[k] == ref[k]).all() for k in ref]).all()
+        for key in fa.launches:
+            fa.launches[key] = 0
+        state, metrics = setup.train_step(state, batch)
+        out["launches"].append(dict(fa.launches))
+        out["losses"].append(metrics["loss"].item())
+        out["same"].append(same)
+        if agent is not None:
+            agent.step_boundary()
+        if hook is not None:
+            if before_hook is not None:
+                before_hook(state.step)
+            t0 = time.perf_counter()
+            fired = hook(state.step, train.train_state_dict(state))
+            out["hook"].append(fired)
+            if fired:
+                out["hook_s"] = time.perf_counter() - t0
+                break
+    out["same"] = bool(torch.stack(out["same"]).all().item())
+    return out
+
+
+def notebook_train_phase(device, device_name, smi: str) -> dict:
+    """BENCH_CHIP at full width and depth, batch 8, through the in-notebook
+    runtime (input_pipeline, TelemetryAgent, checkpoint_on_cull,
+    CheckpointManager, the dcp backend on a world-1 NCCL mesh) and the
+    example as a subprocess; see the module docstring."""
+    import itertools
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.models import train
+    from kubeflow_tpu_torch.models.configs import BENCH_CHIP
+    from kubeflow_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from kubeflow_tpu_torch.runtime import checkpoint as ckpt
+    from kubeflow_tpu_torch.runtime.data import TokenBatches, input_pipeline
+    from kubeflow_tpu_torch.runtime.telemetry import (
+        TelemetryAgent,
+        annotation_payload,
+        parse_annotation,
+    )
+
+    phase_t0 = time.perf_counter()
+    cfg, seq = BENCH_CHIP, BENCH_CHIP.max_seq_len
+    expected = {"fwd": 2 * cfg.num_layers, "dkv": cfg.num_layers,
+                "dq": cfg.num_layers}
+    tokens = _corpus(cfg.vocab_size, SEED + 20)
+    want = list(itertools.islice(TokenBatches(tokens, NB_BATCH, seq,
+                                              seed=SEED), NB_STEPS))
+
+    def setup(seed, mesh=None):
+        return train.setup_training(
+            cfg, mesh, device=device, seed=seed,
+            optimizer=train.default_optimizer(warmup_steps=2,
+                                              mu_dtype="bfloat16"))
+
+    def pipeline():
+        return input_pipeline(tokens, NB_BATCH, seq, seed=SEED, prefetch=2,
+                              device=device)
+
+    def clone_params(s):
+        return {n: train.local_tensor(p).detach().clone()
+                for n, p in s.model.named_parameters()}
+
+    # run A: 12 steps through the pipeline with a telemetry agent
+    run_a = setup(SEED)
+    agent = TelemetryAgent(config=cfg, batch=NB_BATCH, seq_len=seq,
+                           num_chips=1, accelerator=device_name,
+                           worker="chip-smoke")
+    pipe = pipeline()
+    a = _nb_steps(run_a, pipe, want, agent=agent)
+    pipe.close()
+    final_a = clone_params(run_a)
+    summary = agent.summary()
+    round_trip = parse_annotation(annotation_payload(summary))
+    a_step_s = statistics.median(s["step_time_s"]
+                                 for s in agent.samples()[1:])
+    # the same setup on one resident batch: the loader's cost is the gap
+    resident = {k: v.clone() for k, v in _batch(cfg.vocab_size, NB_BATCH,
+                                                 seq, SEED + 21,
+                                                 device).items()}
+    resident_s = train.timed_steps(run_a, resident, num_steps=3,
+                                   warmup=1)["step_time_s"]
+    del run_a, resident
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        # run B: the same seed; the request file appears before step 6's
+        # hook, which saves through the local backend and acknowledges
+        signals = tmp / "podinfo"
+        signals.mkdir()
+        local = ckpt.CheckpointManager(str(tmp / "local"), backend="local")
+        hook = ckpt.checkpoint_on_cull(local,
+                                       ckpt.CullSignalWatcher(str(signals)))
+
+        def cull_request(step):
+            if step == NB_CULL_STEP:
+                (signals / ckpt.REQUEST_FILE).write_text("true")
+
+        run_b = setup(SEED)
+        pipe = pipeline()
+        b = _nb_steps(run_b, pipe, want, hook=hook, before_hook=cull_request)
+        pipe.close()
+        acked = (signals / ckpt.ACK_FILE).exists()
+        path = local._step_path(NB_CULL_STEP)
+        ckpt_bytes = path.stat().st_size
+        del run_b
+        torch.cuda.empty_cache()
+
+        # a torn newer step and a leftover temp file: the restore must
+        # return step 6 and delete both
+        torn = local._step_path(NB_CULL_STEP + 1)
+        with open(path, "rb") as src, open(torn, "wb") as dst:
+            dst.write(src.read(min(64 << 20, ckpt_bytes // 2)))
+        leftover = local.directory / f".tmp-step_{NB_CULL_STEP + 2}.ckpt-1"
+        leftover.write_bytes(b"partial")
+        latest_before = local.latest_step()
+
+        # resume: a fresh setup from another seed restores step 6 and runs
+        # the pipeline's batches 7-12
+        resumed = setup(SEED + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        manager = ckpt.CheckpointManager(str(tmp / "local"),
+                                         backend="local")
+        restored = manager.restore(train.train_state_dict(resumed.state))
+        train.load_train_state(resumed.state, restored)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del restored
+        torn_gone = not torn.exists() and not leftover.exists()
+        restored_step = resumed.state.step
+        pipe = pipeline()
+        r = _nb_steps(resumed, itertools.islice(pipe, NB_CULL_STEP, None),
+                      want[NB_CULL_STEP:])
+        pipe.close()
+        final_r = clone_params(resumed)
+        params_equal = all(torch.equal(final_a[n], final_r[n])
+                           for n in final_a)
+        del resumed, final_a, final_r
+        shutil.rmtree(tmp / "local")
+        torch.cuda.empty_cache()
+
+        # dcp: one save and restore of the mesh setup at world size 1 on
+        # NCCL; a fresh mesh setup resumes it for 2 steps against the
+        # uninterrupted mesh run
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                                f"{_free_port()}", rank=0, world_size=1)
+        try:
+            mesh = make_mesh(MeshConfig(), device="cuda")
+            sharded = setup(SEED, mesh)
+            dcp_batches = [{k: torch.from_numpy(v).to(device)
+                            for k, v in w.items()} for w in want[:4]]
+            for batch in dcp_batches[:2]:
+                sharded.train_step(sharded.state, batch)
+            manager_dcp = ckpt.CheckpointManager(str(tmp / "dcp"),
+                                                 backend="dcp")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            manager_dcp.save(2, train.train_state_dict(sharded.state))
+            dcp_save_s = time.perf_counter() - t0
+            dcp_bytes = sum(f.stat().st_size for f in
+                            (tmp / "dcp").rglob("*") if f.is_file())
+            straight = [sharded.train_step(sharded.state, batch)[1]["loss"]
+                        .item() for batch in dcp_batches[2:]]
+            final_m = clone_params(sharded)
+            del sharded
+            torch.cuda.empty_cache()
+            fresh = setup(SEED + 1, mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            like = train.train_state_dict(fresh.state)
+            manager_dcp.restore(like)
+            train.load_train_state(fresh.state, like)
+            torch.cuda.synchronize()
+            dcp_restore_s = time.perf_counter() - t0
+            dcp_step = fresh.state.step
+            again = [fresh.train_step(fresh.state, batch)[1]["loss"].item()
+                     for batch in dcp_batches[2:]]
+            final_f = clone_params(fresh)
+            dcp_params_equal = all(torch.equal(final_m[n], final_f[n])
+                                   for n in final_m)
+            del fresh, final_m, final_f, like, dcp_batches
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # the example, as a user runs it
+    t0 = time.perf_counter()
+    example = subprocess.run(
+        [sys.executable, "-m", "kubeflow_tpu_torch.examples.train_llm"],
+        cwd=ROOT, capture_output=True, text=True, timeout=NB_EXAMPLE_TIMEOUT_S)
+    example_s = time.perf_counter() - t0
+    example_ok = (example.returncode == 0
+                  and "RESULT: OK" in example.stdout.splitlines())
+
+    gb = ckpt_bytes / 1e9
+    b_launches = b["launches"]
+    res = {
+        "phase": "notebook_train", "model": "bench-chip",
+        "layers": cfg.num_layers, "batch": NB_BATCH, "seq": seq,
+        "steps": NB_STEPS, "cull_step": NB_CULL_STEP, "nvidia_smi": smi,
+        "flash_launches_per_step": a["launches"][0],
+        "expected_launches": expected,
+        "batches_bit_equal": {"run_a": a["same"], "run_b": b["same"],
+                              "resumed": r["same"]},
+        "losses_run_a": a["losses"], "losses_run_b": b["losses"],
+        "losses_resumed": r["losses"],
+        "resume_losses_bit_identical": r["losses"] == a["losses"][
+            NB_CULL_STEP:],
+        "resume_params_bit_identical": params_equal,
+        "restored_step": restored_step,
+        "hook_fired": b["hook"], "ack_written": acked,
+        "torn_latest_before_restore": latest_before,
+        "torn_and_temp_deleted": torn_gone,
+        "checkpoint_bytes": ckpt_bytes, "checkpoint_gb": gb,
+        "save_s": b.get("hook_s"),
+        "save_gb_s": gb / b["hook_s"] if b.get("hook_s") else None,
+        "restore_s": restore_s, "restore_gb_s": gb / restore_s,
+        "tmp_free_gb": free_gb,
+        "run_a_step_s": a_step_s, "resident_step_s": resident_s,
+        "loader_cost_s": a_step_s - resident_s,
+        "run_a_step_times_s": [s["step_time_s"] for s in agent.samples()],
+        "telemetry_summary": summary,
+        "telemetry_round_trip": round_trip == summary,
+        "dcp_bytes": dcp_bytes,
+        "dcp_save_s": dcp_save_s, "dcp_restore_s": dcp_restore_s,
+        "dcp_restored_step": dcp_step,
+        "dcp_losses_straight": straight, "dcp_losses_resumed": again,
+        "dcp_params_bit_identical": dcp_params_equal,
+        "example_returncode": example.returncode, "example_s": example_s,
+        "example_tail": example.stdout.splitlines()[-4:],
+        "phase_s": time.perf_counter() - phase_t0,
+    }
+    emit(res)
+    print(f"notebook_train: checkpoint {ckpt_bytes} bytes ({gb:.3f} GB), "
+          f"save {res['save_s']:.3f} s ({res['save_gb_s']:.3f} GB/s), "
+          f"restore {restore_s:.3f} s ({res['restore_gb_s']:.3f} GB/s); "
+          f"run A {a_step_s:.4f} s a step against {resident_s:.4f} s on a "
+          f"resident batch; {smi}", flush=True)
+    print(f"notebook_train telemetry: {annotation_payload(summary)}",
+          flush=True)
+    if not example_ok:
+        raise RuntimeError(f"the example failed ({example.returncode}):\n"
+                           f"{example.stdout[-2000:]}{example.stderr[-4000:]}")
+    bad_launches = [i for i, n in enumerate(a["launches"] + b_launches)
+                    if n != expected]
+    if (bad_launches or len(a["launches"]) != NB_STEPS
+            or len(b_launches) != NB_CULL_STEP):
+        raise RuntimeError(f"runs A and B: steps {bad_launches} launched "
+                           f"the flash kernels other than {expected} times, "
+                           f"or a run took another number of steps")
+    if not (a["same"] and b["same"] and r["same"]):
+        raise RuntimeError("a device batch differs from its TokenBatches "
+                           "batch")
+    if not (b["hook"] == [False] * (NB_CULL_STEP - 1) + [True] and acked
+            and restored_step == NB_CULL_STEP):
+        raise RuntimeError(f"the cull hook fired {b['hook']}, ack "
+                           f"{acked}, restored step {restored_step}")
+    if not (latest_before == NB_CULL_STEP + 1 and torn_gone):
+        raise RuntimeError("the torn step or the temp file survived the "
+                           "restore")
+    if not (res["resume_losses_bit_identical"] and params_equal):
+        raise RuntimeError("the resumed run differs from the uninterrupted "
+                           "one")
+    if not (straight == again and dcp_params_equal and dcp_step == 2):
+        raise RuntimeError("the dcp round did not resume bit for bit")
+    if not (res["telemetry_round_trip"] and isinstance(summary["mfu"], float)
+            and all(math.isfinite(x) for x in a["losses"])
+            and a["losses"][-1] < a["losses"][0]):
+        raise RuntimeError(f"telemetry or losses wrong: {summary}, "
+                           f"{a['losses']}")
+    return res
+
+
 def flash_kernel_lines(flash_results, launches: dict, moe_launches: dict,
                        mesh_launches: dict, gemma_launches: dict,
-                       long_context: dict, pipeline_steps: dict) -> list:
+                       long_context: dict, pipeline_steps: dict,
+                       runtime_loop_launches: dict) -> list:
     """The kernels line's flash entries.  Head dims 64 and 128: the
     training-shape medians times the BENCH_CHIP step's launches, and beside
     them the launches of one BENCH_MOE step, one sharded (mesh) BENCH_CHIP
-    step, one pipelined step of each schedule (both stages) and one step
-    of each long-context mode.  Head dim 256 (entries named *_d256): the
+    step, one pipelined step of each schedule (both stages), one step
+    of each long-context mode and one step of the runtime loop
+    (notebook_train).  Head dim 256 (entries named *_d256): the
     Gemma-shape medians times the Gemma step's launches."""
     entries = []
     for name, key in (("flash_fwd", "fwd"), ("flash_bwd_dkv", "dkv"),
@@ -2183,6 +2511,7 @@ def flash_kernel_lines(flash_results, launches: dict, moe_launches: dict,
                     long_context_step_launches={
                         str(seq): res["flash_launches"][key]
                         for seq, res in long_context.items()},
+                    runtime_loop_step_launches=runtime_loop_launches[key],
                     basis="per-launch medians at the training shape times "
                           "one training step's launches")
             entries.append(entry)
@@ -2314,6 +2643,7 @@ def main() -> int:
     moe_serve_phase(device)
     mesh = mesh_train_phase(device, smi, tr["step_time_s"])
     pipe = pipeline_train_phase(device, smi)
+    notebook = notebook_train_phase(device, device_name, smi)
 
     totals = main_path_totals(results, sl["int4_launches"])
     emit({"kernels": [{
@@ -2333,7 +2663,8 @@ def main() -> int:
     }] + flash_kernel_lines(flash_results, tr["flash_launches"],
                             mt["flash_launches"], mesh["flash_launches"],
                             gemma["flash_launches"], long_context,
-                            pipe["schedules"])})
+                            pipe["schedules"],
+                            notebook["flash_launches_per_step"])})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                  "count": torch.cuda.device_count()}})

@@ -11,7 +11,9 @@ kernel_scale}, norm `scale`, and a MoE layer's `moe/router/kernel` [D, E]
 with `moe/experts/{gate,up,down}` stacked over the experts ([E, D, M],
 [E, M, D]; int8 scales [E, 1, M]).  A stacked `layers` subtree (leading
 [L] axis, the reference's scan_layers=True layout) is unrolled on the
-way in.
+way in.  `flax_tree` is the inverse walk, and `opt_state_from_optax`
+carries the reference's AdamW state across beside the parameters, so a
+reference run can be continued in the port.
 """
 
 from __future__ import annotations
@@ -72,4 +74,58 @@ def params_from_flax(params: Mapping, cfg: TransformerConfig,
     return model
 
 
-__all__ = ["params_from_flax", "state_dict_from_flax", "to_tensor"]
+def flax_tree(model: Transformer) -> dict:
+    """A port model's parameters in the reference's tree layout (what the
+    quantizers and `generate` take): `layers.3.x` becomes `layer_3/x`.
+    The leaves are the model's own tensors."""
+    tree: dict = {}
+    for name, tensor in model.state_dict().items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            parts = [f"layer_{parts[1]}"] + parts[2:]
+        node = tree
+        for key in parts[:-1]:
+            node = node.setdefault(key, {})
+        node[parts[-1]] = tensor
+    return tree
+
+
+def _adam_state(opt_state):
+    """The ScaleByAdamState (`count`, `mu`, `nu`) inside an optax state,
+    a nest of tuples and namedtuples."""
+    if all(hasattr(opt_state, k) for k in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for child in opt_state:
+            found = _adam_state(child)
+            if found is not None:
+                return found
+    return None
+
+
+def opt_state_from_optax(opt_state, b1: float = 0.9) -> dict:
+    """The reference's optax state of `default_optimizer` (clip, then
+    AdamW), its leaves as numpy (`jax.device_get` of the unboxed tree),
+    -> the port's `AdamW.state_dict()`: `mu` and `nu` by port parameter
+    name in their stored dtypes (bf16 under mu_dtype="bfloat16"),
+    `count`, and `b1_mu`, b1 as a bf16 mu rounds it.  Load it with
+    `AdamW.load_state_dict` into an optimizer built with the same
+    arguments, beside `params_from_flax`'s parameters."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState (count, mu, nu) in the "
+                         "optax state")
+    mu = state_dict_from_flax(adam.mu)
+    dtypes = {t.dtype for t in mu.values()}
+    if len(dtypes) != 1:
+        raise ValueError(f"mu holds several dtypes {sorted(map(str, dtypes))}")
+    dtype = dtypes.pop()
+    # AdamW.init: b1 stays a Python float unless mu_dtype rounds it
+    b1_mu = b1 if dtype == torch.float32 else torch.tensor(
+        b1, dtype=dtype).item()
+    return {"mu": mu, "nu": state_dict_from_flax(adam.nu),
+            "count": int(np.asarray(adam.count)), "b1_mu": b1_mu}
+
+
+__all__ = ["flax_tree", "opt_state_from_optax", "params_from_flax",
+           "state_dict_from_flax", "to_tensor"]

@@ -50,7 +50,7 @@ from __future__ import annotations
 import math
 import time
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -65,6 +65,7 @@ from ..parallel.sharding import (
     logical_to_spec,
     rules_for_mesh,
     spec_axes,
+    spec_placements,
 )
 from ..runtime.roofline import mfu as roofline_mfu
 from ..runtime.roofline import train_step_flops
@@ -111,13 +112,21 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 class SGD:
-    """optax.sgd with a constant learning rate: p -= lr * g."""
+    """optax.sgd with a constant learning rate: p -= lr * g.  It holds no
+    state, so its state dict is empty."""
 
     def __init__(self, learning_rate: float):
         self.learning_rate = learning_rate
 
-    def init(self, params) -> None:
+    def init(self, params, names: Optional[Sequence[str]] = None) -> None:
         pass
+
+    def state_dict(self) -> dict:
+        return {}
+
+    def load_state_dict(self, state: dict) -> None:
+        if state:
+            raise ValueError(f"SGD holds no state, got {sorted(state)}")
 
     @torch.no_grad()
     def step(self, params, grads, grad_norm: torch.Tensor) -> None:
@@ -148,16 +157,49 @@ class AdamW:
         self.mu_dtype = torch_dtype(mu_dtype) if mu_dtype else None
         self.count = 0
         self.b1_mu = b1   # b1 as mu's dtype holds it (set by init)
+        self.names: list = []
         self.mu: list = []
         self.nu: list = []
 
-    def init(self, params) -> None:
+    def init(self, params, names: Optional[Sequence[str]] = None) -> None:
+        """Zero moments for `params`, keyed in the state dict by `names`
+        (the parameters' names; default their indices)."""
+        params = list(params)
+        self.names = (list(names) if names is not None
+                      else [str(i) for i in range(len(params))])
+        if len(self.names) != len(params):
+            raise ValueError(f"{len(self.names)} names for {len(params)} "
+                             f"parameters")
         self.mu = [torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
                    for p in params]
         self.nu = [torch.zeros_like(p) for p in params]
         self.count = 0
         if self.mu_dtype is not None:
             self.b1_mu = torch.tensor(self.b1, dtype=self.mu_dtype).item()
+
+    def state_dict(self) -> dict:
+        """{"mu", "nu": {parameter name: moment}, "count", "b1_mu"}: the
+        moments themselves (not copies).  `count` sets both the schedule's
+        learning rate and the bias corrections, and `b1_mu` is b1 as a
+        bf16 mu rounds it, so a restore needs both."""
+        return {"mu": dict(zip(self.names, self.mu)),
+                "nu": dict(zip(self.names, self.nu)),
+                "count": self.count, "b1_mu": self.b1_mu}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy `state` (as `state_dict` gives it) into this optimizer's
+        moments, keeping their dtypes and devices; the names must be the
+        ones `init` was given."""
+        for key, moments in (("mu", self.mu), ("nu", self.nu)):
+            if set(state[key]) != set(self.names):
+                raise ValueError(
+                    f"{key} holds {sorted(set(state[key]) ^ set(self.names))}"
+                    f" other than this optimizer's parameters")
+            for name, moment in zip(self.names, moments):
+                moment.copy_(state[key][name])
+        self.count = int(state["count"])
+        self.b1_mu = float(state["b1_mu"])
 
     @torch.no_grad()
     def step(self, params, grads, grad_norm: torch.Tensor) -> None:
@@ -641,13 +683,84 @@ def setup_training(config: TransformerConfig, mesh=None, device="cuda",
     if mesh is not None:
         parallelize(model, mesh)
     optimizer = optimizer if optimizer is not None else default_optimizer()
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     with torch.no_grad():
-        optimizer.init([local_tensor(p) for p in model.parameters()
-                        if p.requires_grad])
+        optimizer.init([local_tensor(p) for _, p in named],
+                       [n for n, _ in named])
     state = TrainState(model, optimizer)
     step = make_train_step(model, optimizer, pipeline_microbatches,
                            pipeline_schedule)
     return TrainSetup(model, state, step, config)
+
+
+# -- the train state as a state dict -----------------------------------------
+
+
+def _mesh_dtensor(t: torch.Tensor, param: torch.Tensor, spec: tuple,
+                  mesh):
+    """`t`, this rank's shard of `param` (or of one of its moments), as a
+    DTensor over the whole `mesh`: Shard on every mesh dim `spec` (the
+    parameter's) cuts it over, so the sharded checkpoint holds each
+    block once and can reshard it."""
+    from torch.distributed.tensor import DTensor
+
+    shape = list(param.shape)   # the block over "tensor" and "expert"
+    for dim, entry in enumerate(spec):
+        for axis in spec_axes(entry):
+            if axis in _MODEL_AXES:
+                shape[dim] *= axis_size(mesh, axis)
+    stride = [1] * len(shape)
+    for dim in range(len(shape) - 2, -1, -1):
+        stride[dim] = stride[dim + 1] * shape[dim + 1]
+    return DTensor.from_local(t, mesh, spec_placements(spec),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=tuple(stride))
+
+
+@torch.no_grad()
+def train_state_dict(state: TrainState) -> dict:
+    """The train state as a state dict: {"model": {name: parameter},
+    "optimizer": the optimizer's `state_dict()` (moments keyed by
+    parameter name), "step": int}.  The tensors are the live ones, not
+    copies.  On a mesh every parameter and moment is a DTensor over the
+    whole mesh (see `_mesh_dtensor`), what torch.distributed.checkpoint
+    saves and loads in place."""
+    model = state.model
+    opt = state.optimizer.state_dict()
+    named = dict(model.named_parameters())
+    params = {n: local_tensor(p) for n, p in named.items()}
+    if model.mesh is not None:
+        def wrap(tensors: dict) -> dict:
+            return {n: _mesh_dtensor(t, named[n], model.param_specs[n],
+                                     model.mesh) for n, t in tensors.items()}
+
+        params = wrap(params)
+        for key in ("mu", "nu"):
+            if key in opt:
+                opt[key] = wrap(opt[key])
+    return {"model": params, "optimizer": opt, "step": state.step}
+
+
+@torch.no_grad()
+def load_train_state(state: TrainState, state_dict: dict) -> TrainState:
+    """Copy `state_dict` (as `train_state_dict` gives it, DTensors or
+    plain tensors) into `state`'s parameters, optimizer and step, in
+    place; every parameter must be there."""
+    model = state.model
+    params = dict(model.named_parameters())
+    stored = state_dict["model"]
+    if set(stored) != set(params):
+        raise ValueError(f"the state dict's parameters differ from the "
+                         f"model's: {sorted(set(stored) ^ set(params))}")
+    for name, param in params.items():
+        local_tensor(param).copy_(local_tensor(stored[name]))
+    opt = dict(state_dict["optimizer"])
+    for key in ("mu", "nu"):
+        if key in opt:
+            opt[key] = {n: local_tensor(t) for n, t in opt[key].items()}
+    state.optimizer.load_state_dict(opt)
+    state.step = int(state_dict["step"])
+    return state
 
 
 # -- MFU accounting -----------------------------------------------------------
@@ -687,9 +800,10 @@ def timed_steps(setup: TrainSetup, batch: dict, num_steps: int = 10,
 __all__ = ["AdamW", "SCHEDULES", "SGD", "TrainSetup", "TrainState",
            "chunked_cross_entropy", "cross_entropy_loss",
            "default_optimizer", "global_norm", "head_cross_entropy",
-           "local_tensor", "loss_fn", "loss_terms", "make_train_step",
+           "load_train_state", "local_tensor", "loss_fn", "loss_terms",
+           "make_train_step",
            "mesh_loss_and_grads", "mfu", "model_flops_per_step",
            "parallelize", "param_spec", "pipeline_backward",
            "setup_training", "shard_batch", "shard_microbatches",
-           "shard_parameters", "timed_steps",
+           "shard_parameters", "timed_steps", "train_state_dict",
            "warmup_cosine_decay_schedule"]

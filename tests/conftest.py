@@ -34,8 +34,8 @@ _COMPUTE_MODULES = {
     "test_compute", "test_data", "test_generate", "test_moe",
     "test_pipeline", "test_quant", "test_runtime", "test_speculative",
     "test_torch_decode", "test_torch_flash", "test_torch_int4",
-    "test_torch_moe", "test_torch_pipeline", "test_torch_speculative",
-    "test_torch_train",
+    "test_torch_data", "test_torch_moe", "test_torch_pipeline",
+    "test_torch_runtime", "test_torch_speculative", "test_torch_train",
 }
 
 

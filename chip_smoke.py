@@ -31,7 +31,10 @@ non-zero without its result line):
    three edge shapes the kernel's tiles must handle, drawn from a
    generator of their own and kept out of the path totals: one token
    (1, 4096, 4096), M, K and N each ragged against their tiles
-   (17, 1600, 1552), and a ragged prefill tile (300, 4096, 4096);
+   (17, 1600, 1552), and a ragged prefill tile (300, 4096, 4096); and,
+   from a generator of their own, the fused layers of the decode bench's
+   BENCH_CHIP and of Llama-2-13B at M = 16 and 2048 (the 13B run's and
+   `bench --decode`'s decode steps and prefills), each held as above;
 4. slice: Llama-2-7B at full width and depth, every leaf N(0, 0.02^2)
    from a seeded generator on the card (ci/llama7b_decode.py's scheme),
    int4 kernels quantized there; `generate` at batch 16, prompt 128, 128
@@ -42,7 +45,13 @@ non-zero without its result line):
    logits within 2e-2 (max relative error) and, with the kernel path's
    tokens as context (teacher forced), >= 0.95 of the same next tokens.
    Free-running greedy agreement is printed beside it: on a random
-   model one early flip changes the rest of a sequence, so it is no gate;
+   model one early flip changes the rest of a sequence, so it is no gate.
+   The single-token steps replay one captured CUDA graph (models/
+   generate.py GraphedStep), and the wrappers' counts are credited per
+   replay; the eager loop (`cuda_graph=False`) must give the graph's
+   tokens bit for bit, and its decode steps are timed beside the
+   graph's; a 10-step call is profiled for the graphed step's device
+   time by kind (`decode_profile`);
    speculative: the slice's model as the target of
    models/speculative.py, its first two layers (sharing the target's
    modules, no weights of their own) as the draft, batch 16, prompt 128,
@@ -59,9 +68,10 @@ non-zero without its result line):
    apart, so its rounds exceed ceil(127 / 4) and are printed, not
    gated); sampling at temperature 0.8 with it must accept >= 0.9 x 3/4
    of the draft tokens.
-   Speculative and plain `generate` tok/s (CUDA events), rounds and host
-   syncs (torch's sync debug mode) are printed, not gated: a random
-   2-layer draft agrees with the target about never;
+   Speculative and plain `generate` tok/s (CUDA events) and rounds are
+   printed, not gated (a random 2-layer draft agrees with the target
+   about never), and the host syncs (torch's sync debug mode) of a
+   short call of each, 8 new tokens, apart from the timed runs;
 5. flash: the three flash-attention kernels (forward, dK/dV, dQ) against
    their plain versions at the three shapes of ci/flash_numerics.py, three
    shapes the kernels' tiles must handle (head dim 64 with GQA; S = 320,
@@ -195,11 +205,49 @@ non-zero without its result line):
    resident-batch timed_steps step time (the loader's cost), the
    telemetry summary.
 
+12. llama13b: kubeflow_tpu_torch/examples/llama13b_decode.py, Llama-2-13B at
+   full width and depth, int4, its weights made and quantized leaf by leaf
+   on the card (models/quant.py fill_random), batch 16, prompt 128, 128
+   new tokens: the example's record (tok/s against the int4 + KV
+   roofline, peak memory), exactly (4 x 40 + 1) x 128 int4 launches a
+   call, a profiled call's graphed step by kind, and the kernel path
+   against the plain path with the slice phase's gates (prefill logits
+   < 2e-2, teacher forced >= 0.95);
+13. decode_bench: `python -m kubeflow_tpu_torch.bench --decode` in bf16,
+   int8 and int4 (BENCH_CHIP, batch 16, prompt 128, 256 new tokens):
+   each bench line, exactly (4 x 10 + 1) x 256 int4 launches a call in
+   int4 and none in bf16 and int8, the bench's graphed warm-up call's
+   greedy tokens against the eager loop's bit for bit (the eager call
+   timed beside the bench's), and in bf16 a sampled call under the
+   graph (in range);
+14. speculative_demo: kubeflow_tpu_torch/examples/speculative_demo.py,
+   the BENCH_CHIP-shaped target (vocabulary 1024) and its 2-layer draft
+   trained 150 steps each on the affine stream (exactly 20/10/10 and
+   4/2/2 flash launches a step), then graphed plain against speculative
+   greedy decode at batch 4, prompt 64, 256 new tokens, gamma 4: the
+   speculative phase's teacher-forced token gates; rounds against the
+   ideal 64 and the speedup (one timed call each) printed; then its
+   --sample sweep (gamma 2, 4, 6 at T 0.8, one timed call each) on the
+   same pair, acceptance and rounds in range;
+15. vit: `python -m kubeflow_tpu_torch.bench --vit 5` (ViT-B/16, batch
+   256): images/s and MFU, every window's loss finite and falling, no
+   kernel launched (196 tokens take the einsum attention);
+16. entry: kubeflow_tpu_torch/entry.py entry() (LLAMA2_350M, (2, 512)
+   ones): exactly 24 flash forward launches (head dim 64) and nothing
+   else, and the logits of the ones and of random tokens against the
+   einsum path's: cross-entropy within 1e-3 relative, cosine >= 0.99;
+17. serve_model: `python -m kubeflow_tpu_torch.examples.serve_model` on
+   the card (TINY trained 5 steps, graphed plain decode, int8 decode,
+   greedy speculative equal to plain, speculative sampling): rc 0 and
+   RESULT: OK.
+
 It prints one JSON line per kernel shape and per slice, then a "kernels"
 line (each kernel's launches on its main path, and beside them the
 speculative run's int4 launches, one MoE step's, one mesh step's, one
 pipelined step's of each schedule, one long-context step's and one
-runtime-loop step's flash launches; the head-dim-256 flash kernels as entries of their own,
+runtime-loop step's, one entry() forward's and the demo's training's flash
+launches, and the decode bench's and the 13B run's int4 launches; the
+head-dim-256 flash kernels as entries of their own,
 *_d256, on the Gemma step), the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -208,6 +256,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import io
 import json
 import math
 import re
@@ -240,6 +289,14 @@ CHECK_SHAPES = [(16, 1536, 6144), (16, 6144, 1536), (16, 1536, 32000),
 # one token; M, K (K % 128 = 64) and N (not a multiple of 64) ragged
 # against the tiles; a prefill whose last token tile is ragged
 EDGE_SHAPES = [(1, 4096, 4096), (17, 1600, 1552), (300, 4096, 4096)]
+# (K, N) of the int4 layers of the decode bench's BENCH_CHIP and of
+# Llama-2-13B, fused, each at its decode step's and its prefill's M
+BENCH_LAYERS = {"qkv": (1536, 4608), "out": (1536, 1536),
+                "gate_up": (1536, 12288), "down": (6144, 1536),
+                "lm_head": (1536, 32000)}
+LLAMA13B_LAYERS = {"qkv": (5120, 15360), "out": (5120, 5120),
+                   "gate_up": (5120, 27648), "down": (13824, 5120),
+                   "lm_head": (5120, 32000)}
 DECODE_M, PREFILL_M = 16, 2048
 GAMMA = 4                          # draft tokens per speculative round
 VERIFY_M = DECODE_M * (GAMMA + 1)  # the target's verify pass: 80 tokens
@@ -248,6 +305,10 @@ DRAFT_LAYERS = 2                   # the draft: the target's first layers
 SPEC_MIN_FORCED = 0.95             # emitted tokens that are the argmax
 SPEC_GAP_TOL = 2e-2                # the others: gap / max |logit| of row
 SPEC_MIN_ACCEPT = 0.9              # self-draft accept rate over its cap
+PROFILED_STEPS = 10                # decode steps under torch.profiler
+DECODE_BENCH_NEW = 256             # bench --decode: new tokens a call
+VIT_STEPS = 5                      # bench --vit: steps a window
+DEMO_STEPS = 150                   # the speculative demo's training steps
 MOE_BATCH, MOE_COMPARE_BATCH = 16, 4
 # top-k turns the two attention paths' rounding differences into tokens
 # routed to other experts (up to 2.2% in a layer, PERF.md): the plain
@@ -269,6 +330,10 @@ TENSOR_CORE_KERNELS = ("int4_matmul_kernel", "flash_fwd_kernel",
 FLASH_SHAPES = [(2, 2048, 12, 12, 128, True), (2, 1024, 16, 4, 128, True),
                 (2, 256, 4, 4, 128, True), (2, 1024, 8, 2, 64, True),
                 (2, 320, 4, 4, 128, True), (2, 256, 4, 4, 128, False)]
+# entry()'s forward (LLAMA2_350M on (2, 512)) and the speculative demo's
+# training step (batch 16 x 512), from a generator of their own
+FLASH_ENTRY_DEMO_SHAPES = [(2, 512, 16, 16, 64, True),
+                           (16, 512, 12, 12, 128, True)]
 TRAIN_SHAPE = (40, 2048, 12, 12, 128)
 TRAIN_CASE = TRAIN_SHAPE + (True,)
 TRAIN_BATCH, COMPARE_BATCH = 40, 8
@@ -425,10 +490,13 @@ def int4pack_mm(packed, scales):
     return lambda x: torch._weight_int4pack_mm(x, tiled, GROUP, scale_zero)
 
 
-def kernel_phase(gen, edge_gen, verify_gen, device, peak, flush) -> dict:
+def kernel_phase(gen, edge_gen, verify_gen, path_gen, device, peak,
+                 flush) -> dict:
     """Kernel against plain version at every shape, the edge shapes drawn
-    from `edge_gen` and the speculative verify pass's (M = 80) from
-    `verify_gen`; returns per-shape results keyed by (m, k, n)."""
+    from `edge_gen`, the speculative verify pass's (M = 80) from
+    `verify_gen`, and the decode bench's and the 13B run's layers at
+    their decode and prefill M from `path_gen`; returns per-shape
+    results keyed by (m, k, n)."""
     import torch
 
     from kubeflow_tpu_torch.models.quant import quantize_kernel_int4
@@ -440,6 +508,11 @@ def kernel_phase(gen, edge_gen, verify_gen, device, peak, flush) -> dict:
     shapes += [(edge_gen, shape) for shape in EDGE_SHAPES]
     shapes += [(verify_gen, (VERIFY_M, k, n))
                for k, n in LLAMA_LAYERS.values()]
+    seen = {shape for _, shape in shapes}
+    shapes += [(path_gen, (m, k, n)) for layers in (BENCH_LAYERS,
+                                                    LLAMA13B_LAYERS)
+               for m in (DECODE_M, PREFILL_M) for k, n in layers.values()
+               if (m, k, n) not in seen]
     results, failed = {}, []
     for draw, (m, k, n) in shapes:
         w = torch.randn((k, n), generator=draw, device=device) * 0.05
@@ -469,6 +542,10 @@ def kernel_phase(gen, edge_gen, verify_gen, device, peak, flush) -> dict:
                 device).multi_processor_count)._asdict(),
             "edge_shape": (m, k, n) in EDGE_SHAPES,
             "verify_shape": m == VERIFY_M,
+            "layer_of": [name for name, layers in (
+                ("llama2-7b", LLAMA_LAYERS), ("bench-chip", BENCH_LAYERS),
+                ("llama2-13b", LLAMA13B_LAYERS)) if (k, n) in
+                layers.values() and m in (DECODE_M, PREFILL_M, VERIFY_M)],
             "kernel_ms": timed_ms(lambda: i4.int4_matmul(x, packed, scales),
                                   flush),
             "plain_ms": timed_ms(
@@ -496,42 +573,6 @@ def kernel_phase(gen, edge_gen, verify_gen, device, peak, flush) -> dict:
     return results
 
 
-def fill_random(model, gen) -> int:
-    """Random weights, made and quantized per leaf on the card: every leaf
-    N(0, 0.02^2), as ci/llama7b_decode.py makes them (norm scales and the
-    bf16 embedding included); int4 kernels drawn in bf16 and quantized on
-    the card.  Returns the bytes of the int4 layers (what a decode step
-    streams)."""
-    import torch
-
-    from kubeflow_tpu_torch.models.quant import (
-        Int4Linear,
-        quantize_kernel_int4,
-    )
-    from kubeflow_tpu_torch.models.transformer import RMSNorm
-
-    streamed = 0
-    with torch.no_grad():
-        emb = model.embed.embedding
-        emb.copy_(torch.randn(emb.shape, generator=gen, device=emb.device)
-                  * 0.02)
-        for mod in model.modules():
-            if isinstance(mod, RMSNorm):
-                mod.scale.copy_(torch.randn(
-                    mod.scale.shape, generator=gen,
-                    device=mod.scale.device) * 0.02)
-            if not isinstance(mod, Int4Linear):
-                continue
-            w = (torch.randn(mod.contract + mod.features, generator=gen,
-                             device=mod.kernel_q4.device) * 0.02)
-            q = quantize_kernel_int4(w.to(torch.bfloat16), len(mod.contract))
-            mod.kernel_q4.copy_(q["kernel_q4"])
-            mod.kernel_scale.copy_(q["kernel_scale"])
-            streamed += (mod.kernel_q4.numel()
-                         + mod.kernel_scale.numel() * 2)
-    return streamed
-
-
 def set_plain(model, plain: bool) -> None:
     from kubeflow_tpu_torch.models.quant import Int4Linear
 
@@ -540,7 +581,7 @@ def set_plain(model, plain: bool) -> None:
             mod.plain = plain
 
 
-def timed_generate(cfg, model, prompt, new):
+def timed_generate(cfg, model, prompt, new, cuda_graph: bool = True):
     """One greedy `generate` call, timed in its parts: CUDA events at its
     start, after its prefill and at its end, and the host's clock over
     the decode steps.  A forward hook marks the end of the model's first
@@ -564,7 +605,7 @@ def timed_generate(cfg, model, prompt, new):
     handle = model.register_forward_hook(after_prefill)
     try:
         start.record()
-        out = generate(cfg, model, prompt, new)
+        out = generate(cfg, model, prompt, new, cuda_graph=cuda_graph)
         host.append(time.perf_counter())
         end.record()
         end.synchronize()
@@ -574,11 +615,68 @@ def timed_generate(cfg, model, prompt, new):
             prefill_end.elapsed_time(end), host[1] - host[0])
 
 
+def decode_profile(cfg, model, prompt, steps: int = PROFILED_STEPS,
+                   top: int = 8) -> dict:
+    """The graphed decode step's device time per step, from torch.profiler:
+    the kernels of a greedy `generate` call of `steps` + 1 new tokens
+    (`steps` decode steps: the graph's warm-up step and its replays)
+    less those of a call that only prefills (`max_new_tokens` 1), over
+    `steps`; by kind (the int4 kernel; cuBLAS GEMMs, the attention
+    einsums' among them; softmax; the rest: casts, copies, norms, rope,
+    the cache writes) and the kernels that took the most.
+    The launch counts are put back as they were, so neither call enters
+    a path total."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeflow_tpu_torch.models.generate import generate
+    from kubeflow_tpu_torch.ops import launch_counts
+
+    def kernels(tokens: int) -> dict:
+        """{kernel: (ms, launches)} of one call, summed from the profiler's
+        raw device events: its per-operator tree (key_averages) takes
+        seconds to build over a call's host operations."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            generate(cfg, model, prompt, tokens)
+            torch.cuda.synchronize()
+        found = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                ms, count = found.get(e.name(), (0.0, 0))
+                found[e.name()] = (ms + e.duration_ns() / 1e6, count + 1)
+        return found
+
+    before = launch_counts.snapshot()
+    full, prefill = kernels(steps + 1), kernels(1)
+    launch_counts.restore(before)
+    per_step = {}
+    for name, (ms, count) in full.items():
+        pre_ms, pre_count = prefill.get(name, (0.0, 0))
+        if count > pre_count:
+            per_step[name] = ((ms - pre_ms) / steps,
+                              (count - pre_count) / steps)
+    split = {"int4": 0.0, "gemm": 0.0, "softmax": 0.0, "rest": 0.0}
+    for name, (ms, _) in per_step.items():
+        low = name.lower()
+        kind = ("int4" if "int4_matmul" in low else
+                "gemm" if any(w in low for w in ("gemm", "nvjet", "xmma"))
+                else "softmax" if "softmax" in low else "rest")
+        split[kind] += ms
+    ranked = sorted(per_step.items(), key=lambda kv: kv[1][0], reverse=True)
+    return {"steps": steps, "device_ms_per_step": sum(split.values()),
+            "by_kind": split,
+            "top": [{"name": name[:100], "ms_per_step": ms,
+                     "launches_per_step": count}
+                    for name, (ms, count) in ranked[:top]]}
+
+
 def slice_phase(gen, device, device_name) -> dict:
     import torch
 
     from kubeflow_tpu_torch.models.configs import LLAMA2_7B
     from kubeflow_tpu_torch.models.generate import decode_config, generate
+    from kubeflow_tpu_torch.models.quant import fill_random
     from kubeflow_tpu_torch.models.transformer import Transformer
     from kubeflow_tpu_torch.ops import int4_matmul as i4
     from kubeflow_tpu_torch.runtime.roofline import decode_estimate
@@ -606,7 +704,13 @@ def slice_phase(gen, device, device_name) -> dict:
     expected = (4 * cfg.num_layers + 1) * new
     # the kernel sums in a fixed order, so a second run repeats every token
     deterministic = torch.equal(generate(cfg, model, prompt, new), out)
+    profile = decode_profile(cfg, model, prompt)
     decode_s = decode_ms / 1e3
+    # the eager loop: the same steps, each launched from Python
+    eager, _, eager_ms, eager_host_s = timed_generate(
+        cfg, model, prompt, new, cuda_graph=False)
+    graph_equals_eager = torch.equal(eager, out)
+    del eager
 
     shape_ok = (tuple(out.shape) == (batch, prompt_len + new)
                 and bool((out[:, :prompt_len] == prompt).all().item())
@@ -641,6 +745,11 @@ def slice_phase(gen, device, device_name) -> dict:
         "decode_host_s": decode_host_s,
         "decode_tok_s": batch * (new - 1) / decode_s,
         "decode_step_ms": decode_ms / (new - 1),
+        "eager_decode_s": eager_ms / 1e3, "eager_decode_host_s": eager_host_s,
+        "eager_decode_step_ms": eager_ms / (new - 1),
+        "graph_speedup": eager_ms / decode_ms,
+        "graph_equals_eager": graph_equals_eager,
+        "graph_step_profile": profile,
         "peak_mem_gb": peak_mem / 1e9, "streamed_weight_gb": streamed / 1e9,
         "int4_launches": launches, "expected_launches": expected,
         "prefill_logits_max_rel_err": logits_rel, "logits_finite": finite,
@@ -654,9 +763,10 @@ def slice_phase(gen, device, device_name) -> dict:
     if launches != expected:
         raise RuntimeError(f"int4_matmul launched {launches} times on the "
                            f"main path, expected {expected}")
-    if not (shape_ok and finite and deterministic):
+    if not (shape_ok and finite and deterministic and graph_equals_eager):
         raise RuntimeError("generate gave malformed or run-to-run varying "
-                           "tokens, or non-finite logits")
+                           "tokens, non-finite logits, or its graph other "
+                           "tokens than its eager loop")
     if logits_rel >= LOGITS_TOL or forced_agreement < MIN_FORCED_AGREEMENT:
         raise RuntimeError(
             f"kernel path and plain path disagree: prefill logits "
@@ -779,6 +889,7 @@ def speculative_phase(model, device) -> dict:
     from kubeflow_tpu_torch.models.speculative import (
         speculative_generate,
         speculative_sample,
+        teacher_forced_gaps,
     )
     from kubeflow_tpu_torch.ops import int4_matmul as i4
 
@@ -793,8 +904,10 @@ def speculative_phase(model, device) -> dict:
         return speculative_generate(cfg, model, draft.cfg, draft, prompt,
                                     new, gamma=GAMMA)
 
-    speculative_generate(cfg, model, draft.cfg, draft, prompt, 2 * GAMMA,
-                         gamma=GAMMA)                      # warm-up
+    # the warm-up, a short call, counts the host syncs of its rounds
+    (_, sync_rounds), spec_syncs, spec_sync_sites = count_syncs(
+        lambda: speculative_generate(cfg, model, draft.cfg, draft, prompt,
+                                     2 * GAMMA, gamma=GAMMA))
     torch.cuda.synchronize()
     # the main path: every int4 launch counted
     i4.launches = 0
@@ -814,17 +927,9 @@ def speculative_phase(model, device) -> dict:
                 and 0 <= int(out.min()) and int(out.max()) < vocab)
     # exactness, teacher forced: the target's kernel path over the emitted
     # sequence in one pass
-    with torch.inference_mode():
-        forced = model(out[:, :-1], cache=model.new_cache(batch))
-        forced = forced[:, prompt_len - 1:].float()        # [B, N, V]
-        emitted = out[:, prompt_len:]
-        top = forced.max(dim=-1).values
-        picked = forced.gather(-1, emitted[..., None])[..., 0]
-        is_argmax = picked == top
-        gap_rel = (top - picked) / forced.abs().max(dim=-1).values
-        argmax_share = is_argmax.float().mean().item()
-        worst_gap = gap_rel.max().item()
-        del forced
+    forced = teacher_forced_gaps(model, out, prompt_len)
+    argmax_share, worst_gap = forced["argmax_share"], forced["max_gap_rel"]
+    emitted = out[:, prompt_len:]
 
     plain, plain_ms = event_timed(lambda: generate(cfg, model, prompt, new))
     same_as_plain = (plain[:, prompt_len:] == emitted).float().mean().item()
@@ -841,9 +946,8 @@ def speculative_phase(model, device) -> dict:
             generator=torch.Generator(device=device).manual_seed(SEED + 5)))
     sample_ok = (tuple(s_out.shape) == (batch, prompt_len + new)
                  and 0 <= int(s_out.min()) and int(s_out.max()) < vocab)
-    _, spec_syncs, spec_sync_sites = count_syncs(spec)
     _, plain_syncs, _ = count_syncs(lambda: generate(cfg, model, prompt,
-                                                     new))
+                                                     2 * GAMMA))
     tokens = batch * new
     res = {
         "phase": "speculative", "target": "llama2-7b int4",
@@ -856,8 +960,9 @@ def speculative_phase(model, device) -> dict:
         "int4_launches": launches, "expected_launches": expected,
         "speculative_ms": spec_ms, "speculative_tok_s": tokens / spec_ms * 1e3,
         "plain_ms": plain_ms, "plain_tok_s": tokens / plain_ms * 1e3,
-        "host_syncs": spec_syncs, "host_sync_sites": spec_sync_sites,
-        "plain_host_syncs": plain_syncs,
+        # of the short calls: 2 x gamma new tokens each
+        "host_syncs": spec_syncs, "host_sync_rounds": sync_rounds,
+        "host_sync_sites": spec_sync_sites, "plain_host_syncs": plain_syncs,
         "same_tokens_as_plain_generate": same_as_plain,
         "teacher_forced_argmax_share": argmax_share,
         "teacher_forced_max_gap_rel": worst_gap,
@@ -933,10 +1038,12 @@ def _errors(got, ref) -> dict:
             "rms_rel": (diff.norm() / ref.norm()).item()}
 
 
-def flash_phase(gen, long_gen, d256_gen, device, peak, flush) -> dict:
+def flash_phase(gen, long_gen, d256_gen, path_gen, device, peak,
+                flush) -> dict:
     """Each flash kernel against its plain version at every case, the
-    long-context cases drawn from `long_gen` and the head-dim-256 cases
-    from `d256_gen`; returns {(batch, seq, heads, kv heads, head dim,
+    long-context cases drawn from `long_gen`, the head-dim-256 cases
+    from `d256_gen`, and entry()'s and the demo's from `path_gen`;
+    returns {(batch, seq, heads, kv heads, head dim,
     causal): {kernel name: result}}."""
     import torch
     import torch.nn.functional as F
@@ -947,6 +1054,7 @@ def flash_phase(gen, long_gen, d256_gen, device, peak, flush) -> dict:
     cases = [(gen, case) for case in FLASH_SHAPES + [TRAIN_CASE]]
     cases += [(long_gen, case) for case in FLASH_LONG_SHAPES]
     cases += [(d256_gen, case) for case in FLASH_D256_SHAPES + [GEMMA_CASE]]
+    cases += [(path_gen, case) for case in FLASH_ENTRY_DEMO_SHAPES]
     for draw, case in cases:
         *shape, causal = case
         shape = tuple(shape)
@@ -1759,6 +1867,292 @@ def moe_serve_phase(device) -> dict:
     return res
 
 
+def decode_bench_phase(device, smi: str) -> dict:
+    """`python -m kubeflow_tpu_torch.bench --decode` in bf16, int8 and int4
+    (BENCH_CHIP at batch 16, prompt 128, 256 new tokens): each mode's
+    bench line through `bench.run_decode`, its kernel launches counted
+    (int4: (4 x 10 + 1) x 256 a `generate` call, the warm-up's included,
+    credited by the graph's replays; bf16 and int8 none), and the bench's
+    graphed warm-up call against the eager loop on the same model and
+    prompt, greedy tokens bit for bit.  For bf16 also one sampled call
+    (T 0.8, top-k 50, seeded generator) under the graph: in range."""
+    import torch
+
+    from kubeflow_tpu_torch import bench
+    from kubeflow_tpu_torch.models.configs import BENCH_CHIP
+    from kubeflow_tpu_torch.models.generate import generate
+    from kubeflow_tpu_torch.ops import launch_counts
+
+    per_call = (4 * BENCH_CHIP.num_layers + 1) * DECODE_BENCH_NEW
+    out = {}
+    for quant in ("", "int8", "int4"):
+        launch_counts.restore({k: 0 for k in launch_counts.snapshot()})
+        record, (cfg, model, prompt, graphed) = bench.run_decode(
+            ["--decode"] + ([f"--{quant}"] if quant else []))
+        launches = launch_counts.snapshot()
+        calls = record["detail"]["timed_calls"] + 1
+        expected = {k: 0 for k in launches}
+        if quant == "int4":
+            expected["int4_matmul"] = calls * per_call
+        new = record["detail"]["new_tokens"]
+        eager, eager_ms = event_timed(lambda: generate(
+            cfg, model, prompt, new, cuda_graph=False))
+        same = torch.equal(graphed, eager)
+        sampled = {}
+        if not quant:
+            draw = generate(cfg, model, prompt, new, temperature=0.8,
+                            top_k=50, generator=torch.Generator(
+                                device=device).manual_seed(SEED + 22))
+            sampled = {"sampled_in_range": bool(
+                0 <= int(draw.min()) and int(draw.max()) < cfg.vocab_size)}
+        del model, graphed, eager
+        torch.cuda.empty_cache()
+        batch = record["detail"]["batch"]
+        res = {"phase": "decode_bench", "mode": quant or "bf16",
+               "metric": record["metric"], "tok_s": record["value"],
+               "roofline_fraction": record["roofline_fraction"],
+               "vs_baseline": record["vs_baseline"],
+               "hbm_roofline_tok_s": record["detail"]["hbm_roofline_tok_s"],
+               # one eager call, its prefill included, as the bench's
+               "eager_tok_s": batch * new / eager_ms * 1e3,
+               "generate_calls": calls, "launches": launches,
+               "expected_launches": expected,
+               "graph_equals_eager": same, **sampled, "record": record,
+               "nvidia_smi": smi}
+        emit(res)
+        out[quant or "bf16"] = res
+        if launches != expected:
+            raise RuntimeError(f"decode bench {res['mode']}: launches "
+                               f"{launches}, expected {expected}")
+        if not same or sampled.get("sampled_in_range") is False:
+            raise RuntimeError(f"decode bench {res['mode']}: the graph's "
+                               f"greedy tokens differ from the eager loop's, "
+                               f"or sampled tokens are out of range")
+    return out
+
+
+def vit_phase(device, smi: str) -> dict:
+    """`python -m kubeflow_tpu_torch.bench --vit`: ViT-B/16 at batch 256,
+    AdamW as optax.adamw(1e-4), a warm-up step and the best of 3 windows
+    of VIT_STEPS steps; images/s and MFU printed, every window's loss
+    finite and the last below the first.  The path runs no hand-written
+    kernel (196 tokens take the einsum attention), so the flash counts
+    must stay 0."""
+    from kubeflow_tpu_torch import bench
+    from kubeflow_tpu_torch.ops import launch_counts
+
+    launch_counts.restore({k: 0 for k in launch_counts.snapshot()})
+    record = bench.main_vit(["--vit", str(VIT_STEPS)])
+    launches = launch_counts.snapshot()
+    losses = record["detail"]["window_losses"]
+    res = {"phase": "vit", "metric": record["metric"],
+           "mfu": record["value"],
+           "images_per_s": record["detail"]["images_per_s"],
+           "window_losses": losses, "launches": launches,
+           "nvidia_smi": smi}
+    emit(res)
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
+            and not any(launches.values())):
+        raise RuntimeError(f"ViT bench: losses {losses} not finite or not "
+                           f"falling, or kernels launched {launches}")
+    return res
+
+
+def llama13b_phase(device, smi: str) -> dict:
+    """kubeflow_tpu_torch/examples/llama13b_decode.py: Llama-2-13B at full
+    width and depth, int4, batch 16, prompt 128, 128 new tokens.  Its
+    record (a warm-up call and 3 timed, all through the int4 kernel:
+    (4 x 40 + 1) x 128 launches each, credited by replay), then on the
+    same model a profiled 10-step call (`decode_profile`) and the kernel path
+    against the plain path: prefill logits within the slice phase's 2e-2
+    and >= 0.95 of the kernel path's tokens picked by the plain path
+    teacher forced."""
+    import torch
+
+    from kubeflow_tpu_torch.examples import llama13b_decode as ex
+    from kubeflow_tpu_torch.models.generate import generate
+    from kubeflow_tpu_torch.ops import int4_matmul as i4
+
+    t0 = time.perf_counter()
+    cfg, model, streamed = ex.build(device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    i4.launches = 0
+    record = ex.measure(cfg, model)
+    launches = i4.launches
+    expected = (ex.TIMED_CALLS + 1) * (4 * cfg.num_layers + 1) * ex.NEW
+    gen = torch.Generator(device=device).manual_seed(SEED + 30)
+    prompt = torch.randint(0, cfg.vocab_size, (ex.BATCH, ex.PROMPT),
+                           generator=gen, device=device)
+    out = generate(cfg, model, prompt, ex.NEW)
+    profile = decode_profile(cfg, model, prompt)
+    with torch.inference_mode():
+        logits_k = model(prompt, cache=model.new_cache(ex.BATCH))
+        set_plain(model, True)
+        logits_p = model(prompt, cache=model.new_cache(ex.BATCH))
+        logits_rel = ((logits_k - logits_p).abs().max()
+                      / logits_p.abs().max()).item()
+        finite = bool(torch.isfinite(logits_k).all().item())
+        del logits_k, logits_p
+        forced = model(out[:, :-1], cache=model.new_cache(ex.BATCH))
+        forced_agreement = (forced[:, ex.PROMPT - 1:].argmax(-1)
+                            == out[:, ex.PROMPT:]).float().mean().item()
+        del forced
+        set_plain(model, False)
+    del model
+    torch.cuda.empty_cache()
+    res = {"phase": "llama13b", "record": record, "setup_s": setup_s,
+           "streamed_int4_gb": streamed / 1e9, "int4_launches": launches,
+           "expected_launches": expected, "graph_step_profile": profile,
+           "prefill_logits_max_rel_err": logits_rel,
+           "logits_finite": finite,
+           "teacher_forced_agreement": forced_agreement,
+           "nvidia_smi": smi}
+    emit(res)
+    if launches != expected:
+        raise RuntimeError(f"13B decode launched int4_matmul {launches} "
+                           f"times, expected {expected}")
+    if (not finite or logits_rel >= LOGITS_TOL
+            or forced_agreement < MIN_FORCED_AGREEMENT):
+        raise RuntimeError(
+            f"13B: kernel path and plain path disagree: prefill logits "
+            f"max_rel_err {logits_rel} (limit {LOGITS_TOL}), teacher-forced "
+            f"agreement {forced_agreement} (limit {MIN_FORCED_AGREEMENT})")
+    return res
+
+
+def speculative_demo_phase(device, smi: str) -> dict:
+    """kubeflow_tpu_torch/examples/speculative_demo.py: the BENCH_CHIP-shaped
+    target and its 2-layer draft trained DEMO_STEPS steps each on the
+    affine stream, on the flash kernels (exactly 20/10/10 launches a
+    target step and 4/2/2 a draft step); then greedy plain (graphed)
+    against speculative decode at batch 4, prompt 64, 256 new tokens,
+    gamma 4: the speculative phase's token gates on the speculative
+    tokens, teacher forced; rounds against the ideal 64 and the speedup
+    (one timed call of each after its warm-up) printed.  Then the demo's
+    --sample sweep on the same pair (graphed
+    sampled `generate` against `speculative_sample` at T 0.8, gamma 2, 4
+    and 6), each timed once after its warm-up: every acceptance rate
+    within [0, (gamma - 1) / gamma] and the rounds at least
+    ceil(255 / gamma); speedups printed."""
+    from kubeflow_tpu_torch.examples import speculative_demo as ex
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    for key in fa.launches:
+        fa.launches[key] = 0
+    pair = ex.train_pair(DEMO_STEPS, device)
+    trained = dict(fa.launches)
+    # a step of the 10-layer target 20/10/10 (the remat recompute runs the
+    # forward again), of the 2-layer draft 4/2/2
+    expected = {"fwd": DEMO_STEPS * (20 + 4), "dkv": DEMO_STEPS * (10 + 2),
+                "dq": DEMO_STEPS * (10 + 2)}
+    greedy = ex.greedy(*pair, DEMO_STEPS, timed=1)
+    detail = greedy["detail"]
+    sampled = ex.sample(*pair, DEMO_STEPS, timed=1)
+    bad_sweep = {g: r for g, r in sampled["detail"]["per_gamma"].items()
+                 if not (0.0 <= r["accept_rate"] <= (g - 1) / g
+                         and r["rounds_for_256"] >= math.ceil(
+                             (ex.NEW - 1) / g))}
+    res = {"phase": "speculative_demo", "greedy": greedy, "sample": sampled,
+           "train_flash_launches": trained,
+           "expected_train_flash_launches": expected, "nvidia_smi": smi}
+    emit(res)
+    if trained != expected:
+        raise RuntimeError(f"demo training launched {trained} flash "
+                           f"kernels, expected {expected}")
+    if bad_sweep:
+        raise RuntimeError(f"demo --sample: acceptance or rounds out of "
+                           f"their range at {bad_sweep}")
+    if (detail["teacher_forced_argmax_share"] < SPEC_MIN_FORCED
+            or detail["teacher_forced_max_gap_rel"] > SPEC_GAP_TOL):
+        raise RuntimeError(
+            f"demo: speculative tokens are not the target's greedy choice: "
+            f"argmax share {detail['teacher_forced_argmax_share']} (limit "
+            f"{SPEC_MIN_FORCED}), worst gap "
+            f"{detail['teacher_forced_max_gap_rel']} (limit {SPEC_GAP_TOL})")
+    return res
+
+
+def entry_phase(device, smi: str) -> dict:
+    """kubeflow_tpu_torch/entry.py:entry(): LLAMA2_350M at max_seq_len 512
+    on (2, 512) tokens of ones; its forward must launch the flash forward
+    exactly 24 times (one a layer, head dim 64) and nothing else, and its
+    logits (and those of random tokens) must match the einsum path's
+    (attention_impl "xla", the same weights): cross-entropy against the
+    next tokens within the train phase's 1e-3 relative and logits cosine
+    >= 0.99."""
+    import torch
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.entry import entry
+    from kubeflow_tpu_torch.models.transformer import Transformer
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    forward, (model, tokens) = entry()
+    forward(model, tokens)                                # warm-up
+    for key in fa.launches:
+        fa.launches[key] = 0
+    (logits, ms) = event_timed(lambda: forward(model, tokens))
+    launches = dict(fa.launches)
+    plain = Transformer(model.cfg.with_(attention_impl="xla"), device)
+    plain.load_state_dict(model.state_dict())
+    gen = torch.Generator(device=device).manual_seed(SEED + 40)
+    randoms = torch.randint(0, model.cfg.vocab_size, tokens.shape,
+                            generator=gen, device=device)
+    compare = {}
+    for name, toks in (("ones", tokens), ("random", randoms)):
+        got = logits if name == "ones" else forward(model, toks)
+        want = forward(plain, toks)
+        ce = [F.cross_entropy(x[:, :-1].flatten(0, 1), toks[:, 1:].flatten())
+              .item() for x in (got, want)]
+        compare[name] = {
+            "loss_rel_err": abs(ce[0] - ce[1]) / abs(ce[1]),
+            "logits_cosine": F.cosine_similarity(
+                got.flatten(), want.flatten(), dim=0).item(),
+            "max_abs_err": (got - want).abs().max().item(),
+            "finite": bool(torch.isfinite(got).all().item())}
+    del model, plain, logits
+    torch.cuda.empty_cache()
+    expected = {"fwd": 24, "dkv": 0, "dq": 0}
+    res = {"phase": "entry", "model": "llama2-350m", "shape": [2, 512],
+           "forward_ms": ms, "flash_launches": launches,
+           "expected_flash_launches": expected, "vs_einsum": compare,
+           "nvidia_smi": smi}
+    emit(res)
+    if launches != expected:
+        raise RuntimeError(f"entry() launched {launches} flash kernels, "
+                           f"expected {expected}")
+    bad = {k: v for k, v in compare.items()
+           if not (v["finite"] and v["loss_rel_err"] <= TRAIN_LOSS_TOL
+                   and v["logits_cosine"] >= TRAIN_MIN_COSINE)}
+    if bad:
+        raise RuntimeError(f"entry(): flash path against the einsum path "
+                           f"{bad} (limits: loss {TRAIN_LOSS_TOL} relative, "
+                           f"cosine {TRAIN_MIN_COSINE})")
+    return res
+
+
+def serve_model_phase(smi: str) -> dict:
+    """`python -m kubeflow_tpu_torch.examples.serve_model` on the card:
+    TINY trained 5 steps, then plain decode (graphed), int8 decode
+    (token agreement > 0.8), greedy speculative equal to plain greedy,
+    and speculative sampling; the example must return 0 and print
+    RESULT: OK last."""
+    from kubeflow_tpu_torch.examples import serve_model
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve_model.main([])
+    lines = out.getvalue().strip().splitlines()
+    res = {"phase": "serve_model", "rc": rc, "lines": lines,
+           "nvidia_smi": smi}
+    emit(res)
+    if rc != 0 or not lines or lines[-1] != "RESULT: OK":
+        raise RuntimeError(f"serve_model on the card: rc {rc}, last line "
+                           f"{lines[-1:]}")
+    return res
+
+
 def _free_port() -> int:
     import socket
 
@@ -2462,14 +2856,16 @@ def notebook_train_phase(device, device_name, smi: str) -> dict:
 def flash_kernel_lines(flash_results, launches: dict, moe_launches: dict,
                        mesh_launches: dict, gemma_launches: dict,
                        long_context: dict, pipeline_steps: dict,
-                       runtime_loop_launches: dict) -> list:
+                       runtime_loop_launches: dict, entry_launches: dict,
+                       demo_launches: dict) -> list:
     """The kernels line's flash entries.  Head dims 64 and 128: the
     training-shape medians times the BENCH_CHIP step's launches, and beside
     them the launches of one BENCH_MOE step, one sharded (mesh) BENCH_CHIP
     step, one pipelined step of each schedule (both stages), one step
-    of each long-context mode and one step of the runtime loop
-    (notebook_train).  Head dim 256 (entries named *_d256): the
-    Gemma-shape medians times the Gemma step's launches."""
+    of each long-context mode, one step of the runtime loop
+    (notebook_train), one entry() forward (head dim 64) and the speculative
+    demo's training (both models, every step).  Head dim 256 (entries named
+    *_d256): the Gemma-shape medians times the Gemma step's launches."""
     entries = []
     for name, key in (("flash_fwd", "fwd"), ("flash_bwd_dkv", "dkv"),
                       ("flash_bwd_dq", "dq")):
@@ -2512,6 +2908,8 @@ def flash_kernel_lines(flash_results, launches: dict, moe_launches: dict,
                         str(seq): res["flash_launches"][key]
                         for seq, res in long_context.items()},
                     runtime_loop_step_launches=runtime_loop_launches[key],
+                    entry_forward_launches=entry_launches[key],
+                    speculative_demo_train_launches=demo_launches[key],
                     basis="per-launch medians at the training shape times "
                           "one training step's launches")
             entries.append(entry)
@@ -2615,35 +3013,58 @@ def main() -> int:
                            f"spilling {spilled} or without HGMMA "
                            f"{no_tensor_cores}")
 
+    times = {"build": build_s}
+
+    def timed(name, fn, *args):
+        """fn(*args), its wall seconds kept under `name`."""
+        t = time.perf_counter()
+        out = fn(*args)
+        times[name] = time.perf_counter() - t
+        return out
+
     gen = torch.Generator(device=device).manual_seed(SEED)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=device)
     peak = GPU_PEAKS.get(device_name)
     # the edge shapes draw from their own generator, so the slice draws
     # the same weights from gen as before
-    results = kernel_phase(
+    results = timed(
+        "kernel", kernel_phase,
         gen, torch.Generator(device=device).manual_seed(SEED + 2),
-        torch.Generator(device=device).manual_seed(SEED + 3), device,
+        torch.Generator(device=device).manual_seed(SEED + 3),
+        torch.Generator(device=device).manual_seed(SEED + 16), device,
         peak, flush)
     # its own generators, so the slice draws the same weights as before
-    flash_results = flash_phase(
+    flash_results = timed(
+        "flash", flash_phase,
         torch.Generator(device=device).manual_seed(SEED + 1),
         torch.Generator(device=device).manual_seed(SEED + 15),
-        torch.Generator(device=device).manual_seed(SEED + 10), device, peak,
+        torch.Generator(device=device).manual_seed(SEED + 10),
+        torch.Generator(device=device).manual_seed(SEED + 17), device, peak,
         flush)
-    sl, model = slice_phase(gen, device, device_name)
-    sp = speculative_phase(model, device)
+    sl, model = timed("slice", slice_phase, gen, device, device_name)
+    sp = timed("speculative", speculative_phase, model, device)
     del model
     torch.cuda.empty_cache()
-    tr = train_phase(device, device_name, flash_results, flush)
-    gemma = gemma_train_phase(device, device_name, smi, flash_results,
-                              flush)
+    l13 = timed("llama13b", llama13b_phase, device, smi)
+    db = timed("decode_bench", decode_bench_phase, device, smi)
+    tr = timed("train", train_phase, device, device_name, flash_results,
+               flush)
+    gemma = timed("gemma_train", gemma_train_phase, device, device_name,
+                  smi, flash_results, flush)
     del flush
-    long_context = long_context_phase(device)
-    mt = moe_train_phase(device, device_name)
-    moe_serve_phase(device)
-    mesh = mesh_train_phase(device, smi, tr["step_time_s"])
-    pipe = pipeline_train_phase(device, smi)
-    notebook = notebook_train_phase(device, device_name, smi)
+    long_context = timed("long_context", long_context_phase, device)
+    mt = timed("moe_train", moe_train_phase, device, device_name)
+    timed("moe_serve", moe_serve_phase, device)
+    mesh = timed("mesh_train", mesh_train_phase, device, smi,
+                 tr["step_time_s"])
+    pipe = timed("pipeline_train", pipeline_train_phase, device, smi)
+    notebook = timed("notebook_train", notebook_train_phase, device,
+                     device_name, smi)
+    demo = timed("speculative_demo", speculative_demo_phase, device, smi)
+    timed("vit", vit_phase, device, smi)
+    ent = timed("entry", entry_phase, device, smi)
+    timed("serve_model", serve_model_phase, smi)
+    emit({"phase_seconds": times, "since_start_s": time.perf_counter() - t0})
 
     totals = main_path_totals(results, sl["int4_launches"])
     emit({"kernels": [{
@@ -2653,6 +3074,9 @@ def main() -> int:
         "launches": sl["int4_launches"],
         "speculative_launches": sp["int4_launches"],
         "speculative_rounds": sp["rounds"],
+        "decode_bench_int4_launches": db["int4"]["launches"]["int4_matmul"],
+        "decode_bench_int4_calls": db["int4"]["generate_calls"],
+        "llama13b_launches": l13["int4_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in results.values()),
         "max_rel_err": max(r["max_rel_err"] for r in results.values()),
         **totals, "library_call": "torch._weight_int4pack_mm",
@@ -2664,7 +3088,9 @@ def main() -> int:
                             mt["flash_launches"], mesh["flash_launches"],
                             gemma["flash_launches"], long_context,
                             pipe["schedules"],
-                            notebook["flash_launches_per_step"])})
+                            notebook["flash_launches_per_step"],
+                            ent["flash_launches"],
+                            demo["train_flash_launches"])})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                  "count": torch.cuda.device_count()}})

@@ -1,8 +1,12 @@
-"""Training benchmark of the port: the BENCH_CHIP step on one card.
+"""Benchmarks of the port on one card: the BENCH_CHIP training step, KV-cache
+decode and the ViT-B/16 training step.
 
     python -m kubeflow_tpu_torch.bench [steps] [--moe]
                                        [--long-context[=8192]] [--best-of]
                                        [--cpu] [--profile]
+    python -m kubeflow_tpu_torch.bench --decode [steps] [--int8 | --int4]
+                                       [--cpu]
+    python -m kubeflow_tpu_torch.bench --vit [steps] [--cpu]
 
 The port of `bench.py`'s default, `--moe` and `--long-context` modes:
 `BENCH_CHIP` at batch 40 x seq 2048 (the reference's tokens per step), or
@@ -26,6 +30,29 @@ metric name, since that is what it measures): a smoke run of the same
 code, whose `value` and roofline fields are null, since a CPU run
 measures no card.
 
+--decode (`main_decode`, the twin of `bench.py --decode`): `generate` on
+`decode_config(BENCH_CHIP)` at batch 16, prompt 128, 256 new tokens,
+max_seq_len 384, with bf16 weights or, with --int8/--int4, the bf16 tree
+quantized as models/quant.py does; the single-token steps replay one
+captured CUDA graph.  One warm-up call, then the best of max(1,
+steps // 4) calls (default steps 12), each on a fresh seeded prompt.
+`value` is the aggregate tokens/s (metric `decode_tok_s_h100`, `_int8`
+or `_int4`), `vs_baseline` its fraction of the memory roofline (the
+streamed weights and the whole static KV cache read once a step at the
+card's rate; `runtime/roofline.py:decode_estimate`, the bytes counted off
+the tree as `quantized_bytes` gives them, the embedding left out unless
+tied).  --cpu runs TINY at batch 2, prompt 8, 16 new tokens, one timed
+call, with int4 off (TINY's contract dims are below its 128-row rule).
+
+--vit (`main_vit`, the twin of `bench.py --vit`): the ViT-B/16 training
+step (models/vit.py) at batch 256 on bf16 images and random labels from
+a seeded generator, AdamW as optax.adamw(1e-4); one warm-up step, then
+the best of 3 windows of `steps` steps (default 10).  `value` is the MFU
+against the card's bf16 peak by `vit_flops_per_image` (metric
+`train_mfu_h100_vit_b16`); no memory model exists for the encoder, so
+`roofline_fraction` is the MFU.  --cpu runs VIT_TINY at batch 4, one
+window.
+
 --profile adds one more step under torch.profiler and puts the card's
 time by kernel into `detail["profile"]`: the device time summed over
 kernels against the step's wall time (the rest is the card's idle
@@ -45,7 +72,13 @@ from typing import Optional
 import torch
 
 from .models.configs import BENCH_CHIP, BENCH_MOE, TINY
-from .models.train import default_optimizer, mfu, setup_training, timed_steps
+from .models.train import (
+    adamw,
+    default_optimizer,
+    mfu,
+    setup_training,
+    timed_steps,
+)
 from .runtime.roofline import train_estimate
 
 
@@ -126,6 +159,24 @@ def long_context_seq(argv: list) -> int:
     return 0
 
 
+def _device(on_cpu: bool) -> tuple:
+    """(device, its name) of a run: the CPU with --cpu, else the first
+    card, with TF32 off."""
+    if on_cpu:
+        return torch.device("cpu"), "cpu"
+    if not torch.cuda.is_available():
+        raise SystemExit("kubeflow_tpu_torch.bench: no CUDA device; "
+                         "pass --cpu for the CPU smoke run")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0), torch.cuda.get_device_name(0)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def main(argv: Optional[list] = None) -> dict:
     argv = sys.argv[1:] if argv is None else list(argv)
     numeric = [a for a in argv if a.isdigit()]
@@ -134,18 +185,9 @@ def main(argv: Optional[list] = None) -> dict:
     best_of = "--best-of" in argv
     long_context = 0 if on_cpu else long_context_seq(argv)
     moe = "--moe" in argv and not on_cpu and not long_context
-    if on_cpu:
-        device, name = torch.device("cpu"), "cpu"
-        config, batch, seq = TINY, 4, 128
-    else:
-        if not torch.cuda.is_available():
-            raise SystemExit("kubeflow_tpu_torch.bench: no CUDA device; "
-                             "pass --cpu for the CPU smoke run")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        device = torch.device("cuda", 0)
-        name = torch.cuda.get_device_name(0)
-        config, batch, seq = workload(moe, long_context)
+    device, name = _device(on_cpu)
+    config, batch, seq = ((TINY, 4, 128) if on_cpu
+                          else workload(moe, long_context))
 
     setup = setup_training(config, device=device,
                            optimizer=default_optimizer(mu_dtype="bfloat16"))
@@ -204,5 +246,173 @@ def main(argv: Optional[list] = None) -> dict:
     return record
 
 
+def _cast(tree: dict, dtype) -> dict:
+    return {k: _cast(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in tree.items()}
+
+
+def decode_model(config, quant: str, device, seed: int = 0):
+    """(decode config, port Transformer, the tree it was loaded from) for
+    the decode bench: `config`'s decode layout drawn by init_params from
+    a generator seeded `seed`, every leaf cast to bf16 (decode streams
+    bf16 weights, as the reference's bench casts them), then quantized
+    when `quant` is "int8" or "int4"."""
+    from .models.convert import flax_tree, params_from_flax
+    from .models.generate import decode_config
+    from .models.quant import quantize_params, quantize_params_int4
+    from .models.transformer import Transformer, init_params
+
+    cfg = decode_config(config)
+    full = Transformer(cfg, device=device)
+    init_params(full, torch.Generator(device=device).manual_seed(seed))
+    tree = _cast(flax_tree(full), torch.bfloat16)
+    del full
+    if quant == "int8":
+        tree = quantize_params(tree)
+    elif quant == "int4":
+        tree = quantize_params_int4(tree)
+    cfg = cfg.with_(param_dtype="bfloat16", weight_dtype=quant)
+    return cfg, params_from_flax(tree, cfg, device), tree
+
+
+def main_decode(argv: list) -> dict:
+    record, _ = run_decode(argv)
+    print(json.dumps(record), flush=True)
+    return record
+
+
+def run_decode(argv: list) -> tuple:
+    """`--decode` without the print: (record, (decode config, model,
+    warm-up prompt, the warm-up call's tokens))."""
+    from .models.configs import BENCH_CHIP
+    from .models.generate import generate
+    from .models.quant import quantized_bytes
+    from .runtime.roofline import decode_estimate
+
+    numeric = [a for a in argv if a.isdigit()]
+    num_steps = int(numeric[0]) if numeric else 12
+    on_cpu = "--cpu" in argv
+    device, name = _device(on_cpu)
+    quant = "int8" if "--int8" in argv else (
+        "int4" if "--int4" in argv else "")
+    config, batch, prompt_len, new_tokens = BENCH_CHIP, 16, 128, 256
+    if on_cpu:
+        config, batch, prompt_len, new_tokens = TINY, 2, 8, 16
+        quant = "" if quant == "int4" else quant
+    config = config.with_(max_seq_len=prompt_len + new_tokens)
+    cfg, model, tree = decode_model(config, quant, device)
+
+    def prompt(seed: int) -> torch.Tensor:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                             generator=gen, device=device)
+
+    warm_prompt = prompt(0)
+    warm = generate(cfg, model, warm_prompt, new_tokens)      # warm-up
+    best, timed = 0.0, 1 if on_cpu else max(1, num_steps // 4)
+    for i in range(timed):
+        p = prompt(1000 + i)
+        _sync(device)
+        t0 = time.perf_counter()
+        out = generate(cfg, model, p, new_tokens)
+        _sync(device)
+        best = max(best, batch * new_tokens / (time.perf_counter() - t0))
+    if tuple(out.shape) != (batch, prompt_len + new_tokens):
+        raise RuntimeError(f"generate returned {tuple(out.shape)}")
+
+    exclude = () if cfg.tie_embeddings else ("embed",)
+    param_bytes = quantized_bytes(tree, exclude=exclude)
+    est = decode_estimate(cfg, batch, name, param_bytes=param_bytes)
+    roofline_tok_s = (None if est.memory_floor_s is None
+                      else batch / est.memory_floor_s)
+    ceiling = est.tokens_per_s_ceiling
+    record = {
+        "metric": "decode_tok_s_h100" + (f"_{quant}" if quant else ""),
+        "value": round(best, 1),
+        "unit": "tokens/s",
+        "vs_baseline": (None if roofline_tok_s is None
+                        else round(best / roofline_tok_s, 4)),
+        "roofline_fraction": (None if ceiling is None
+                              else round(best / ceiling, 4)),
+        "bound": est.bound,
+        "detail": {
+            "model": "tiny-cpu" if on_cpu else "bench-chip-470m",
+            "batch": batch, "prompt_len": prompt_len,
+            "new_tokens": new_tokens,
+            "hbm_roofline_tok_s": _round(roofline_tok_s, 1),
+            "roofline_weight_mb": round(param_bytes / 1e6, 1),
+            "roofline_kv_mb": round((est.hbm_bytes - param_bytes) / 1e6, 1),
+            "backend": "cpu" if on_cpu else "cuda",
+            "device": name,
+            "cuda_graph": not on_cpu,
+            "timed_calls": timed,
+        },
+    }
+    return record, (cfg, model, warm_prompt, warm)
+
+
+def main_vit(argv: list) -> dict:
+    from .models.vit import (
+        VIT_B16,
+        VIT_TINY,
+        ViT,
+        init_vit_params,
+        vit_flops_per_image,
+        vit_train_step,
+    )
+    from .runtime.roofline import GPU_PEAKS
+
+    numeric = [a for a in argv if a.isdigit()]
+    num_steps = int(numeric[0]) if numeric else 10
+    on_cpu = "--cpu" in argv
+    device, name = _device(on_cpu)
+    cfg, batch = (VIT_TINY, 4) if on_cpu else (VIT_B16, 256)
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = ViT(cfg, device)
+    init_vit_params(model, gen)
+    images = torch.randn((batch, cfg.image_size, cfg.image_size, 3),
+                         generator=gen, device=device).to(torch.bfloat16)
+    labels = torch.randint(0, cfg.num_classes, (batch,), generator=gen,
+                           device=device)
+    optimizer = adamw(1e-4)
+    optimizer.init(list(model.parameters()))
+    vit_train_step(model, optimizer, images, labels)     # warm-up
+    _sync(device)
+    best, losses = 0.0, []
+    for _ in range(1 if on_cpu else 3):
+        t0 = time.perf_counter()
+        for _ in range(num_steps):
+            loss = vit_train_step(model, optimizer, images, labels)
+        losses.append(float(loss))        # the host read closes the window
+        best = max(best, batch * num_steps / (time.perf_counter() - t0))
+    peak = GPU_PEAKS.get(name)
+    achieved = (None if peak is None else vit_flops_per_image(cfg) * best
+                / (peak.bf16_tflops * 1e12))
+    record = {
+        "metric": "train_mfu_h100_vit_b16",
+        "value": _round(achieved, 4),
+        "unit": "fraction",
+        "vs_baseline": None,
+        "roofline_fraction": _round(achieved, 4),
+        "bound": None if peak is None else "compute",
+        "detail": {
+            "model": "vit-tiny-cpu" if on_cpu else "vit-b16",
+            "images_per_s": round(best, 1),
+            "batch": batch,
+            "final_loss": round(losses[-1], 4),
+            "window_losses": [round(v, 4) for v in losses],
+            "backend": "cpu" if on_cpu else "cuda",
+            "device": name,
+        },
+    }
+    print(json.dumps(record), flush=True)
+    return record
+
+
 if __name__ == "__main__":
-    main()
+    if "--decode" in sys.argv:
+        main_decode(sys.argv[1:])
+    elif "--vit" in sys.argv:
+        main_vit(sys.argv[1:])
+    else:
+        main()

@@ -11,7 +11,9 @@ kernel_scale}, norm `scale`, and a MoE layer's `moe/router/kernel` [D, E]
 with `moe/experts/{gate,up,down}` stacked over the experts ([E, D, M],
 [E, M, D]; int8 scales [E, 1, M]).  A stacked `layers` subtree (leading
 [L] axis, the reference's scan_layers=True layout) is unrolled on the
-way in.  `flax_tree` is the inverse walk, and `opt_state_from_optax`
+way in.  `load_flax_tree` loads the trees whose paths are already the
+port's names (the ViT's, `vit_params_from_flax`, and the MNIST MLP's).
+`flax_tree` is the inverse walk, and `opt_state_from_optax`
 carries the reference's AdamW state across beside the parameters, so a
 reference run can be continued in the port.
 """
@@ -74,6 +76,34 @@ def params_from_flax(params: Mapping, cfg: TransformerConfig,
     return model
 
 
+def load_flax_tree(module: torch.nn.Module, params: Mapping):
+    """Load a flax param tree whose paths are `module`'s parameter names,
+    `block_0/q/kernel` as `block_0.q.kernel` (the ViT's and the MNIST
+    MLP's trees); a missing, extra or misshapen leaf raises.  Returns
+    `module`."""
+    flat = {}
+
+    def walk(node, prefix):
+        for key, val in node.items():
+            name = f"{prefix}.{key}" if prefix else key
+            if isinstance(val, Mapping):
+                walk(val, name)
+            else:
+                flat[name] = to_tensor(val)
+
+    walk(params, "")
+    module.load_state_dict(flat, strict=True)
+    return module
+
+
+def vit_params_from_flax(params: Mapping, cfg, device="cuda"):
+    """Build the port's ViT for `cfg` (a models.vit.ViTConfig) and load the
+    reference ViT's flax param tree into it."""
+    from .vit import ViT
+
+    return load_flax_tree(ViT(cfg, device), params)
+
+
 def flax_tree(model: Transformer) -> dict:
     """A port model's parameters in the reference's tree layout (what the
     quantizers and `generate` take): `layers.3.x` becomes `layer_3/x`.
@@ -127,5 +157,6 @@ def opt_state_from_optax(opt_state, b1: float = 0.9) -> dict:
             "count": int(np.asarray(adam.count)), "b1_mu": b1_mu}
 
 
-__all__ = ["flax_tree", "opt_state_from_optax", "params_from_flax",
-           "state_dict_from_flax", "to_tensor"]
+__all__ = ["flax_tree", "load_flax_tree", "opt_state_from_optax",
+           "params_from_flax", "state_dict_from_flax", "to_tensor",
+           "vit_params_from_flax"]

@@ -5,12 +5,23 @@ prompt through the decode path in one call, filling the cache, then
 `max_new_tokens - 1` single-token steps follow, each at its global
 position.  The cache is one [B, kvH, max_seq_len, Dh] tensor per layer,
 written in place (models/transformer.py KVCache), where the reference
-threads it functionally through a lax.scan.  Tokens stay on the device
-and no step waits for the host.
+threads it functionally through a lax.scan.
+
+The single-token step (`DecodeStep`) works on fixed buffers: the last
+token, the cache's fill index on the device and the output tokens.  On a
+CUDA device `generate` captures it once as a CUDA graph and replays the
+graph once a token (`GraphedStep`), the counterpart of the reference's
+one compiled scan: a replay launches the step's several hundred kernels
+without Python, and writes nothing from the host.  The prefill stays
+eager, and on the CPU the whole loop is eager.  `cuda_graph=False` runs
+the eager loop on the card too, for holding the graph against it.
+MoE's "sort" dispatch sizes a buffer from a host read (torch.bincount),
+so a config with it runs the eager loop by choice (`capturable`).
 
 Sampling is greedy (temperature 0) or temperature + top-k from a
-`torch.Generator`; its bits differ from jax.random's, so the two packages
-agree exactly only under greedy decoding.
+`torch.Generator`, which the graph registers; its bits differ from
+jax.random's, so the two packages agree exactly only under greedy
+decoding.
 """
 
 from __future__ import annotations
@@ -20,8 +31,9 @@ from typing import Optional, Union
 
 import torch
 
+from ..ops import int4_matmul, launch_counts
 from .configs import TransformerConfig
-from .transformer import Transformer
+from .transformer import KVCache, Transformer
 
 
 def decode_config(cfg: TransformerConfig,
@@ -130,20 +142,116 @@ def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
         kth = torch.sort(logits, dim=-1).values[:, -top_k][:, None]
         logits = torch.where(logits < kth, float("-inf"), logits)
     probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    # torch.multinomial's draw of one sample (an exponential race), less
+    # its host-side check of the probabilities, which a captured step
+    # cannot make
+    race = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return torch.argmax(probs / race, dim=-1)
+
+
+def capturable(cfg: TransformerConfig) -> bool:
+    """Whether `cfg`'s single-token step can be captured as a CUDA graph:
+    every config but MoE's "sort" dispatch, whose torch.bincount reads
+    the largest expert index back to the host to size its output."""
+    return not (cfg.moe_experts > 0 and cfg.moe_dispatch == "sort")
+
+
+class DecodeStep:
+    """One single-token step of `generate` on fixed buffers.
+
+    `tokens` [B, P + N] int64 holds the sequence; after the prefill its
+    column `cache.index` holds the first sampled token.  A call feeds
+    `last` (the token at the cache's fill index) at that position,
+    samples the next token, writes it into `tokens` at the advanced fill
+    index and into `last`.  Every position and index is read from the
+    device (`cache.pos`), so a captured call replays as the next step."""
+
+    def __init__(self, model: Transformer, cache: KVCache,
+                 tokens: torch.Tensor, temperature: float = 0.0,
+                 top_k: int = 0,
+                 generator: Optional[torch.Generator] = None):
+        self.model, self.cache, self.tokens = model, cache, tokens
+        self.temperature, self.top_k = temperature, top_k
+        self.generator = generator
+        self.last = tokens[:, cache.index].clone()
+
+    def __call__(self) -> None:
+        cache, batch = self.cache, self.last.shape[0]
+        logits = self.model(self.last[:, None],
+                            positions=cache.pos.expand(batch, 1),
+                            cache=cache)
+        tok = sample_token(logits[:, -1, :], self.generator,
+                           self.temperature, self.top_k)
+        self.tokens.index_copy_(1, cache.pos.view(1), tok[:, None])
+        self.last.copy_(tok)
+
+
+class GraphedStep:
+    """A `DecodeStep` captured as one CUDA graph, replayed once a token.
+
+    Construction runs the step once eagerly on a side stream, the warm-up
+    PyTorch asks for before a capture (cuBLAS workspaces, the int4
+    kernel's split-K counters and the kernel libraries come into being
+    outside the graph).  That warm-up is the run's first step, and its
+    token is kept: it advances the cache, so the capture that follows
+    records the step at the next position, and no position is written
+    twice.  The capture runs no kernel: it records them.  What the
+    kernels' wrappers counted during it is taken back and credited at
+    each replay (ops/launch_counts.py), and the cache's host mirror,
+    which the captured call advanced, is set back.  A sampling step's
+    generator is registered with the graph, so each replay draws anew.
+    The graph keeps the int4 kernel's split-K counter buffers it was
+    captured with, so an eager call that replaces them cannot free them
+    under it."""
+
+    def __init__(self, step: DecodeStep):
+        cache = step.cache
+        side = torch.cuda.Stream(device=cache.pos.device)
+        side.wait_stream(torch.cuda.current_stream(cache.pos.device))
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream(cache.pos.device).wait_stream(side)
+        self.step, self.graph = step, torch.cuda.CUDAGraph()
+        if step.temperature > 0.0 and step.generator is not None:
+            self.graph.register_generator_state(step.generator)
+        before, index = launch_counts.snapshot(), cache.index
+        with torch.cuda.graph(self.graph):
+            step()
+        # the int4 kernel's counters live outside the graph's memory pool
+        self.counters = int4_matmul.counter_buffers()
+        self.launches = launch_counts.since(before)
+        launch_counts.restore(before)
+        cache.index = index
+
+    def replay(self, steps: int) -> None:
+        """Run `steps` more steps, one replay each."""
+        cache = self.step.cache
+        rows = cache.k[0].shape[2]
+        if cache.index + steps > rows:
+            raise ValueError(f"cache holds {rows} positions; cannot run "
+                             f"{steps} steps from {cache.index}")
+        for _ in range(steps):
+            self.graph.replay()
+        cache.index += steps
+        launch_counts.credit(self.launches, steps)
 
 
 def generate(cfg: TransformerConfig, params: Union[Mapping, Transformer],
              prompt, max_new_tokens: int, temperature: float = 0.0,
              top_k: int = 0, generator: Optional[torch.Generator] = None,
-             device="cuda") -> torch.Tensor:
+             unroll_layers: bool = True, device="cuda",
+             cuda_graph: bool = True) -> torch.Tensor:
     """prompt [B, P] -> [B, P + max_new_tokens] token ids on `device`.
 
     `params` is a reference-layout param tree (nested dicts of numpy
     arrays or tensors, stacked or unrolled; converted with
-    prepare_decode and params_from_flax) or a port Transformer built for
-    `cfg` itself (a decode config).  Prompts are unpadded and of equal length, and
-    P + max_new_tokens must fit cfg.max_seq_len."""
+    prepare_decode(cfg, params, unroll_layers) and params_from_flax) or a
+    port Transformer built for `cfg` itself (a decode config).  Prompts
+    are unpadded and of equal length, and P + max_new_tokens must fit
+    cfg.max_seq_len.  `generator` takes the reference's `rng`; its
+    `mesh` (tensor-parallel decode) is not ported yet.  On a CUDA device
+    the single-token steps replay one captured graph unless
+    `cuda_graph=False` or the config is not `capturable`."""
     if isinstance(params, Transformer):
         model = params
         if cfg != model.cfg:
@@ -153,30 +261,39 @@ def generate(cfg: TransformerConfig, params: Union[Mapping, Transformer],
     else:
         from .convert import params_from_flax
 
-        cfg, tree = prepare_decode(cfg, params)
+        cfg, tree = prepare_decode(cfg, params, unroll_layers=unroll_layers)
         model = params_from_flax(tree, cfg, device)
     prompt = torch.as_tensor(prompt, device=device).to(torch.int64)
     batch, prompt_len = prompt.shape
-    if prompt_len + max_new_tokens > model.cfg.max_seq_len:
+    total = prompt_len + max_new_tokens
+    if total > model.cfg.max_seq_len:
         raise ValueError(f"prompt({prompt_len}) + new({max_new_tokens}) "
                          f"exceeds max_seq_len {model.cfg.max_seq_len}")
     if generator is None and temperature > 0.0:
         generator = torch.Generator(device=device).manual_seed(0)
+    graphed = (cuda_graph and model.device.type == "cuda"
+               and capturable(model.cfg))
 
     with torch.inference_mode():
         cache = model.new_cache(batch)
+        tokens = torch.zeros((batch, total), dtype=torch.int64,
+                             device=model.device)
+        tokens[:, :prompt_len] = prompt
         logits = model(prompt, cache=cache)
-        tok = sample_token(logits[:, -1, :], generator, temperature, top_k)
-        tokens = [tok]
-        for step in range(max_new_tokens - 1):
-            positions = torch.full((batch, 1), prompt_len + step,
-                                   device=device)
-            logits = model(tok[:, None], positions=positions, cache=cache)
-            tok = sample_token(logits[:, -1, :], generator, temperature,
-                               top_k)
-            tokens.append(tok)
-        return torch.cat([prompt, torch.stack(tokens, dim=1)], dim=1)
+        tokens[:, prompt_len] = sample_token(logits[:, -1, :], generator,
+                                             temperature, top_k)
+        del logits
+        step = DecodeStep(model, cache, tokens, temperature, top_k,
+                          generator)
+        steps = max_new_tokens - 1
+        if graphed and steps > 1:
+            GraphedStep(step).replay(steps - 1)   # the first step warms up
+        else:
+            for _ in range(steps):
+                step()
+        return tokens
 
 
-__all__ = ["decode_config", "fuse_decode_params", "generate",
-           "prepare_decode", "sample_token", "unroll_params"]
+__all__ = ["DecodeStep", "GraphedStep", "capturable", "decode_config",
+           "fuse_decode_params", "generate", "prepare_decode",
+           "sample_token", "unroll_params"]

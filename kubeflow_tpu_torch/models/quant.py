@@ -223,6 +223,37 @@ def quantize_params_int4(params, skip: tuple = ("embed", "router")) -> dict:
     return walk(params)
 
 
+def fill_random(model: nn.Module, generator: torch.Generator,
+                std: float = 0.02) -> int:
+    """Random weights for a quantized decoder, made and quantized leaf by
+    leaf on the model's device, so no float copy of the whole model is
+    ever held: every leaf N(0, std^2) (the embedding, norm scales and any
+    bf16 kernel included), each int4 kernel drawn in bf16 and quantized
+    where it lies.  Decode speed does not depend on the values.  Returns
+    the bytes of the int4 layers, packed weights and scales: what a
+    decode step streams through them."""
+    from .transformer import DenseGeneral, Embed, RMSNorm
+
+    leaves = {Embed: "embedding", RMSNorm: "scale", DenseGeneral: "kernel"}
+    streamed = 0
+    with torch.no_grad():
+        for mod in model.modules():
+            name = leaves.get(type(mod))
+            if name is not None:
+                leaf = getattr(mod, name)
+                leaf.copy_(torch.randn(leaf.shape, generator=generator,
+                                       device=leaf.device) * std)
+            if not isinstance(mod, Int4Linear):
+                continue
+            w = torch.randn(mod.contract + mod.features, generator=generator,
+                            device=mod.kernel_q4.device) * std
+            q = quantize_kernel_int4(w.to(torch.bfloat16), len(mod.contract))
+            mod.kernel_q4.copy_(q["kernel_q4"])
+            mod.kernel_scale.copy_(q["kernel_scale"])
+            streamed += mod.kernel_q4.numel() + mod.kernel_scale.numel() * 2
+    return streamed
+
+
 def quantized_bytes(params, exclude: tuple = ("embed",)) -> int:
     """Bytes one decode step streams with the tree: every leaf outside the
     subtrees named in `exclude` (the embedding is a row lookup, not a
@@ -238,5 +269,6 @@ def quantized_bytes(params, exclude: tuple = ("embed",)) -> int:
 
 
 __all__ = ["INT4_GROUP", "Int4Linear", "Int8Linear", "StackedInt8Linear",
-           "quantize_kernel_int4", "quantize_params", "quantize_params_int4",
+           "fill_random", "quantize_kernel_int4", "quantize_params",
+           "quantize_params_int4",
            "quantized_bytes"]

@@ -17,10 +17,11 @@ Each round the draft takes gamma single-token steps and the target one
 (gamma + 1)-token pass at explicit positions.  Acceptance is the minimum
 over the batch rows, capped at gamma - 1 (the draft never consumed its
 last proposal), which keeps one cache index for the batch.  Both caches
-are then rewound to the accepted frontier by setting `KVCache.index`:
+are then rewound to the accepted frontier (`KVCache.set_index`):
 entries past it are masked by decode attention's position mask until
 they are overwritten.  Knowing the frontier takes one host read of the
-accepted count per round, since the index is a Python int.
+accepted count per round: the round's shapes and the caches' host
+mirrors of their fill index depend on it.
 
 `params` (target or draft) is a reference-layout param tree or a port
 Transformer built for its config's decode layout, as in `generate`.
@@ -40,8 +41,9 @@ from .transformer import KVCache, Transformer, torch_dtype
 
 def rewind(cache: KVCache, index: int) -> None:
     """Move the cache's fill index back to `index` (the reference's
-    _rewind): the stale tail stays in the buffers, masked by position."""
-    cache.index = index
+    _rewind), on the device and in its host mirror: the stale tail stays
+    in the buffers, masked by position."""
+    cache.set_index(index)
 
 
 def _model(cfg: TransformerConfig, params: Union[Mapping, Transformer],
@@ -253,4 +255,26 @@ def speculative_sample(
         return tokens[:, :total], rounds, accept_rate
 
 
-__all__ = ["rewind", "speculative_generate", "speculative_sample"]
+def teacher_forced_gaps(model: Transformer, tokens: torch.Tensor,
+                        prompt_len: int) -> dict:
+    """How far the emitted tokens of `tokens` [B, P + N] are from `model`'s
+    own greedy choice, in one pass over the sequence with the emitted
+    tokens as context: "argmax_share", the share of them that are the
+    argmax of their row of logits, and "max_gap_rel", the largest gap
+    between a row's max and the emitted token's logit, over max |logit|
+    of the row.  Greedy speculative decoding emits the argmax up to
+    near-ties that another summation order rounds apart."""
+    with torch.inference_mode():
+        cache = model.new_cache(tokens.shape[0])
+        forced = model(tokens[:, :-1], cache=cache)[:, prompt_len - 1:]
+        forced = forced.float()                               # [B, N, V]
+        emitted = tokens[:, prompt_len:]
+        top = forced.max(dim=-1).values
+        picked = forced.gather(-1, emitted[..., None])[..., 0]
+        gap = (top - picked) / forced.abs().max(dim=-1).values
+        return {"argmax_share": (picked == top).float().mean().item(),
+                "max_gap_rel": gap.max().item()}
+
+
+__all__ = ["rewind", "speculative_generate", "speculative_sample",
+           "teacher_forced_gaps"]

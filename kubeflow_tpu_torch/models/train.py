@@ -221,6 +221,14 @@ class AdamW:
             nu.copy_(v)
 
 
+def adamw(learning_rate: float, weight_decay: float = 1e-4) -> AdamW:
+    """optax.adamw(learning_rate, weight_decay=weight_decay) (b1 0.9, b2
+    0.999, eps 1e-8, decay on every parameter, a constant rate, no
+    clipping); weight_decay=0 is optax.adam."""
+    return AdamW(lambda count: learning_rate, b1=0.9, b2=0.999, eps=1e-8,
+                 weight_decay=weight_decay)
+
+
 def default_optimizer(learning_rate: float = 3e-4, warmup_steps: int = 100,
                       total_steps: int = 10_000, weight_decay: float = 0.1,
                       max_grad_norm: float = 1.0,
@@ -798,7 +806,7 @@ def timed_steps(setup: TrainSetup, batch: dict, num_steps: int = 10,
 
 
 __all__ = ["AdamW", "SCHEDULES", "SGD", "TrainSetup", "TrainState",
-           "chunked_cross_entropy", "cross_entropy_loss",
+           "adamw", "chunked_cross_entropy", "cross_entropy_loss",
            "default_optimizer", "global_norm", "head_cross_entropy",
            "load_train_state", "local_tensor", "loss_fn", "loss_terms",
            "make_train_step",

@@ -151,6 +151,21 @@ class DenseGeneral(nn.Module):
         return out.reshape(lead + shape[nc:])
 
 
+class Dense(nn.Module):
+    """flax's nn.Dense: kernel [in, out] and bias [out], fp32 parameters
+    and an fp32 product (the ViT head and the MNIST MLP)."""
+
+    def __init__(self, features_in: int, features_out: int, device="cuda"):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(
+            (features_in, features_out), dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.zeros(
+            features_out, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(torch.float32) @ self.kernel + self.bias
+
+
 def _dense(contract, features, cfg: TransformerConfig, device,
            axes: tuple) -> nn.Module:
     """bf16/fp32, int8 or int4 dense layer, per cfg.weight_dtype."""
@@ -166,7 +181,14 @@ def _dense(contract, features, cfg: TransformerConfig, device,
 
 class KVCache:
     """Per-layer [B, kvH, max_seq_len, Dh] key and value buffers, written
-    in place, and the fill index shared by all layers."""
+    in place, and the fill index shared by all layers.
+
+    The fill index lives on the device as `pos`, a 0-dim int64 tensor:
+    writes land at `pos + arange(q_len)` and the stack advances it in
+    place, so a step that a CUDA graph replays moves it without the host.
+    `index` is its host mirror, for the bounds check and for the callers
+    that steer by it (models/speculative.py); whoever moves one moves the
+    other (`set_index`)."""
 
     def __init__(self, cfg: TransformerConfig, batch: int, dtype,
                  device="cuda"):
@@ -175,7 +197,13 @@ class KVCache:
                   for _ in range(cfg.num_layers)]
         self.v = [torch.zeros(shape, dtype=dtype, device=device)
                   for _ in range(cfg.num_layers)]
+        self.pos = torch.zeros((), dtype=torch.int64, device=device)
         self.index = 0
+
+    def set_index(self, index: int) -> None:
+        """Move the fill index, host mirror and device tensor, to `index`."""
+        self.index = index
+        self.pos.fill_(index)
 
 
 _QKV = ("embed", "heads", "kv")
@@ -196,7 +224,8 @@ class Attention(nn.Module):
         self.out = _dense((h, hd), d, cfg, device, ("heads", "kv", "embed"))
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                kv: Optional[tuple] = None, cur: int = 0) -> torch.Tensor:
+                kv: Optional[tuple] = None,
+                slots: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         h, kvh = cfg.num_heads, cfg.num_kv_heads
         tp = axis_group(self.mesh, "tensor")
@@ -214,15 +243,14 @@ class Attention(nn.Module):
             # re-rotation.  The reference's staged_kv option stages
             # single-token writes in an 8-row buffer to suit the TPU's
             # (8, 128) tiles; here every write goes straight into the
-            # cache, which holds the same logical contents.
+            # cache, which holds the same logical contents.  `slots` are
+            # the cache rows of this call's tokens, a device tensor, so
+            # the write needs no host value (Transformer.run_stack checked
+            # the bounds on the host mirror).
             k_cache, v_cache = kv
-            q_len = x.shape[1]
-            if cur + q_len > k_cache.shape[2]:
-                raise ValueError(f"cache holds {k_cache.shape[2]} positions; "
-                                 f"cannot write {q_len} at {cur}")
-            k_cache[:, :, cur:cur + q_len] = k.transpose(1, 2)
-            v_cache[:, :, cur:cur + q_len] = v.transpose(1, 2)
-            out = decode_attention(q, k_cache, v_cache, q_offset=cur)
+            k_cache.index_copy_(2, slots, k.transpose(1, 2).to(k_cache.dtype))
+            v_cache.index_copy_(2, slots, v.transpose(1, 2).to(v_cache.dtype))
+            out = decode_attention(q, k_cache, v_cache, q_offset=slots[0])
         elif cfg.attention_impl == "ring" or \
                 axis_size(self.mesh, "sequence") > 1:
             # a sequence-sharded mesh always takes the ring: a local
@@ -277,8 +305,8 @@ class DecoderLayer(nn.Module):
         else:
             self.mlp = MLP(cfg, device, mesh)
 
-    def forward(self, x, positions, kv=None, cur: int = 0):
-        x = x + self.attn(self.attn_norm(x), positions, kv, cur)
+    def forward(self, x, positions, kv=None, slots=None):
+        x = x + self.attn(self.attn_norm(x), positions, kv, slots)
         if hasattr(self, "moe"):
             out, aux = self.moe(self.mlp_norm(x))
             return x + out, aux
@@ -331,8 +359,9 @@ class Transformer(nn.Module):
     Weights start as zeros (ones for norm scales and int8/int4 scales);
     load them with models.convert.params_from_flax or copy them in.
     Passing a `KVCache` runs the decode path: keys and values land in the
-    cache at `cache.index`, attention reads the cache, and the index
-    advances by the number of tokens."""
+    cache at its fill index (`cache.pos` on the device), attention reads
+    the cache, and the index advances by the number of tokens, on the
+    device and in its host mirror `cache.index`."""
 
     def __init__(self, cfg: TransformerConfig, device="cuda", mesh=None):
         super().__init__()
@@ -398,10 +427,16 @@ class Transformer(nn.Module):
                             list(saved)))
                 x, aux = (out[0], aux + out[1]) if moe else (out, aux)
             return x, aux
+        q_len, rows = x.shape[1], cache.k[0].shape[2]
+        if cache.index + q_len > rows:
+            raise ValueError(f"cache holds {rows} positions; cannot write "
+                             f"{q_len} at {cache.index}")
+        slots = cache.pos + torch.arange(q_len, device=cache.pos.device)
         for i, layer in enumerate(self.layers):
-            out = layer(x, positions, (cache.k[i], cache.v[i]), cache.index)
+            out = layer(x, positions, (cache.k[i], cache.v[i]), slots)
             x, aux = (out[0], aux + out[1]) if moe else (out, aux)
-        cache.index += x.shape[1]
+        cache.index += q_len
+        cache.pos += q_len
         return x, aux
 
     def head(self, x: torch.Tensor, return_hidden: bool = False):
@@ -474,6 +509,14 @@ def check_mesh(cfg: TransformerConfig, mesh) -> None:
 _TRUNC_STD = 0.87962566103423978
 
 
+def lecun_normal_(kernel: torch.Tensor, fan_in: int,
+                  generator: torch.Generator) -> None:
+    """flax's lecun_normal in place: a normal truncated at +-2 sigma with
+    sigma = sqrt(1 / fan_in) / 0.8796..."""
+    nn.init.trunc_normal_(kernel, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    kernel.mul_(fan_in ** -0.5 / _TRUNC_STD)
+
+
 def _drawn_modules(model: nn.Module):
     """`model.modules()` in the whole model's order; a layer this pipeline
     stage does not hold comes as a scratch layer, drawn and dropped."""
@@ -512,9 +555,7 @@ def init_params(model: Transformer, generator: torch.Generator) -> None:
             if isinstance(mod, (DenseGeneral, StackedDense)):
                 fan_in = (mod.contract if isinstance(mod, StackedDense)
                           else prod(mod.contract))
-                nn.init.trunc_normal_(mod.kernel, 0.0, 1.0, -2.0, 2.0,
-                                      generator=generator)
-                mod.kernel.mul_(fan_in ** -0.5 / _TRUNC_STD)
+                lecun_normal_(mod.kernel, fan_in, generator)
             elif isinstance(mod, Embed):
                 mod.embedding.normal_(0.0, 1.0, generator=generator)
             elif isinstance(mod, RMSNorm):
@@ -525,7 +566,7 @@ def init_params(model: Transformer, generator: torch.Generator) -> None:
                                  "quantize a float model instead")
 
 
-__all__ = ["Attention", "DecoderLayer", "DenseGeneral", "KVCache", "MLP",
-           "REMAT_POLICIES", "RMSNorm", "StageLayers", "Transformer",
-           "check_mesh",
-           "init_params", "logical", "rope", "torch_dtype"]
+__all__ = ["Attention", "DecoderLayer", "Dense", "DenseGeneral", "KVCache",
+           "MLP", "REMAT_POLICIES", "RMSNorm", "StageLayers", "Transformer",
+           "check_mesh", "init_params", "lecun_normal_", "logical", "rope",
+           "torch_dtype"]

@@ -15,7 +15,7 @@ a CUDA tensor, their plain versions on a CPU tensor) and "ring"
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -59,11 +59,14 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, q_offset: int,
+                     v_cache: torch.Tensor,
+                     q_offset: Union[int, torch.Tensor],
                      softmax_scale: Optional[float] = None) -> torch.Tensor:
     """KV-cache attention with the cache in [B, kvH, S, D] layout.
 
-    q: [B, Q, H, D]; q_offset: global position of q[:, 0].  Positions past
+    q: [B, Q, H, D]; q_offset: global position of q[:, 0], an int or a
+    0-dim integer tensor on q's device (the cache's fill index, which a
+    captured decode step reads without the host).  Positions past
     q_offset + i (unwritten or future cache slots) are masked with -1e30,
     not -inf, as in the reference.  Grouped-query heads fold into the q
     reshape instead of a repeated cache."""

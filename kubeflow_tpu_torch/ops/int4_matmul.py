@@ -191,6 +191,14 @@ def _counters(device: torch.device, size: int) -> torch.Tensor:
     return buf
 
 
+def counter_buffers() -> tuple:
+    """The split-K counter buffers in use now.  A captured CUDA graph
+    records a buffer's address, and a later eager call with a larger
+    tile grid replaces the buffer (freeing it once nothing else holds
+    it), so whoever keeps a graph keeps these too."""
+    return tuple(_COUNTERS.values())
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
@@ -201,5 +209,5 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-__all__ = ["GROUP", "Plan", "SOURCE", "int4_matmul", "int4_matmul_reference",
-           "plan", "unpack_int4"]
+__all__ = ["GROUP", "Plan", "SOURCE", "counter_buffers", "int4_matmul",
+           "int4_matmul_reference", "plan", "unpack_int4"]

@@ -4,7 +4,13 @@ One numpy-filled param tree (TINY widened to 256/512 so every contract dim
 divides int4's 128) goes to both packages in fp32, as a full-precision,
 an int8 and an int4 tree: the logits of the plain forward and of the
 prefill agree within 1e-4, and greedy generation gives the same tokens as
-the reference's default (fused, staged) decode."""
+the reference's default (fused, staged) decode.  The single-token step
+on its fixed buffers (a device-tensor fill index, `DecodeStep`), run
+eagerly, gives the reference `generate`'s greedy tokens with
+`unroll_layers` True and False; a rewind moves both copies of the fill
+index.  The decode bench's, the 13B example's and the speculative
+demo's configs and roofline bytes match the reference scripts'
+arithmetic."""
 
 from __future__ import annotations
 
@@ -30,12 +36,14 @@ from kubeflow_tpu_torch.models import quant
 from kubeflow_tpu_torch.models.configs import LLAMA2_7B, TINY
 from kubeflow_tpu_torch.models.convert import params_from_flax, to_tensor
 from kubeflow_tpu_torch.models.generate import (
+    DecodeStep,
     decode_config,
     generate,
     prepare_decode,
     sample_token,
     unroll_params,
 )
+from kubeflow_tpu_torch.models.speculative import rewind
 from kubeflow_tpu_torch.ops import attention
 from kubeflow_tpu_torch.runtime import roofline
 
@@ -346,3 +354,164 @@ def test_quantized_layers_pick_the_plain_version_on_cpu(trees):
                 mod.plain = True
         b = model(tokens)
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("unroll", [True, False])
+def test_decode_step_matches_reference_generate(unroll, stacked_tree):
+    """Prefill, then `DecodeStep` called eagerly on its fixed buffers
+    (last token, device fill index, output tokens): the reference
+    `generate`'s greedy tokens, exactly, for the unrolled (fused) and the
+    scanned (unfused) decode layout; `generate` gives the same."""
+    from kubeflow_tpu_torch.models.convert import params_from_flax
+
+    prompt = np.random.RandomState(11).randint(0, 256, (2, 5))
+    new = 9
+    want = np.asarray(jgenerate(_cfg(False), stacked_tree,
+                                jnp.asarray(prompt), max_new_tokens=new,
+                                unroll_layers=unroll))
+    cfg, tree = prepare_decode(_cfg(True), stacked_tree,
+                               unroll_layers=unroll)
+    assert cfg.fused_projections == unroll
+    model = params_from_flax(tree, cfg, device="cpu")
+    with torch.inference_mode():
+        cache = model.new_cache(2)
+        tokens = torch.zeros((2, 5 + new), dtype=torch.int64)
+        tokens[:, :5] = torch.from_numpy(prompt)
+        tokens[:, 5] = model(tokens[:, :5], cache=cache)[:, -1].argmax(-1)
+        step = DecodeStep(model, cache, tokens)
+        for i in range(new - 1):
+            step()
+            assert cache.index == 6 + i and int(cache.pos) == 6 + i
+    np.testing.assert_array_equal(tokens.numpy(), want)
+    got = generate(_cfg(True), stacked_tree, prompt, max_new_tokens=new,
+                   unroll_layers=unroll, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_rewind_after_tensor_position_write(trees):
+    """A prefill of 5 tokens, a rewind to 3 (both the device index and its
+    host mirror), and one token written at tensor position 3: the same
+    logits as a fresh cache fed the first 3 tokens and that one, within
+    1e-5, and row 3 of every layer's cache holds the new token's keys."""
+    _, cfg, tree = _decode_cfgs("full", trees)
+    model = params_from_flax(tree, cfg, device="cpu")
+    toks = torch.from_numpy(np.random.RandomState(12).randint(0, 256,
+                                                              (2, 5)))
+    x = torch.tensor([[7], [9]])
+    with torch.inference_mode():
+        cache = model.new_cache(2)
+        model(toks, cache=cache)
+        stale = cache.k[0][:, :, 3].clone()
+        rewind(cache, 3)
+        assert cache.index == 3 and int(cache.pos) == 3
+        got = model(x, positions=cache.pos.expand(2, 1), cache=cache)
+        assert cache.index == 4 and int(cache.pos) == 4
+        fresh = model.new_cache(2)
+        want = model(torch.cat([toks[:, :3], x], dim=1), cache=fresh)
+        assert not torch.equal(cache.k[0][:, :, 3], stale)
+        for i in range(cfg.num_layers):
+            torch.testing.assert_close(cache.k[i][:, :, :4],
+                                       fresh.k[i][:, :, :4],
+                                       atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got[:, -1].numpy(), want[:, -1].numpy(),
+                               atol=1e-5, rtol=0)
+
+
+def test_decode_attention_takes_a_tensor_offset():
+    """q_offset as a 0-dim int64 tensor (the cache's fill index) gives
+    the reference's output, as the int does."""
+    rs = np.random.RandomState(13)
+    q = rs.standard_normal((2, 1, 4, 16)).astype(np.float32)
+    kc = rs.standard_normal((2, 2, 10, 16)).astype(np.float32)
+    vc = rs.standard_normal((2, 2, 10, 16)).astype(np.float32)
+    want = jattention.decode_attention(q, kc, vc, q_offset=6)
+    got = attention.decode_attention(*map(torch.from_numpy, (q, kc, vc)),
+                                     q_offset=torch.tensor(6))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+
+
+def test_decode_bench_config_and_roofline_match_reference():
+    """bench --decode's model (`decode_config(BENCH_CHIP)`, max_seq_len
+    384) and its roofline: the bf16 and int4 trees' streamed bytes (the
+    embedding excluded), the KV bytes and the step's bytes, as the
+    reference bench computes them, on a TINY-width tree of the same
+    layout (the full tree is 0.47 B parameters)."""
+    from kubeflow_tpu.models.configs import BENCH_CHIP as JBENCH
+    from kubeflow_tpu_torch.models.configs import BENCH_CHIP
+
+    cfg = decode_config(BENCH_CHIP).with_(max_seq_len=384)
+    jcfg = jdecode_config(JBENCH).with_(max_seq_len=384)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert roofline.decode_kv_bytes(cfg, 16) == \
+        jroofline.decode_kv_bytes(jcfg, 16)
+    _, fused = jprepare_decode(_cfg(False), _random_tree(_cfg(False), 14))
+    bf16 = jax.tree.map(lambda a: jnp.asarray(a).astype(jnp.bfloat16), fused)
+    ported = jax.tree.map(lambda a: to_tensor(np.asarray(a)), _np(bf16))
+    for jtree, tree in ((bf16, ported),
+                        (jquant.quantize_params_int4(bf16),
+                         quant.quantize_params_int4(ported))):
+        want = jquant.quantized_bytes(jtree, exclude=("embed",))
+        assert quant.quantized_bytes(tree, exclude=("embed",)) == want
+        est = roofline.decode_estimate(cfg, 16, "NVIDIA H100 80GB HBM3",
+                                       param_bytes=want)
+        jest = jroofline.decode_estimate(jcfg, 16, param_bytes=want)
+        assert est.hbm_bytes == jest.hbm_bytes
+
+
+def test_llama13b_and_demo_configs_match_reference_scripts():
+    """The 13B example's decode config and int4 + KV roofline, and the
+    speculative demo's target and draft, as ci/llama13b_decode.py and
+    ci/speculative_demo.py build them.  The 13B int4 bytes come from the
+    port's model on the meta device against the reference's quantizer
+    arithmetic over its decode tree's shapes (K/2 x N packed bytes and
+    K/64 x N bf16 scales a kernel, norms as stored, the embedding
+    excluded)."""
+    from kubeflow_tpu.models.configs import BENCH_CHIP as JBENCH
+    from kubeflow_tpu.models.configs import LLAMA2_13B as J13B
+    from kubeflow_tpu_torch.examples import llama13b_decode, speculative_demo
+    from kubeflow_tpu_torch.models.convert import flax_tree
+    from kubeflow_tpu_torch.models.transformer import Transformer
+
+    cfg = llama13b_decode.config()
+    jcfg = jdecode_config(J13B).with_(max_seq_len=256, weight_dtype="int4")
+    assert dataclasses.asdict(cfg) == {**dataclasses.asdict(jcfg),
+                                       "param_dtype": "bfloat16"}
+    abstract = jax.eval_shape(lambda: JTransformer(
+        jdecode_config(J13B).with_(max_seq_len=256)).init(
+            jax.random.PRNGKey(0), jnp.ones((1, 8), jnp.int32)))["params"]
+
+    def int4_bytes(node, name=""):
+        if name == "embed":
+            return 0
+        if "kernel" in node:
+            k = node["kernel"]
+            k = k.value if hasattr(k, "value") else k
+            contract = 2 if name == "out" else 1
+            n_in = int(np.prod(k.shape[:contract]))
+            n_out = int(np.prod(k.shape[contract:]))
+            return n_in // 2 * n_out + n_in // 64 * n_out * 2
+        if "scale" in node:
+            return int(np.prod(node["scale"].value.shape
+                               if hasattr(node["scale"], "value")
+                               else node["scale"].shape)) * 4
+        return sum(int4_bytes(v, k) for k, v in node.items())
+
+    model = Transformer(cfg, device="meta")
+    tree = flax_tree(model)
+    norms = sum(v.numel() for k, v in model.state_dict().items()
+                if k.endswith("scale") and "norm" in k)
+    # the port stores norm scales in fp32 as the reference does
+    assert quant.quantized_bytes(tree) == int4_bytes(abstract)
+    assert norms == cfg.embed_dim * (2 * cfg.num_layers + 1)
+    w, kv = quant.quantized_bytes(tree), roofline.decode_kv_bytes(cfg, 16)
+    want_kv = (2 * 16 * jcfg.max_seq_len * jcfg.num_kv_heads
+               * jcfg.head_dim * 2 * jcfg.num_layers)
+    assert kv == want_kv
+    assert llama13b_decode.roofline_tok_s(w, kv, 16, 3350.0) == \
+        pytest.approx(3350.0 * 1e9 / (w + kv) * 16)
+    target, draft = speculative_demo.configs()
+    jtarget = JBENCH.with_(vocab_size=1024, max_seq_len=2048, loss_chunks=16)
+    assert dataclasses.asdict(target) == dataclasses.asdict(jtarget)
+    assert dataclasses.asdict(draft) == dataclasses.asdict(
+        jtarget.with_(num_layers=2))

@@ -38,6 +38,14 @@ LLAMA_SHAPES = [(m, k, n) for m in (16, 2048)
                 for k, n in ((4096, 12288), (4096, 4096), (4096, 22016),
                              (11008, 4096), (4096, 32000))]
 EDGE_SHAPES = [(1, 4096, 4096), (17, 1600, 1552), (300, 4096, 4096)]
+# the fused int4 layers of `bench --decode`'s BENCH_CHIP and of
+# Llama-2-13B at decode and prefill (chip_smoke.py's BENCH_LAYERS and
+# LLAMA13B_LAYERS)
+PATH_SHAPES = [(m, k, n) for m in (16, 2048)
+               for k, n in ((1536, 4608), (1536, 1536), (1536, 12288),
+                            (6144, 1536), (1536, 32000), (5120, 15360),
+                            (5120, 5120), (5120, 27648), (13824, 5120),
+                            (5120, 32000))]
 
 
 def _np(tree):
@@ -186,7 +194,7 @@ class TestPlan:
     @pytest.mark.parametrize("sms", [1, 78, 114, 132, 264])
     @pytest.mark.parametrize("m,k_dim,n", LLAMA_SHAPES + EDGE_SHAPES + [
         (16, 1536, 6144), (16, 6144, 1536), (16, 1536, 32000),
-        (128, 1536, 1536), (64, 64, 16)])
+        (128, 1536, 1536), (64, 64, 16)] + PATH_SHAPES)
     def test_every_group_is_covered_exactly_once(self, m, k_dim, n, sms):
         p = plan(m, k_dim, n, sms)
         groups = k_dim // i4.GROUP

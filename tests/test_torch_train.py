@@ -8,7 +8,11 @@ params_from_flax, once against the reference's "xla" path under remat
 and once against its Pallas flash kernels in TPU interpret mode (which
 does not run under remat).  Then the port alone: the remat policies
 change no number, init_params draws flax's distributions, the roofline
-counts match, and the bench prints its JSON line."""
+counts match, and the bench prints its JSON line.  The small models
+too: ViT's forward and one AdamW step against flax's `ViT(VIT_TINY)`
+and optax.adamw(1e-4), its FLOPs per image, the MNIST MLP's forward and
+30 Adam steps, and `entry()` cut to 2 layers against the reference
+forward."""
 
 from __future__ import annotations
 
@@ -432,3 +436,132 @@ def test_bench_cpu_prints_one_json_line():
                 "window_tokens_per_s", "device"):
         assert key in detail
     assert np.isfinite(detail["final_loss"]) and detail["tokens_per_s"] > 0
+
+
+# -- the small models and the entry ------------------------------------------
+
+
+def test_vit_forward_and_adamw_step_match_reference():
+    """VIT_TINY in fp32 on one set of numpy images and labels: logits
+    within 1e-5, the loss within 1e-6 relative, and after one step of
+    optax.adamw(1e-4) every parameter within 2e-5 of the reference's (a
+    first Adam step moves each by about the rate, 1e-4, whatever its
+    gradient's size, so near-zero gradients round to different moves)."""
+    from kubeflow_tpu.models.vit import VIT_TINY as JVIT_TINY
+    from kubeflow_tpu.models.vit import ViT as JViT
+    from kubeflow_tpu_torch.models.convert import vit_params_from_flax
+    from kubeflow_tpu_torch.models.vit import VIT_TINY, vit_train_step
+
+    assert dataclasses.asdict(VIT_TINY) == dataclasses.asdict(JVIT_TINY)
+    rs = np.random.RandomState(20)
+    images = rs.standard_normal((4, 32, 32, 3)).astype(np.float32)
+    labels = rs.randint(0, 10, (4,))
+    jmodel = JViT(JVIT_TINY)
+    params = _np(jmodel.init(jax.random.PRNGKey(0), images)["params"])
+
+    def loss_fn(p):
+        logp = jax.nn.log_softmax(jmodel.apply({"params": p}, images), -1)
+        return -jnp.mean(jnp.take_along_axis(logp, labels[:, None], axis=1))
+
+    tx = optax.adamw(1e-4)
+
+    @jax.jit
+    def step(p):
+        loss, grads = jax.value_and_grad(loss_fn)(p)
+        updates, _ = tx.update(grads, tx.init(p), p)
+        return loss, optax.apply_updates(p, updates)
+
+    want_loss, want_params = step(params)
+    want_params = _np(want_params)
+
+    model = vit_params_from_flax(params, VIT_TINY, device="cpu")
+    with torch.no_grad():
+        _close(model(torch.from_numpy(images)),
+               jax.jit(jmodel.apply)({"params": params}, images))
+    opt = train.adamw(1e-4)
+    opt.init(list(model.parameters()))
+    loss = vit_train_step(model, opt, torch.from_numpy(images),
+                          torch.from_numpy(labels))
+    assert float(loss) == pytest.approx(float(want_loss), rel=1e-6)
+    got = model.state_dict()
+    for path, leaf in jax.tree_util.tree_flatten_with_path(want_params)[0]:
+        name = ".".join(k.key for k in path)
+        _close(got[name], leaf, tol=2e-5)
+
+
+def test_vit_flops_per_image_match_reference():
+    from kubeflow_tpu.models import vit as jvit
+    from kubeflow_tpu_torch.models import vit
+
+    for name in ("VIT_B16", "VIT_TINY"):
+        assert vit.vit_flops_per_image(getattr(vit, name)) == \
+            jvit.vit_flops_per_image(getattr(jvit, name))
+
+
+def test_mlp_forward_and_thirty_adam_steps_match_reference():
+    """The MNIST MLP on one numpy batch: logits within 1e-5, and the
+    losses of 30 steps of optax.adam(1e-3) (the reference's
+    train_mnist_steps step) within 1e-4 of the reference's."""
+    from kubeflow_tpu.models.mlp import MLP as JMLP
+    from kubeflow_tpu_torch.models.convert import load_flax_tree
+    from kubeflow_tpu_torch.models.mlp import MLP, train_steps
+
+    rs = np.random.RandomState(21)
+    x = rs.standard_normal((32, 28, 28, 1)).astype(np.float32)
+    y = rs.randint(0, 10, (32,))
+    jmodel = JMLP()
+    params = jmodel.init(jax.random.PRNGKey(1), x)
+    tx = optax.adam(1e-3)
+
+    @jax.jit
+    def step(p, state):
+        def loss_fn(p):
+            return optax.softmax_cross_entropy_with_integer_labels(
+                jmodel.apply(p, x), y).mean()
+
+        loss, grads = jax.value_and_grad(loss_fn)(p)
+        updates, state = tx.update(grads, state)
+        return optax.apply_updates(p, updates), state, loss
+
+    want, p, state = [], params, tx.init(params)
+    for _ in range(30):
+        p, state, loss = step(p, state)
+        want.append(float(loss))
+    model = load_flax_tree(MLP(device="cpu"), _np(params["params"]))
+    with torch.no_grad():
+        _close(model(torch.from_numpy(x)), jmodel.apply(params, x))
+    got = train_steps(model, torch.from_numpy(x), torch.from_numpy(y), 30)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    assert got[-1] < got[0] / 10
+
+
+def test_entry_forward_matches_reference(monkeypatch):
+    """`entry()` on the CPU with its `CONFIG` cut to 2 layers, loaded with
+    the reference entry's weights (`LLAMA2_350M` at max_seq_len 512, bf16
+    compute, on (2, 512) ones): logits within 2e-2 of max |logit| and RMS
+    error within 1e-2 of the RMS (bf16 activations on both sides, rounded
+    in another order)."""
+    from kubeflow_tpu.models.transformer import Transformer as JTransformer
+    from kubeflow_tpu_torch import entry as entry_module
+
+    assert entry_module.CONFIG == configs.LLAMA2_350M.with_(max_seq_len=512)
+    monkeypatch.setattr(entry_module, "CONFIG",
+                        entry_module.CONFIG.with_(num_layers=2))
+    forward, (model, tokens) = entry_module.entry(device="cpu")
+    assert model.cfg == configs.LLAMA2_350M.with_(max_seq_len=512,
+                                                  num_layers=2)
+    assert tuple(tokens.shape) == (2, 512) and bool((tokens == 1).all())
+    jcfg = jconfigs.LLAMA2_350M.with_(max_seq_len=512, num_layers=2)
+    jmodel = JTransformer(jcfg)
+    jtokens = jnp.ones((2, 512), jnp.int32)
+    params = _np(jax.jit(jmodel.init)(jax.random.PRNGKey(0),
+                                      jtokens)["params"])
+    want = np.asarray(jax.jit(lambda p, t: jmodel.apply({"params": p}, t))(
+        params, jtokens))
+    model.load_state_dict(state_dict_from_flax(params))
+    got = forward(model, tokens).numpy()
+    assert got.shape == want.shape == (2, 512, 32000)
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() <= 2e-2 * scale
+    assert np.sqrt(np.mean((got - want) ** 2)) <= \
+        1e-2 * np.sqrt(np.mean(want ** 2))

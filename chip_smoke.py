@@ -34,7 +34,9 @@ non-zero without its result line):
    (17, 1600, 1552), and a ragged prefill tile (300, 4096, 4096); and,
    from a generator of their own, the fused layers of the decode bench's
    BENCH_CHIP and of Llama-2-13B at M = 16 and 2048 (the 13B run's and
-   `bench --decode`'s decode steps and prefills), each held as above;
+   `bench --decode`'s decode steps and prefills), and from another one
+   rank's shards of the 7B layers at tensor 2 (TP2_LAYERS) at the same
+   M, each held as above;
 4. slice: Llama-2-7B at full width and depth, every leaf N(0, 0.02^2)
    from a seeded generator on the card (ci/llama7b_decode.py's scheme),
    int4 kernels quantized there; `generate` at batch 16, prompt 128, 128
@@ -55,12 +57,19 @@ non-zero without its result line):
    speculative: the slice's model as the target of
    models/speculative.py, its first two layers (sharing the target's
    modules, no weights of their own) as the draft, batch 16, prompt 128,
-   128 new tokens, gamma 4, greedy.  The int4 launches must be 129 (the
-   target's prefill) + 9 (the draft's) + rounds x (4 x 9 + 129); the
+   128 new tokens, gamma 4, greedy, each round replaying one captured
+   CUDA graph (models/speculative.py GraphedRound).  The same call on the
+   eager loop (`cuda_graph=False`) must give the same tokens bit for bit
+   in as many rounds, and so must the sampled self-draft run below; a
+   16-token graphed call is profiled for the card's busy, idle and int4
+   time per replay (`graphed_rounds_profile`).  The int4 launches must be
+   129 (the target's prefill) + 9 (the draft's) + rounds x (4 x 9 + 129),
+   credited per replay; the
    target's kernel path over the emitted sequence (teacher forced) must
    pick >= 0.95 of the emitted tokens as its argmax, and every other one
    within 2e-2 x max |logit| of its row's max; with the target as its
-   own draft, every round its logits replay (a forward hook keeps them)
+   own draft, on the eager loop (a forward hook fires at every call
+   only there), every round its logits replay (the hook keeps them)
    must be one the run made, and every round cut short must have been
    cut at a near-tie: the rejected proposal within 2e-2 x max |logit| of
    the verify pass's argmax (the random model's logits are flat, and the
@@ -71,7 +80,20 @@ non-zero without its result line):
    Speculative and plain `generate` tok/s (CUDA events) and rounds are
    printed, not gated (a random 2-layer draft agrees with the target
    about never), and the host syncs (torch's sync debug mode) of a
-   short call of each, 8 new tokens, apart from the timed runs;
+   short call of each, 8 new tokens, apart from the timed runs, per
+   round for the speculative one;
+   tp_decode: `generate(mesh=)`, tensor-parallel decode, of the slice's
+   model at batch 16, prompt 128.  (a) On a world-1 NCCL mesh, graphed
+   (the step with its logits all-gather captured), 128 new tokens: bit
+   for bit the single-device graphed `generate`'s tokens, exactly 129 int4
+   launches a step credited per replay.  (b) At tensor 2, two processes
+   on the one card over gloo (eager: a gloo collective cannot be
+   captured), each converting the same weights into its blocks, 8 new
+   tokens: both ranks' tokens equal, exactly 129 int4 launches a step a
+   rank at the five shard shapes, and >= 0.95 of the tokens the
+   single-device model's teacher-forced argmax, every other within 2e-2 x
+   max |logit| of its row's max.  Times are printed as two processes
+   time-sharing one card, not a multi-GPU speed;
 5. flash: the three flash-attention kernels (forward, dK/dV, dQ) against
    their plain versions at the three shapes of ci/flash_numerics.py, three
    shapes the kernels' tiles must handle (head dim 64 with GQA; S = 320,
@@ -223,8 +245,9 @@ non-zero without its result line):
 14. speculative_demo: kubeflow_tpu_torch/examples/speculative_demo.py,
    the BENCH_CHIP-shaped target (vocabulary 1024) and its 2-layer draft
    trained 150 steps each on the affine stream (exactly 20/10/10 and
-   4/2/2 flash launches a step), then graphed plain against speculative
-   greedy decode at batch 4, prompt 64, 256 new tokens, gamma 4: the
+   4/2/2 flash launches a step), then graphed plain against graphed
+   speculative greedy decode at batch 4, prompt 64, 256 new tokens,
+   gamma 4: the
    speculative phase's teacher-forced token gates; rounds against the
    ideal 64 and the speedup (one timed call each) printed; then its
    --sample sweep (gamma 2, 4, 6 at T 0.8, one timed call each) on the
@@ -243,7 +266,8 @@ non-zero without its result line):
 
 It prints one JSON line per kernel shape and per slice, then a "kernels"
 line (each kernel's launches on its main path, and beside them the
-speculative run's int4 launches, one MoE step's, one mesh step's, one
+graphed speculative run's int4 launches, the tensor-parallel decode's
+(world-1, and per rank at tensor 2), one MoE step's, one mesh step's, one
 pipelined step's of each schedule, one long-context step's and one
 runtime-loop step's, one entry() forward's and the demo's training's flash
 launches, and the decode bench's and the 13B run's int4 launches; the
@@ -297,6 +321,11 @@ BENCH_LAYERS = {"qkv": (1536, 4608), "out": (1536, 1536),
 LLAMA13B_LAYERS = {"qkv": (5120, 15360), "out": (5120, 5120),
                    "gate_up": (5120, 27648), "down": (13824, 5120),
                    "lm_head": (5120, 32000)}
+# (K, N) of one rank's int4 shards of Llama-2-7B at tensor 2: qkv, gate_up
+# and the head cut over N, out and down over K
+TP2_LAYERS = {"qkv": (4096, 6144), "out": (2048, 4096),
+              "gate_up": (4096, 11008), "down": (5504, 4096),
+              "lm_head": (4096, 16000)}
 DECODE_M, PREFILL_M = 16, 2048
 GAMMA = 4                          # draft tokens per speculative round
 VERIFY_M = DECODE_M * (GAMMA + 1)  # the target's verify pass: 80 tokens
@@ -305,6 +334,7 @@ DRAFT_LAYERS = 2                   # the draft: the target's first layers
 SPEC_MIN_FORCED = 0.95             # emitted tokens that are the argmax
 SPEC_GAP_TOL = 2e-2                # the others: gap / max |logit| of row
 SPEC_MIN_ACCEPT = 0.9              # self-draft accept rate over its cap
+SPEC_PROFILED_NEW = 16             # new tokens of the profiled graphed call
 PROFILED_STEPS = 10                # decode steps under torch.profiler
 DECODE_BENCH_NEW = 256             # bench --decode: new tokens a call
 VIT_STEPS = 5                      # bench --vit: steps a window
@@ -357,6 +387,8 @@ GEMMA_SGD_STEPS = 3
 PIPE_STAGES, PIPE_MICRO, PIPE_MEMORY_MICRO = 2, 4, 8
 PIPE_TIMED_STEPS = 3
 PIPE_TIMEOUT_S = 420
+# tp_decode: tensor 2 as two processes on the one card, TP_NEW new tokens
+TP_RANKS, TP_NEW, TP_TIMEOUT_S = 2, 8, 300
 # notebook_train: BENCH_CHIP at batch 8 through the runtime, 12 steps, the
 # cull request before step 6's hook; the corpus is NB_RUNS seeded runs
 NB_BATCH, NB_STEPS, NB_CULL_STEP, NB_RUNS = 8, 12, 6, 16384
@@ -490,13 +522,14 @@ def int4pack_mm(packed, scales):
     return lambda x: torch._weight_int4pack_mm(x, tiled, GROUP, scale_zero)
 
 
-def kernel_phase(gen, edge_gen, verify_gen, path_gen, device, peak,
-                 flush) -> dict:
+def kernel_phase(gen, edge_gen, verify_gen, path_gen, shard_gen, device,
+                 peak, flush) -> dict:
     """Kernel against plain version at every shape, the edge shapes drawn
     from `edge_gen`, the speculative verify pass's (M = 80) from
-    `verify_gen`, and the decode bench's and the 13B run's layers at
-    their decode and prefill M from `path_gen`; returns per-shape
-    results keyed by (m, k, n)."""
+    `verify_gen`, the decode bench's and the 13B run's layers at their
+    decode and prefill M from `path_gen`, and the tensor-2 shards of the
+    7B layers at the same M from `shard_gen`; returns per-shape results
+    keyed by (m, k, n)."""
     import torch
 
     from kubeflow_tpu_torch.models.quant import quantize_kernel_int4
@@ -513,6 +546,9 @@ def kernel_phase(gen, edge_gen, verify_gen, path_gen, device, peak,
                                                     LLAMA13B_LAYERS)
                for m in (DECODE_M, PREFILL_M) for k, n in layers.values()
                if (m, k, n) not in seen]
+    seen = {shape for _, shape in shapes}
+    shapes += [(shard_gen, (m, k, n)) for m in (DECODE_M, PREFILL_M)
+               for k, n in TP2_LAYERS.values() if (m, k, n) not in seen]
     results, failed = {}, []
     for draw, (m, k, n) in shapes:
         w = torch.randn((k, n), generator=draw, device=device) * 0.05
@@ -544,7 +580,8 @@ def kernel_phase(gen, edge_gen, verify_gen, path_gen, device, peak,
             "verify_shape": m == VERIFY_M,
             "layer_of": [name for name, layers in (
                 ("llama2-7b", LLAMA_LAYERS), ("bench-chip", BENCH_LAYERS),
-                ("llama2-13b", LLAMA13B_LAYERS)) if (k, n) in
+                ("llama2-13b", LLAMA13B_LAYERS),
+                ("llama2-7b tensor-2 shard", TP2_LAYERS)) if (k, n) in
                 layers.values() and m in (DECODE_M, PREFILL_M, VERIFY_M)],
             "kernel_ms": timed_ms(lambda: i4.int4_matmul(x, packed, scales),
                                   flush),
@@ -828,8 +865,9 @@ def count_syncs(fn):
 
 
 def self_draft_run(model, prompt, new: int):
-    """The target as its own draft: (tokens, rounds, the logits of every
-    forward call in order, kept by a forward hook)."""
+    """The target as its own draft, on the eager loop (a forward hook
+    fires at every call there; under a graph only at its capture):
+    (tokens, rounds, the logits of every forward call in order)."""
     from kubeflow_tpu_torch.models.speculative import speculative_generate
 
     calls = []
@@ -840,7 +878,8 @@ def self_draft_run(model, prompt, new: int):
     handle = model.register_forward_hook(keep, with_kwargs=True)
     try:
         out, rounds = speculative_generate(model.cfg, model, model.cfg,
-                                           model, prompt, new, gamma=GAMMA)
+                                           model, prompt, new, gamma=GAMMA,
+                                           cuda_graph=False)
     finally:
         handle.remove()
     return out, rounds, calls
@@ -879,10 +918,56 @@ def self_draft_cuts(calls, rounds: int, prompt_len: int, new: int) -> dict:
             "cut_rounds": cut_rounds, "gaps": gaps}
 
 
+def graphed_rounds_profile(fn) -> dict:
+    """The card's time over the replays of a graphed speculative call
+    fn(), from torch.profiler's raw events: from the first kernel after
+    the first cudaGraphLaunch to the last kernel, the span, the busy time
+    (the union of the device's kernels, copies and sets), the idle time
+    (span less busy: what the host read and the Python between replays
+    leave the card), and the int4 kernel's time, each per replay.  The
+    launch counts are put back as they were."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeflow_tpu_torch.ops import launch_counts
+
+    before = launch_counts.snapshot()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    launch_counts.restore(before)
+    events = prof.profiler.kineto_results.events()
+    replays = sorted(e.start_ns() for e in events
+                     if "cudaGraphLaunch" in e.name())
+    if not replays:
+        raise RuntimeError("no cudaGraphLaunch in the profile of a graphed "
+                           "speculative call")
+    work = sorted((e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+                  for e in events if e.device_type() == DeviceType.CUDA
+                  and e.start_ns() >= replays[0])
+    busy, (lo, hi, _) = 0, work[0]
+    for start, end, _ in work[1:]:
+        if start > hi:
+            busy, lo = busy + hi - lo, start
+        hi = max(hi, end)
+    busy += hi - lo
+    span = max(end for _, end, _ in work) - work[0][0]
+    int4 = sum(end - start for start, end, name in work
+               if "int4_matmul" in name)
+    n = len(replays)
+    return {"replays": n, "span_ms_per_replay": span / n / 1e6,
+            "busy_ms_per_replay": busy / n / 1e6,
+            "idle_ms_per_replay": (span - busy) / n / 1e6,
+            "int4_ms_per_replay": int4 / n / 1e6,
+            "int4_share_of_busy": int4 / busy}
+
+
 def speculative_phase(model, device) -> dict:
     """Greedy speculative decoding of the slice's int4 Llama-2-7B (the
     target) with a draft of its first two layers, at batch 16, prompt
-    128, 128 new tokens, gamma 4."""
+    128, 128 new tokens, gamma 4, its rounds replaying one captured CUDA
+    graph, then the same call on the eager loop."""
     import torch
 
     from kubeflow_tpu_torch.models.generate import generate
@@ -900,14 +985,14 @@ def speculative_phase(model, device) -> dict:
                            device=device)
     draft = shared_draft(model, DRAFT_LAYERS)
 
-    def spec():
+    def spec(tokens: int = new, cuda_graph: bool = True):
         return speculative_generate(cfg, model, draft.cfg, draft, prompt,
-                                    new, gamma=GAMMA)
+                                    tokens, gamma=GAMMA,
+                                    cuda_graph=cuda_graph)
 
     # the warm-up, a short call, counts the host syncs of its rounds
     (_, sync_rounds), spec_syncs, spec_sync_sites = count_syncs(
-        lambda: speculative_generate(cfg, model, draft.cfg, draft, prompt,
-                                     2 * GAMMA, gamma=GAMMA))
+        lambda: spec(2 * GAMMA))
     torch.cuda.synchronize()
     # the main path: every int4 launch counted
     i4.launches = 0
@@ -922,6 +1007,21 @@ def speculative_phase(model, device) -> dict:
                            f"{launches} times, expected {expected} for "
                            f"{rounds} rounds")
 
+    # the same call with every round launched from Python
+    (eager, eager_rounds), eager_ms = event_timed(
+        lambda: spec(cuda_graph=False))
+    graph_equals_eager = torch.equal(eager, out) and eager_rounds == rounds
+    del eager
+    rounds_profile = graphed_rounds_profile(lambda: spec(SPEC_PROFILED_NEW))
+    # the same short call unprofiled: the main call's time past it over
+    # its rounds past its rounds is a round's wall time without CUPTI's
+    # tracing of every graph node
+    (_, short_rounds), short_ms = event_timed(lambda: spec(SPEC_PROFILED_NEW))
+    round_ms = (spec_ms - short_ms) / (rounds - short_rounds)
+    rounds_profile.update(
+        unprofiled_round_ms=round_ms,
+        unprofiled_idle_ms_per_round=round_ms
+        - rounds_profile["busy_ms_per_replay"])
     shape_ok = (tuple(out.shape) == (batch, prompt_len + new)
                 and bool((out[:, :prompt_len] == prompt).all().item())
                 and 0 <= int(out.min()) and int(out.max()) < vocab)
@@ -939,11 +1039,20 @@ def speculative_phase(model, device) -> dict:
     ideal = math.ceil((new - 1) / GAMMA)
     cuts = self_draft_cuts(calls, self_rounds, prompt_len, new)
     del calls
-    (s_out, s_rounds, s_rate), sample_ms = event_timed(
-        lambda: speculative_sample(
+    def sample(cuda_graph: bool):
+        return speculative_sample(
             cfg, model, cfg, model, prompt, new, gamma=GAMMA,
             temperature=0.8,
-            generator=torch.Generator(device=device).manual_seed(SEED + 5)))
+            generator=torch.Generator(device=device).manual_seed(SEED + 5),
+            cuda_graph=cuda_graph)
+
+    (s_out, s_rounds, s_rate), sample_ms = event_timed(lambda: sample(True))
+    (es_out, es_rounds, es_rate), sample_eager_ms = event_timed(
+        lambda: sample(False))
+    sample_graph_equals_eager = (torch.equal(es_out, s_out)
+                                 and (es_rounds, es_rate) == (s_rounds,
+                                                              s_rate))
+    del es_out
     sample_ok = (tuple(s_out.shape) == (batch, prompt_len + new)
                  and 0 <= int(s_out.min()) and int(s_out.max()) < vocab)
     _, plain_syncs, _ = count_syncs(lambda: generate(cfg, model, prompt,
@@ -959,9 +1068,14 @@ def speculative_phase(model, device) -> dict:
         "acceptance_from_rounds": (new - 1 - rounds) / (rounds * GAMMA),
         "int4_launches": launches, "expected_launches": expected,
         "speculative_ms": spec_ms, "speculative_tok_s": tokens / spec_ms * 1e3,
+        "eager_ms": eager_ms, "eager_tok_s": tokens / eager_ms * 1e3,
+        "eager_rounds": eager_rounds, "graph_speedup": eager_ms / spec_ms,
+        "graph_equals_eager": graph_equals_eager,
+        "graphed_rounds_profile": rounds_profile,
         "plain_ms": plain_ms, "plain_tok_s": tokens / plain_ms * 1e3,
         # of the short calls: 2 x gamma new tokens each
         "host_syncs": spec_syncs, "host_sync_rounds": sync_rounds,
+        "host_syncs_per_round": spec_syncs / sync_rounds,
         "host_sync_sites": spec_sync_sites, "plain_host_syncs": plain_syncs,
         "same_tokens_as_plain_generate": same_as_plain,
         "teacher_forced_argmax_share": argmax_share,
@@ -972,11 +1086,19 @@ def speculative_phase(model, device) -> dict:
         "self_draft_cut_gaps_rel": cuts["gaps"],
         "self_draft_rounds_replayed": cuts["replayed"],
         "sample_rounds": s_rounds, "sample_accept_rate": s_rate,
-        "sample_ms": sample_ms, "outputs_ok": shape_ok and sample_ok,
+        "sample_ms": sample_ms, "sample_eager_ms": sample_eager_ms,
+        "sample_graph_equals_eager": sample_graph_equals_eager,
+        "outputs_ok": shape_ok and sample_ok,
     }
     emit(res)
     if not (shape_ok and sample_ok):
         raise RuntimeError("speculative decoding gave malformed tokens")
+    if not (graph_equals_eager and sample_graph_equals_eager):
+        raise RuntimeError(
+            f"the graphed speculative loop and the eager one disagree: "
+            f"greedy tokens equal {graph_equals_eager} (rounds {rounds} "
+            f"and {eager_rounds}), sampled {sample_graph_equals_eager} "
+            f"(rounds {s_rounds} and {es_rounds})")
     if argmax_share < SPEC_MIN_FORCED or worst_gap > SPEC_GAP_TOL:
         raise RuntimeError(
             f"speculative tokens are not the target's greedy choice: "
@@ -992,6 +1114,178 @@ def speculative_phase(model, device) -> dict:
     if s_rate < SPEC_MIN_ACCEPT * (GAMMA - 1) / GAMMA:
         raise RuntimeError(f"self-draft sampling accepted {s_rate} of the "
                            f"draft tokens")
+    return res
+
+
+def _cpu_tree(node):
+    """A param tree with its leaves copied to the host."""
+    if isinstance(node, dict):
+        return {k: _cpu_tree(v) for k, v in node.items()}
+    return node.cpu()
+
+
+def _int4_shapes(model) -> list:
+    """(K, N) of every int4 layer's kernel as the model holds it."""
+    from kubeflow_tpu_torch.models.quant import Int4Linear
+
+    return sorted({(2 * m.kernel_q4.shape[0], m.kernel_q4.shape[1])
+                   for m in model.modules() if isinstance(m, Int4Linear)})
+
+
+def _tp_decode_rank(tree_path: str, cfg, prompt, new: int) -> list:
+    """One rank of tensor-parallel decode of the 7B int4 model on card 0,
+    in a gloo world of TP_RANKS processes: this rank's blocks of the tree
+    at `tree_path`, `generate(mesh=)` (eager: gloo cannot be captured),
+    its tokens, int4 launches and layer shapes.  Every rank's report."""
+    import torch
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.models.convert import params_from_flax
+    from kubeflow_tpu_torch.models.generate import generate
+    from kubeflow_tpu_torch.ops import int4_matmul as i4
+    from kubeflow_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    mesh = make_mesh(MeshConfig(tensor=TP_RANKS), device="cuda")
+    tree = torch.load(tree_path, mmap=True, weights_only=True)
+    t0 = time.perf_counter()
+    model = params_from_flax(tree, cfg, device, mesh)
+    del tree
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    i4.launches = 0
+    dist.barrier()
+    t0 = time.perf_counter()
+    out = generate(cfg, model, prompt.to(device), new, mesh=mesh)
+    torch.cuda.synchronize()
+    mine = {"rank": mesh.get_local_rank("tensor"),
+            "backend": dist.get_backend(), "tokens": out.cpu(),
+            "int4_launches": i4.launches, "int4_shapes": _int4_shapes(model),
+            "load_s": load_s, "generate_s": time.perf_counter() - t0,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    reports = [None] * dist.get_world_size()
+    dist.all_gather_object(reports, mine)
+    return sorted(reports, key=lambda r: r["rank"])
+
+
+def tp_decode_phase(model, device, smi: str) -> dict:
+    """Tensor-parallel decode (`generate(mesh=)`) of the slice's int4
+    Llama-2-7B at batch 16, prompt 128.  (a) A world-1 NCCL mesh: the
+    step with its logits all-gather captured as a CUDA graph, held bit
+    for bit to single-device graphed `generate` on the same weights, 128
+    new tokens, 129 int4 launches a step credited per replay.  (b)
+    Tensor 2 as two processes on the one card over gloo (eager), 8 new
+    tokens, each rank on its blocks of the same weights: both ranks' tokens
+    equal, 129 int4 launches a step a rank at the shard shapes
+    (TP2_LAYERS), and the single-device model's teacher-forced gate of
+    the speculative phase over them."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch import dryrun
+    from kubeflow_tpu_torch.models.convert import flax_tree, params_from_flax
+    from kubeflow_tpu_torch.models.generate import generate
+    from kubeflow_tpu_torch.models.speculative import teacher_forced_gaps
+    from kubeflow_tpu_torch.ops import int4_matmul as i4
+    from kubeflow_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    phase_t0 = time.perf_counter()
+    cfg, batch, prompt_len = model.cfg, DECODE_M, 128
+    per_step = 4 * cfg.num_layers + 1
+    gen = torch.Generator(device=device).manual_seed(SEED + 19)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=gen, device=device)
+    new = SPEC_NEW
+    single, single_ms = event_timed(lambda: generate(cfg, model, prompt, new))
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh(MeshConfig(), device="cuda")
+        tp_model = params_from_flax(flax_tree(model), cfg, device, mesh)
+        backend = dist.get_backend(mesh.get_group("tensor"))
+        # the first collective brings up the NCCL communicator
+        generate(cfg, tp_model, prompt, 2, mesh=mesh)
+        i4.launches = 0
+        world1, world1_ms = event_timed(
+            lambda: generate(cfg, tp_model, prompt, new, mesh=mesh))
+        world1_launches = i4.launches
+        world1_equal = torch.equal(world1, single)
+        del tp_model, world1
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "llama7b_int4.pt")
+        torch.save(_cpu_tree(flax_tree(model)), path)
+        t0 = time.perf_counter()
+        reports = dryrun.launch(TP_RANKS, _tp_decode_rank,
+                                (path, cfg, prompt.cpu(), TP_NEW),
+                                timeout=TP_TIMEOUT_S)
+        tp2_s = time.perf_counter() - t0
+    tokens = reports[0]["tokens"].to(device)
+    ranks_equal = all(torch.equal(r["tokens"], reports[0]["tokens"])
+                      for r in reports)
+    forced = teacher_forced_gaps(model, tokens, prompt_len)
+    tp2_single = generate(cfg, model, prompt, TP_NEW)
+    want_shapes = sorted(TP2_LAYERS.values())
+    res = {
+        "phase": "tp_decode", "model": "llama2-7b int4", "batch": batch,
+        "prompt_len": prompt_len,
+        "world1": {"backend": backend, "new_tokens": new,
+                   "tokens_equal_single_device": world1_equal,
+                   "int4_launches": world1_launches,
+                   "expected_launches": per_step * new,
+                   "ms": world1_ms, "single_device_ms": single_ms,
+                   "tok_s": batch * new / world1_ms * 1e3,
+                   "single_device_tok_s": batch * new / single_ms * 1e3},
+        "tensor2": {"ranks": TP_RANKS, "backend": reports[0]["backend"],
+                    "new_tokens": TP_NEW, "ranks_equal": ranks_equal,
+                    "int4_launches_per_rank": [r["int4_launches"]
+                                               for r in reports],
+                    "expected_launches_per_rank": per_step * TP_NEW,
+                    "int4_shapes": reports[0]["int4_shapes"],
+                    "expected_shapes": want_shapes,
+                    "teacher_forced_argmax_share": forced["argmax_share"],
+                    "teacher_forced_max_gap_rel": forced["max_gap_rel"],
+                    "same_tokens_as_single_device": (
+                        tokens == tp2_single).float().mean().item(),
+                    "load_s": [r["load_s"] for r in reports],
+                    "generate_s": [r["generate_s"] for r in reports],
+                    "peak_mem_gb": [r["peak_mem_gb"] for r in reports],
+                    "launch_s": tp2_s},
+        "timing_note": "tensor 2 is two processes time-sharing one card "
+                       "over gloo and host memory: not a multi-GPU speed",
+        "nvidia_smi": smi, "phase_s": time.perf_counter() - phase_t0,
+    }
+    emit(res)
+    bad = []
+    if backend != "nccl" or not world1_equal:
+        bad.append(f"world-1 mesh on {backend}: tokens equal to single-"
+                   f"device graphed generate {world1_equal}")
+    if world1_launches != per_step * new:
+        bad.append(f"world-1 mesh launched int4 {world1_launches} times, "
+                   f"expected {per_step * new}")
+    if not ranks_equal:
+        bad.append("the tensor-2 ranks hold different tokens")
+    for r in reports:
+        if r["int4_launches"] != per_step * TP_NEW or \
+                r["int4_shapes"] != want_shapes:
+            bad.append(f"tensor-2 rank {r['rank']} launched int4 "
+                       f"{r['int4_launches']} times (expected "
+                       f"{per_step * TP_NEW}) at {r['int4_shapes']} "
+                       f"(expected {want_shapes})")
+    if (forced["argmax_share"] < SPEC_MIN_FORCED
+            or forced["max_gap_rel"] > SPEC_GAP_TOL):
+        bad.append(f"tensor-2 tokens are not the single-device model's "
+                   f"greedy choice: argmax share {forced['argmax_share']} "
+                   f"(limit {SPEC_MIN_FORCED}), worst gap "
+                   f"{forced['max_gap_rel']} (limit {SPEC_GAP_TOL})")
+    if bad:
+        raise RuntimeError("tp_decode: " + "; ".join(bad))
     return res
 
 
@@ -3031,7 +3325,8 @@ def main() -> int:
         "kernel", kernel_phase,
         gen, torch.Generator(device=device).manual_seed(SEED + 2),
         torch.Generator(device=device).manual_seed(SEED + 3),
-        torch.Generator(device=device).manual_seed(SEED + 16), device,
+        torch.Generator(device=device).manual_seed(SEED + 16),
+        torch.Generator(device=device).manual_seed(SEED + 18), device,
         peak, flush)
     # its own generators, so the slice draws the same weights as before
     flash_results = timed(
@@ -3043,6 +3338,7 @@ def main() -> int:
         flush)
     sl, model = timed("slice", slice_phase, gen, device, device_name)
     sp = timed("speculative", speculative_phase, model, device)
+    tp = timed("tp_decode", tp_decode_phase, model, device, smi)
     del model
     torch.cuda.empty_cache()
     l13 = timed("llama13b", llama13b_phase, device, smi)
@@ -3073,7 +3369,11 @@ def main() -> int:
         "replaces": "kubeflow_tpu/ops/int4_matmul.py:87",
         "launches": sl["int4_launches"],
         "speculative_launches": sp["int4_launches"],
+        "speculative_graphed_launches": sp["int4_launches"],
         "speculative_rounds": sp["rounds"],
+        "tp_decode_world1_launches": tp["world1"]["int4_launches"],
+        "tp_decode_tensor2_launches_per_rank":
+            tp["tensor2"]["int4_launches_per_rank"],
         "decode_bench_int4_launches": db["int4"]["launches"]["int4_matmul"],
         "decode_bench_int4_calls": db["int4"]["generate_calls"],
         "llama13b_launches": l13["int4_launches"],

@@ -24,7 +24,9 @@ microbatch counts (`microbatches`).  It prints one `ok` line per mesh.
 
 The per-rank workers live here, so spawned processes import this package
 and nothing else.  `sharded_step` is also what the tests run on their
-own meshes, from this proxy's weights or from converted ones.
+own meshes, from this proxy's weights or from converted ones, and
+`tensor_decode` runs tensor-parallel greedy decode (`generate(mesh=)`)
+on a tensor mesh of the launch's ranks.
 """
 
 from __future__ import annotations
@@ -230,6 +232,42 @@ def run_meshes(cfg: TransformerConfig, meshes: list, batch: dict,
                          micro=microbatches(m.resolved(world), schedule,
                                             rows))
             for m, schedule in meshes]
+
+
+def tensor_decode(cases: list, prompt: torch.Tensor, new_tokens: int
+                  ) -> list:
+    """One rank of tensor-parallel greedy decode on the CPU, at a tensor
+    degree of the world size: for each (cfg, tree) of `cases` (a
+    training config and a reference-layout tree), the decode model
+    converted into this rank's blocks, its prefill logits of `prompt`
+    gathered over "tensor" and `generate(mesh=)`'s tokens.  Returns, per
+    case, {"logits": [B, P, V], "tokens": every rank's tokens}."""
+    import torch.distributed as dist
+
+    from .models.convert import params_from_flax
+    from .models.generate import (
+        full_logits,
+        generate,
+        prepare_decode,
+        vocab_group,
+    )
+    from .parallel.mesh import make_mesh
+
+    world = dist.get_world_size()
+    mesh = make_mesh(MeshConfig(tensor=world), device="cpu")
+    results = []
+    for cfg, tree in cases:
+        cfg, tree = prepare_decode(cfg, tree)
+        model = params_from_flax(tree, cfg, "cpu", mesh)
+        with torch.inference_mode():
+            logits = full_logits(model(prompt, cache=model.new_cache(
+                prompt.shape[0])), vocab_group(model))
+        tokens = generate(cfg, model, prompt, new_tokens, mesh=mesh,
+                          device="cpu")
+        every = [None] * world
+        dist.all_gather_object(every, tokens)
+        results.append({"logits": logits, "tokens": every})
+    return results
 
 
 def _rank_main(rank: int, world: int, init: str, out: str, target,

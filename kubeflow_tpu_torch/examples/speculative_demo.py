@@ -14,9 +14,9 @@ Greedy (default): plain `generate` against `speculative_generate` at
 batch 4, prompt 64, 256 new tokens, gamma 4: the best of 3 calls each on
 a fresh prompt, the rounds against the ideal ceil(255 / 4) = 64, and the
 speedup.  The plain path's single-token steps replay a captured CUDA
-graph; the speculative loop stays eager (one host read a round decides
-its next shapes), so the speedup is measured between those two, as it
-is.  The speculative tokens are held to the target's own greedy choice,
+graph, and so do the speculative rounds (models/speculative.py
+`GraphedRound`), with one host read of the frontier a round.  The
+speculative tokens are held to the target's own greedy choice,
 teacher forced (models/speculative.py `teacher_forced_gaps`): the share
 that are its argmax and the widest gap of the others.
 

@@ -16,6 +16,12 @@ port's names (the ViT's, `vit_params_from_flax`, and the MNIST MLP's).
 `flax_tree` is the inverse walk, and `opt_state_from_optax`
 carries the reference's AdamW state across beside the parameters, so a
 reference run can be continued in the port.
+
+On a tensor mesh (`params_from_flax(..., mesh=)`, tensor-parallel
+decode) the full tree goes to every rank, which keeps its block of each
+leaf: the fused projections are first regrouped so that a contiguous cut
+over "tensor" is one rank's (`regroup_fused`), then the rule table cuts
+every leaf (models/train.py `shard_parameters`).
 """
 
 from __future__ import annotations
@@ -66,13 +72,62 @@ def state_dict_from_flax(params: Mapping) -> dict:
     return out
 
 
+def regroup_fused(state: dict, cfg: TransformerConfig, ways: int) -> dict:
+    """A state dict whose fused projections are ordered so that a
+    contiguous cut into `ways` blocks gives each tensor rank its own:
+
+    - qkv ([D, H+2kvH, Dh] and int8's [1, H+2kvH, Dh] scale, or int4's
+      flat [K/2, (H+2kvH) Dh] and [K/64, 1, (H+2kvH) Dh]): heads ordered
+      rank by rank, each rank's q heads, then its k heads, then its v;
+    - int4's gate_up ([K/2, 2M], [K/64, 1, 2M], gate's M columns then
+      up's): columns ordered rank by rank, each rank's gate block, then
+      its up block.  The unflattened gate_up [D, 2, M] is cut over M as it
+      is.
+
+    Other leaves pass through."""
+    if ways == 1:
+        return state
+    h, kvh, hd, m = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                     cfg.mlp_dim)
+    qh, kh = h // ways, kvh // ways
+    order = torch.cat([torch.cat([
+        torch.arange(r * qh, (r + 1) * qh),
+        h + torch.arange(r * kh, (r + 1) * kh),
+        h + kvh + torch.arange(r * kh, (r + 1) * kh)]) for r in range(ways)])
+    int4 = cfg.weight_dtype == "int4"
+    out = {}
+    for name, leaf in state.items():
+        if ".attn.qkv." in name:
+            lead = leaf.shape[:-1] if int4 else leaf.shape[:1]
+            heads = leaf.reshape(lead + (h + 2 * kvh, hd))
+            leaf = heads.index_select(len(lead), order).reshape(leaf.shape)
+        elif ".mlp.gate_up." in name and int4:
+            lead = leaf.shape[:-1]
+            blocks = leaf.reshape(lead + (2, ways, m // ways))
+            leaf = blocks.transpose(-3, -2).reshape(leaf.shape)
+        out[name] = leaf
+    return out
+
+
 def params_from_flax(params: Mapping, cfg: TransformerConfig,
-                     device="cuda") -> Transformer:
+                     device="cuda", mesh=None) -> Transformer:
     """Build the port's Transformer for `cfg` and load the flax tree into
     it.  The tree's layout must be the one `cfg` builds (fused or not,
-    bf16/int8/int4): a missing, extra or misshapen leaf raises."""
-    model = Transformer(cfg, device)
-    model.load_state_dict(state_dict_from_flax(params), strict=True)
+    bf16/int8/int4): a missing, extra or misshapen leaf raises.  With a
+    tensor `mesh` (a decode config; models/transformer.py
+    `check_decode_mesh`) the model is built on it and keeps this rank's
+    block of every leaf of the full tree."""
+    model = Transformer(cfg, device, mesh)
+    state = state_dict_from_flax(params)
+    if mesh is not None:
+        from ..parallel.mesh import axis_size
+
+        state = regroup_fused(state, cfg, axis_size(mesh, "tensor"))
+    model.load_state_dict(state, strict=True)
+    if mesh is not None:
+        from .train import shard_parameters
+
+        shard_parameters(model, mesh)
     return model
 
 
@@ -158,5 +213,5 @@ def opt_state_from_optax(opt_state, b1: float = 0.9) -> dict:
 
 
 __all__ = ["flax_tree", "load_flax_tree", "opt_state_from_optax",
-           "params_from_flax", "state_dict_from_flax", "to_tensor",
-           "vit_params_from_flax"]
+           "params_from_flax", "regroup_fused", "state_dict_from_flax",
+           "to_tensor", "vit_params_from_flax"]

@@ -22,6 +22,17 @@ Sampling is greedy (temperature 0) or temperature + top-k from a
 `torch.Generator`, which the graph registers; its bits differ from
 jax.random's, so the two packages agree exactly only under greedy
 decoding.
+
+With a `mesh` (the reference's argument) whose only populated axis is
+"tensor", every rank builds the decoder on it and decodes its block:
+heads, kv heads (its own KV cache), MLP and vocabulary split over
+"tensor" (models/transformer.py `check_decode_mesh`, models/convert.py
+`params_from_flax(..., mesh=)`).  The head gives each rank its slice of
+the vocabulary; the step all-gathers the logits over "tensor" and
+samples on the whole row, so every rank, drawing from an identically
+seeded generator, holds the same tokens.  The step is captured per rank
+only where the tensor group's backend is NCCL: a gloo collective cannot
+be captured, so on gloo the loop is eager.
 """
 
 from __future__ import annotations
@@ -30,8 +41,10 @@ from collections.abc import Mapping
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from ..ops import int4_matmul, launch_counts
+from ..parallel.collectives import gather_from
 from .configs import TransformerConfig
 from .transformer import KVCache, Transformer
 
@@ -141,12 +154,29 @@ def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
     if top_k > 0:
         kth = torch.sort(logits, dim=-1).values[:, -top_k][:, None]
         logits = torch.where(logits < kth, float("-inf"), logits)
-    probs = torch.softmax(logits, dim=-1)
-    # torch.multinomial's draw of one sample (an exponential race), less
-    # its host-side check of the probabilities, which a captured step
-    # cannot make
-    race = torch.empty_like(probs).exponential_(1.0, generator=generator)
-    return torch.argmax(probs / race, dim=-1)
+    return race(torch.softmax(logits, dim=-1), generator)
+
+
+def race(probs: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One draw from each row of `probs` [B, V]: torch.multinomial's draw
+    of one sample (an exponential race, the argmax of p / E with E ~
+    Exp(1)), less its host-side check of the probabilities, which a
+    captured step cannot make."""
+    e = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return torch.argmax(probs / e, dim=-1)
+
+
+def vocab_group(model: Transformer):
+    """The group over which `model`'s logits are split, None without a
+    mesh: the mesh's "tensor" group, of one rank too, so that a world-1
+    mesh gathers its logits through its backend as a wider one does."""
+    return None if model.mesh is None else model.mesh.get_group("tensor")
+
+
+def full_logits(logits: torch.Tensor, group) -> torch.Tensor:
+    """[..., V / tp] logits of this rank's vocabulary block -> [..., V],
+    the blocks all-gathered over `group` in rank order."""
+    return gather_from(logits, group, dim=-1)
 
 
 def capturable(cfg: TransformerConfig) -> bool:
@@ -164,7 +194,8 @@ class DecodeStep:
     `last` (the token at the cache's fill index) at that position,
     samples the next token, writes it into `tokens` at the advanced fill
     index and into `last`.  Every position and index is read from the
-    device (`cache.pos`), so a captured call replays as the next step."""
+    device (`cache.pos`), so a captured call replays as the next step.
+    On a mesh the logits are gathered over "tensor" before sampling."""
 
     def __init__(self, model: Transformer, cache: KVCache,
                  tokens: torch.Tensor, temperature: float = 0.0,
@@ -173,6 +204,7 @@ class DecodeStep:
         self.model, self.cache, self.tokens = model, cache, tokens
         self.temperature, self.top_k = temperature, top_k
         self.generator = generator
+        self.group = vocab_group(model)
         self.last = tokens[:, cache.index].clone()
 
     def __call__(self) -> None:
@@ -180,47 +212,65 @@ class DecodeStep:
         logits = self.model(self.last[:, None],
                             positions=cache.pos.expand(batch, 1),
                             cache=cache)
-        tok = sample_token(logits[:, -1, :], self.generator,
-                           self.temperature, self.top_k)
+        tok = sample_token(full_logits(logits[:, -1, :], self.group),
+                           self.generator, self.temperature, self.top_k)
         self.tokens.index_copy_(1, cache.pos.view(1), tok[:, None])
         self.last.copy_(tok)
+
+
+def warm_up(fn, device: torch.device) -> None:
+    """fn() once on a side stream: the warm-up PyTorch asks for before a
+    capture (cuBLAS workspaces, the int4 kernel's split-K counters and
+    the kernel libraries come into being outside the graph)."""
+    side = torch.cuda.Stream(device=device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+
+
+class CapturedCall:
+    """fn() captured as one CUDA graph.  The capture runs no kernel: it
+    records them.  What the kernels' wrappers counted during it is taken
+    back and credited at each replay (ops/launch_counts.py).  A sampling
+    call's `generator` is registered with the graph, so each replay draws
+    anew.  The graph keeps the int4 kernel's split-K counter buffers it
+    was captured with, so an eager call that replaces them cannot free
+    them under it."""
+
+    def __init__(self, fn, generator: Optional[torch.Generator] = None):
+        self.graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            self.graph.register_generator_state(generator)
+        before = launch_counts.snapshot()
+        with torch.cuda.graph(self.graph):
+            fn()
+        # the int4 kernel's counters live outside the graph's memory pool
+        self.counters = int4_matmul.counter_buffers()
+        self.launches = launch_counts.since(before)
+        launch_counts.restore(before)
+
+    def replay(self, times: int = 1) -> None:
+        for _ in range(times):
+            self.graph.replay()
+        launch_counts.credit(self.launches, times)
 
 
 class GraphedStep:
     """A `DecodeStep` captured as one CUDA graph, replayed once a token.
 
-    Construction runs the step once eagerly on a side stream, the warm-up
-    PyTorch asks for before a capture (cuBLAS workspaces, the int4
-    kernel's split-K counters and the kernel libraries come into being
-    outside the graph).  That warm-up is the run's first step, and its
-    token is kept: it advances the cache, so the capture that follows
-    records the step at the next position, and no position is written
-    twice.  The capture runs no kernel: it records them.  What the
-    kernels' wrappers counted during it is taken back and credited at
-    each replay (ops/launch_counts.py), and the cache's host mirror,
-    which the captured call advanced, is set back.  A sampling step's
-    generator is registered with the graph, so each replay draws anew.
-    The graph keeps the int4 kernel's split-K counter buffers it was
-    captured with, so an eager call that replaces them cannot free them
-    under it."""
+    Construction runs the step once eagerly (`warm_up`); that is the
+    run's first step, and its token is kept: it advances the cache, so
+    the capture that follows records the step at the next position, and
+    no position is written twice.  The cache's host mirror, which the
+    captured call advanced, is set back."""
 
     def __init__(self, step: DecodeStep):
         cache = step.cache
-        side = torch.cuda.Stream(device=cache.pos.device)
-        side.wait_stream(torch.cuda.current_stream(cache.pos.device))
-        with torch.cuda.stream(side):
-            step()
-        torch.cuda.current_stream(cache.pos.device).wait_stream(side)
-        self.step, self.graph = step, torch.cuda.CUDAGraph()
-        if step.temperature > 0.0 and step.generator is not None:
-            self.graph.register_generator_state(step.generator)
-        before, index = launch_counts.snapshot(), cache.index
-        with torch.cuda.graph(self.graph):
-            step()
-        # the int4 kernel's counters live outside the graph's memory pool
-        self.counters = int4_matmul.counter_buffers()
-        self.launches = launch_counts.since(before)
-        launch_counts.restore(before)
+        warm_up(step, cache.pos.device)
+        self.step, index = step, cache.index
+        self.captured = CapturedCall(
+            step, step.generator if step.temperature > 0.0 else None)
         cache.index = index
 
     def replay(self, steps: int) -> None:
@@ -230,16 +280,14 @@ class GraphedStep:
         if cache.index + steps > rows:
             raise ValueError(f"cache holds {rows} positions; cannot run "
                              f"{steps} steps from {cache.index}")
-        for _ in range(steps):
-            self.graph.replay()
+        self.captured.replay(steps)
         cache.index += steps
-        launch_counts.credit(self.launches, steps)
 
 
 def generate(cfg: TransformerConfig, params: Union[Mapping, Transformer],
              prompt, max_new_tokens: int, temperature: float = 0.0,
              top_k: int = 0, generator: Optional[torch.Generator] = None,
-             unroll_layers: bool = True, device="cuda",
+             mesh=None, unroll_layers: bool = True, device="cuda",
              cuda_graph: bool = True) -> torch.Tensor:
     """prompt [B, P] -> [B, P + max_new_tokens] token ids on `device`.
 
@@ -248,21 +296,26 @@ def generate(cfg: TransformerConfig, params: Union[Mapping, Transformer],
     prepare_decode(cfg, params, unroll_layers) and params_from_flax) or a
     port Transformer built for `cfg` itself (a decode config).  Prompts
     are unpadded and of equal length, and P + max_new_tokens must fit
-    cfg.max_seq_len.  `generator` takes the reference's `rng`; its
-    `mesh` (tensor-parallel decode) is not ported yet.  On a CUDA device
-    the single-token steps replay one captured graph unless
-    `cuda_graph=False` or the config is not `capturable`."""
+    cfg.max_seq_len.  `generator` takes the reference's `rng`.  `mesh`
+    decodes tensor-parallel (a tree is converted into this rank's blocks;
+    a Transformer must have been built on `mesh`); every rank returns the
+    whole sequence.  On a CUDA device the single-token steps replay one
+    captured graph unless `cuda_graph=False`, the config is not
+    `capturable` or the mesh's tensor group is not on NCCL."""
     if isinstance(params, Transformer):
         model = params
         if cfg != model.cfg:
             raise ValueError("generate got a Transformer built for another "
                              "config than `cfg`")
+        if mesh is not None and mesh is not model.mesh:
+            raise ValueError("generate got a Transformer built on another "
+                             "mesh than `mesh`")
         device = model.device
     else:
         from .convert import params_from_flax
 
         cfg, tree = prepare_decode(cfg, params, unroll_layers=unroll_layers)
-        model = params_from_flax(tree, cfg, device)
+        model = params_from_flax(tree, cfg, device, mesh)
     prompt = torch.as_tensor(prompt, device=device).to(torch.int64)
     batch, prompt_len = prompt.shape
     total = prompt_len + max_new_tokens
@@ -271,8 +324,10 @@ def generate(cfg: TransformerConfig, params: Union[Mapping, Transformer],
                          f"exceeds max_seq_len {model.cfg.max_seq_len}")
     if generator is None and temperature > 0.0:
         generator = torch.Generator(device=device).manual_seed(0)
+    group = vocab_group(model)
     graphed = (cuda_graph and model.device.type == "cuda"
-               and capturable(model.cfg))
+               and capturable(model.cfg)
+               and (group is None or dist.get_backend(group) == "nccl"))
 
     with torch.inference_mode():
         cache = model.new_cache(batch)
@@ -280,8 +335,9 @@ def generate(cfg: TransformerConfig, params: Union[Mapping, Transformer],
                              device=model.device)
         tokens[:, :prompt_len] = prompt
         logits = model(prompt, cache=cache)
-        tokens[:, prompt_len] = sample_token(logits[:, -1, :], generator,
-                                             temperature, top_k)
+        tokens[:, prompt_len] = sample_token(
+            full_logits(logits[:, -1, :], group), generator, temperature,
+            top_k)
         del logits
         step = DecodeStep(model, cache, tokens, temperature, top_k,
                           generator)
@@ -294,6 +350,7 @@ def generate(cfg: TransformerConfig, params: Union[Mapping, Transformer],
         return tokens
 
 
-__all__ = ["DecodeStep", "GraphedStep", "capturable", "decode_config",
-           "fuse_decode_params", "generate", "prepare_decode",
-           "sample_token", "unroll_params"]
+__all__ = ["CapturedCall", "DecodeStep", "GraphedStep", "capturable",
+           "decode_config", "full_logits", "fuse_decode_params", "generate",
+           "prepare_decode", "race", "sample_token", "unroll_params",
+           "vocab_group", "warm_up"]

@@ -111,7 +111,8 @@ def _stacked(experts: int, contract: int, features: int,
              cfg: TransformerConfig, device, axes: tuple) -> nn.Module:
     dtype = torch_dtype(cfg.dtype)
     if cfg.weight_dtype == "int8":
-        return StackedInt8Linear(experts, contract, features, dtype, device)
+        return StackedInt8Linear(experts, contract, features, dtype, device,
+                                 axes)
     if cfg.weight_dtype:
         raise ValueError(f"expert layers take weight_dtype '' or 'int8', "
                          f"not {cfg.weight_dtype!r}")

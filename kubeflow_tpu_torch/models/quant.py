@@ -16,6 +16,20 @@ leaf for leaf:
   `Int4Linear` runs the Hopper kernel of ops/int4_matmul.py on a CUDA
   tensor and the plain version on a CPU tensor.
 
+Every quantized parameter records logical axis names (`logical_axes`),
+so models/train.py `shard_parameters` cuts it for tensor-parallel decode
+by the same rule table as a full-precision kernel, and each layer takes
+its sizes from its parameters' shapes.  The int8 kernels carry their
+dense kernel's axes and the scales its feature axes, as in the
+reference.  The int4 layout is flat, [K/2, N]: the reference names only
+its columns (`(None, k_axes[-1])`), which GSPMD may cut anywhere, since
+it computes on the whole array.  Here each rank multiplies its own
+block, so the packed rows and the scale groups carry the dense kernel's
+outermost contract axis (out and down are cut over K, row-parallel) and
+the columns its outermost named feature axis (qkv, gate_up and the head
+are cut over N, column-parallel; models/convert.py regroups the fused
+ones so that each rank's columns are contiguous).
+
 The quantizers work on the reference's param tree layout (nested dicts
 of tensors, models/convert.py) and give bytes identical to the reference's
 numpy quantizers, on either device.
@@ -39,6 +53,21 @@ def _as_tuple(v) -> tuple:
     return tuple(v) if isinstance(v, (tuple, list)) else (v,)
 
 
+def _named(param: nn.Parameter, axes: tuple) -> nn.Parameter:
+    param.logical_axes = axes
+    return param
+
+
+def int4_axes(axes, n_contract: int) -> tuple:
+    """(packed rows, columns) axis names of an int4 kernel whose dense
+    layout has logical `axes` with `n_contract` contract dims: the
+    outermost contract axis and the outermost named feature axis."""
+    if not axes:
+        return None, None
+    return axes[0], next((a for a in axes[n_contract:] if a is not None),
+                         None)
+
+
 class Int8Linear(nn.Module):
     """The port of Int8DenseGeneral: a bias-free dense layer whose kernel
     is int8 with per-output-channel bf16 scales.  The contracted dims are
@@ -46,25 +75,30 @@ class Int8Linear(nn.Module):
 
     def __init__(self, contract: Union[int, Sequence[int]],
                  features: Union[int, Sequence[int]],
-                 dtype=torch.bfloat16, device="cuda"):
+                 dtype=torch.bfloat16, device="cuda", axes=None):
         super().__init__()
         self.contract, self.features = _as_tuple(contract), _as_tuple(features)
         self.dtype = dtype
+        nc = len(self.contract)
         shape = self.contract + self.features
-        scale_shape = (1,) * len(self.contract) + self.features
-        self.kernel_q = nn.Parameter(
+        scale_shape = (1,) * nc + self.features
+        axes = tuple(axes) if axes else (None,) * len(shape)
+        self.kernel_q = _named(nn.Parameter(
             torch.zeros(shape, dtype=torch.int8, device=device),
-            requires_grad=False)
-        self.kernel_scale = nn.Parameter(
+            requires_grad=False), axes)
+        self.kernel_scale = _named(nn.Parameter(
             torch.ones(scale_shape, dtype=torch.bfloat16, device=device),
-            requires_grad=False)
+            requires_grad=False), (None,) * nc + axes[nc:])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # sizes from the kernel: a tensor-parallel shard computes its block
+        nc = len(self.contract)
+        shape = self.kernel_q.shape
         w = self.kernel_q.to(self.dtype) * self.kernel_scale.to(self.dtype)
-        k, n = prod(self.contract), prod(self.features)
-        lead = x.shape[:x.dim() - len(self.contract)]
-        out = x.to(self.dtype).reshape(-1, k) @ w.reshape(k, n)
-        return out.reshape(lead + self.features)
+        k = prod(shape[:nc])
+        lead = x.shape[:x.dim() - nc]
+        out = x.to(self.dtype).reshape(-1, k) @ w.reshape(k, -1)
+        return out.reshape(lead + shape[nc:])
 
 
 class StackedInt8Linear(nn.Module):
@@ -74,21 +108,25 @@ class StackedInt8Linear(nn.Module):
     [E, ..., N], dequantized in `dtype` and multiplied per expert."""
 
     def __init__(self, experts: int, contract: int, features: int,
-                 dtype=torch.bfloat16, device="cuda"):
+                 dtype=torch.bfloat16, device="cuda", axes=None):
         super().__init__()
         self.contract, self.features, self.dtype = contract, features, dtype
-        self.kernel_q = nn.Parameter(
+        axes = tuple(axes) if axes else (None, None, None)
+        self.kernel_q = _named(nn.Parameter(
             torch.zeros((experts, contract, features), dtype=torch.int8,
-                        device=device), requires_grad=False)
-        self.kernel_scale = nn.Parameter(
+                        device=device), requires_grad=False), axes)
+        self.kernel_scale = _named(nn.Parameter(
             torch.ones((experts, 1, features), dtype=torch.bfloat16,
-                       device=device), requires_grad=False)
+                       device=device), requires_grad=False),
+            (axes[0], None, axes[2]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # sizes from the kernel: an expert/tensor shard computes its block
+        e, contract, features = self.kernel_q.shape
         w = self.kernel_q.to(self.dtype) * self.kernel_scale.to(self.dtype)
-        e, lead = x.shape[0], x.shape[1:-1]
-        out = torch.bmm(x.to(self.dtype).reshape(e, -1, self.contract), w)
-        return out.reshape((e,) + lead + (self.features,))
+        lead = x.shape[1:-1]
+        out = torch.bmm(x.to(self.dtype).reshape(e, -1, contract), w)
+        return out.reshape((e,) + lead + (features,))
 
 
 class Int4Linear(nn.Module):
@@ -98,11 +136,16 @@ class Int4Linear(nn.Module):
     On a CUDA tensor the matmul always goes through the hand-written
     kernel (ops/int4_matmul.py); on a CPU tensor through its plain
     version.  `plain = True` sends a CUDA tensor through the plain version
-    as well, so a check on the card can hold the kernel path against it."""
+    as well, so a check on the card can hold the kernel path against it.
+
+    `axes` are the dense kernel's logical axes; the packed kernel and the
+    scales record `int4_axes` of them.  A tensor-parallel shard takes its
+    K from the packed rows and its N from the columns: the output has
+    `features` but for the dim the column cut splits."""
 
     def __init__(self, contract: Union[int, Sequence[int]],
                  features: Union[int, Sequence[int]],
-                 dtype=torch.bfloat16, device="cuda"):
+                 dtype=torch.bfloat16, device="cuda", axes=None):
         super().__init__()
         self.contract, self.features = _as_tuple(contract), _as_tuple(features)
         self.dtype = dtype
@@ -111,16 +154,20 @@ class Int4Linear(nn.Module):
         if flat_in % (2 * INT4_GROUP) != 0:
             raise ValueError(f"contract size {flat_in} not divisible by "
                              f"2*INT4_GROUP={2 * INT4_GROUP}")
-        self.kernel_q4 = nn.Parameter(
+        rows, cols = int4_axes(axes, len(self.contract))
+        # the feature dim a column cut splits
+        self.split = (tuple(axes[len(self.contract):]).index(cols)
+                      if cols is not None else 0)
+        self.kernel_q4 = _named(nn.Parameter(
             torch.zeros((flat_in // 2, flat_out), dtype=torch.int8,
-                        device=device), requires_grad=False)
-        self.kernel_scale = nn.Parameter(
+                        device=device), requires_grad=False), (rows, cols))
+        self.kernel_scale = _named(nn.Parameter(
             torch.ones((flat_in // INT4_GROUP, 1, flat_out),
                        dtype=torch.bfloat16, device=device),
-            requires_grad=False)
+            requires_grad=False), (rows, None, cols))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        k = prod(self.contract)
+        k = 2 * self.kernel_q4.shape[0]
         lead = x.shape[:x.dim() - len(self.contract)]
         x2 = x.to(self.dtype).reshape(-1, k)
         if self.plain:
@@ -128,7 +175,9 @@ class Int4Linear(nn.Module):
         else:
             out = int4_matmul(x2.contiguous(), self.kernel_q4,
                               self.kernel_scale)
-        return out.reshape(lead + self.features)
+        features = list(self.features)
+        features[self.split] = -1
+        return out.reshape(lead + tuple(features))
 
 
 # ---------------------------------------------------------------------------
@@ -269,6 +318,5 @@ def quantized_bytes(params, exclude: tuple = ("embed",)) -> int:
 
 
 __all__ = ["INT4_GROUP", "Int4Linear", "Int8Linear", "StackedInt8Linear",
-           "fill_random", "quantize_kernel_int4", "quantize_params",
-           "quantize_params_int4",
-           "quantized_bytes"]
+           "fill_random", "int4_axes", "quantize_kernel_int4",
+           "quantize_params", "quantize_params_int4", "quantized_bytes"]

@@ -29,6 +29,11 @@ transformer.py for the serving and training paths.
   head returns this rank's slice of the vocabulary.  Attention is ring
   attention over "sequence" when that axis is populated.  Layers read
   their local sizes from their parameters' shapes.
+- A decode config (`cfg.decode`) on a mesh whose only populated axis is
+  "tensor" decodes tensor-parallel (`check_decode_mesh`): int4/int8
+  weights and fused projections are allowed there, the fused qkv block
+  of a rank holds its q, k and v heads (models/convert.py regroups
+  them), and `new_cache` holds the rank's kv heads.
 - On a mesh with a populated "pipeline" axis each rank builds only its
   stage's decoder layers (parallel/pipeline.py:stage_layers), named by
   their global indices (`layers.4.attn.q.kernel` on the second of two
@@ -54,7 +59,7 @@ from torch.utils.checkpoint import (
 
 from ..ops.attention import attention, decode_attention
 from ..parallel.collectives import copy_to, reduce_from
-from ..parallel.mesh import axis_group, axis_rank, axis_size
+from ..parallel.mesh import axis_group, axis_rank, axis_size, mesh_sizes
 from ..parallel.pipeline import stage_layers
 from .configs import TransformerConfig
 from .quant import Int4Linear, Int8Linear, StackedInt8Linear, _as_tuple
@@ -172,7 +177,7 @@ def _dense(contract, features, cfg: TransformerConfig, device,
     dtype = torch_dtype(cfg.dtype)
     if cfg.weight_dtype in ("int8", "int4"):
         cls = Int8Linear if cfg.weight_dtype == "int8" else Int4Linear
-        return cls(contract, features, dtype=dtype, device=device)
+        return cls(contract, features, dtype=dtype, device=device, axes=axes)
     if cfg.weight_dtype:
         raise ValueError(f"unknown weight_dtype {cfg.weight_dtype!r}")
     return DenseGeneral(contract, features, dtype,
@@ -227,7 +232,9 @@ class Attention(nn.Module):
                 kv: Optional[tuple] = None,
                 slots: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
-        h, kvh = cfg.num_heads, cfg.num_kv_heads
+        # this rank's heads: a fused block holds its q, then k, then v
+        ways = axis_size(self.mesh, "tensor")
+        h, kvh = cfg.num_heads // ways, cfg.num_kv_heads // ways
         tp = axis_group(self.mesh, "tensor")
         x = copy_to(x, tp)
         if cfg.fused_projections:
@@ -371,7 +378,7 @@ class Transformer(nn.Module):
                 "(moe_experts > 0): int4 packing covers dense kernels "
                 "only.  Use weight_dtype='int8' for quantized MoE serving.")
         if mesh is not None:
-            check_mesh(cfg, mesh)
+            (check_decode_mesh if cfg.decode else check_mesh)(cfg, mesh)
         self.cfg, self.mesh = cfg, mesh
         self.device = torch.device(device)
         dtype, pdtype = torch_dtype(cfg.dtype), torch_dtype(cfg.param_dtype)
@@ -395,10 +402,13 @@ class Transformer(nn.Module):
         return None if tp is None else (tp, self.embed.vocab_start())
 
     def new_cache(self, batch: int) -> KVCache:
-        if self.mesh is not None:
-            raise ValueError("the KV-cache decode path runs on one device")
-        return KVCache(self.cfg, batch, torch_dtype(self.cfg.dtype),
-                       self.device)
+        """The decode cache; on a tensor mesh, of this rank's kv heads."""
+        if self.mesh is not None and not self.cfg.decode:
+            raise ValueError("the KV-cache decode path runs on one device "
+                             "or on a decode config's tensor mesh")
+        ways = axis_size(self.mesh, "tensor")
+        cfg = self.cfg.with_(num_kv_heads=self.cfg.num_kv_heads // ways)
+        return KVCache(cfg, batch, torch_dtype(cfg.dtype), self.device)
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.embed(tokens)
@@ -504,6 +514,48 @@ def check_mesh(cfg: TransformerConfig, mesh) -> None:
                          f"stages")
 
 
+def check_decode_mesh(cfg: TransformerConfig, mesh) -> None:
+    """Raise ValueError unless decode config `cfg` can decode on `mesh`:
+    "tensor" the only populated axis, a dense config, heads, kv heads,
+    MLP and vocabulary divisible by the tensor degree, and with int4
+    weights every shard within the kernel's contract
+    (ops/int4_matmul.py): K / tp a multiple of 64 for the row-parallel
+    layers (out: heads x head_dim, down: the MLP) and N / tp a multiple
+    of 16 for the column-parallel ones (q/k/v or qkv, gate/up or gate_up,
+    the head)."""
+    for axis, size in mesh_sizes(mesh).items():
+        if axis != "tensor" and size > 1:
+            raise ValueError(f"decode runs tensor-parallel only: the mesh's "
+                             f"{axis!r} axis has {size} ranks")
+    if cfg.moe_experts > 0:
+        raise ValueError("tensor-parallel decode takes dense configs, not "
+                         "MoE (moe_experts > 0)")
+    tp = axis_size(mesh, "tensor")
+    h, kvh, hd, m = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                     cfg.mlp_dim)
+    dims = {"num_heads": h, "num_kv_heads": kvh, "mlp_dim": m,
+            "vocab_size": cfg.vocab_size}
+    bad = {k: v for k, v in dims.items() if v % tp}
+    if bad:
+        raise ValueError(f"{bad} not divisible by the tensor degree {tp}")
+    if cfg.weight_dtype != "int4":
+        return
+    rows = {"out": h * hd, "down": m}
+    cols = ({"qkv": (h + 2 * kvh) * hd} if cfg.fused_projections
+            else {"q": h * hd, "k": kvh * hd, "v": kvh * hd})
+    cols.update({"gate_up": 2 * m} if cfg.fused_projections
+                else {"gate": m, "up": m})
+    if not cfg.tie_embeddings:
+        cols["lm_head"] = cfg.vocab_size
+    bad = [f"{name} K/{tp} = {k // tp}" for name, k in rows.items()
+           if (k // tp) % 64]
+    bad += [f"{name} N/{tp} = {n // tp}" for name, n in cols.items()
+            if (n // tp) % 16]
+    if bad:
+        raise ValueError(f"int4 shards outside the kernel's contract (K a "
+                         f"multiple of 64, N of 16): {', '.join(bad)}")
+
+
 # flax's lecun_normal draws from N(0, 1) truncated to [-2, 2] and divides
 # by this, the standard deviation of that truncated normal
 _TRUNC_STD = 0.87962566103423978
@@ -568,5 +620,5 @@ def init_params(model: Transformer, generator: torch.Generator) -> None:
 
 __all__ = ["Attention", "DecoderLayer", "Dense", "DenseGeneral", "KVCache",
            "MLP", "REMAT_POLICIES", "RMSNorm", "StageLayers", "Transformer",
-           "check_mesh", "init_params", "lecun_normal_", "logical", "rope",
-           "torch_dtype"]
+           "check_decode_mesh", "check_mesh", "init_params", "lecun_normal_",
+           "logical", "rope", "torch_dtype"]

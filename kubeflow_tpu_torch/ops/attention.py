@@ -15,10 +15,12 @@ a CUDA tensor, their plain versions on a CPU tensor) and "ring"
 
 from __future__ import annotations
 
+import sys
 from typing import Optional, Union
 
 import torch
 
+from . import CallableModule
 from .flash_attention import flash_attention, unsupported
 from .ring_attention import ring_attention
 
@@ -128,3 +130,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 __all__ = ["attention", "causal_mask_bias", "decode_attention",
            "xla_attention"]
+
+# the package exports this module under the name of its `attention`
+# function (ops/__init__.py): calling the module calls the function
+sys.modules[__name__].__class__ = CallableModule

@@ -34,11 +34,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import sys
 from typing import Optional
 
 import torch
 
-from . import _build
+from . import CallableModule, _build
 
 SOURCE = _build.CSRC / "flash_attention.cu"
 HEAD_DIMS = (64, 128, 256)   # head dims the kernels are built for
@@ -355,3 +356,7 @@ __all__ = ["FlashAttention", "HEAD_DIMS", "SEQ_TILE", "SOURCE",
            "flash_bwd_dkv", "flash_bwd_dkv_reference", "flash_bwd_dq",
            "flash_bwd_dq_reference", "flash_forward",
            "flash_forward_reference", "launches", "row_dot", "unsupported"]
+
+# the package exports this module under the name of its `flash_attention`
+# function (ops/__init__.py): calling the module calls the function
+sys.modules[__name__].__class__ = CallableModule

@@ -10,7 +10,10 @@ eagerly, gives the reference `generate`'s greedy tokens with
 `unroll_layers` True and False; a rewind moves both copies of the fill
 index.  The decode bench's, the 13B example's and the speculative
 demo's configs and roofline bytes match the reference scripts'
-arithmetic."""
+arithmetic.  Tensor-parallel decode (`generate(mesh=)`) runs on two gloo
+processes at tensor 2 for the fused full-precision and int4 trees: the
+reference `generate`'s greedy tokens exactly, the gathered prefill
+logits within 1e-5, the same tokens on both ranks."""
 
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from kubeflow_tpu.models.generate import sample_token as jsample_token
 from kubeflow_tpu.models.transformer import Transformer as JTransformer
 from kubeflow_tpu.ops import attention as jattention
 from kubeflow_tpu.runtime import roofline as jroofline
+from kubeflow_tpu_torch import dryrun
 from kubeflow_tpu_torch.models import quant
 from kubeflow_tpu_torch.models.configs import LLAMA2_7B, TINY
 from kubeflow_tpu_torch.models.convert import params_from_flax, to_tensor
@@ -257,6 +261,48 @@ def test_greedy_generate_tokens_equal(name, trees):
                    max_new_tokens=8, device="cpu")
     assert got.shape == (2, 13)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+TP_TREES = ["full", "int4"]
+TP_NEW = 8
+
+
+@pytest.fixture(scope="module")
+def tensor_parallel(trees):
+    """One launch of two gloo processes (tensor 2) decoding both fused
+    trees: the prompt and, per tree, the gathered prefill logits and
+    every rank's tokens."""
+    prompt = np.random.RandomState(21).randint(0, 256, (2, 6))
+    cases = [(_cfg(True, weight_dtype=trees[n][0]),
+              jax.tree.map(to_tensor, trees[n][1])) for n in TP_TREES]
+    results = dryrun.launch(2, dryrun.tensor_decode,
+                            (cases, torch.from_numpy(prompt), TP_NEW),
+                            timeout=300)
+    return prompt, dict(zip(TP_TREES, results))
+
+
+@pytest.mark.parametrize("name", TP_TREES)
+def test_tensor_parallel_generate_matches_reference(name, trees,
+                                                    tensor_parallel):
+    """At tensor 2 (heads, kv heads, MLP and vocabulary split, the fused
+    qkv and int4 gate_up regrouped per rank), the reference `generate`'s
+    greedy tokens exactly on both ranks, and the prefill logits gathered
+    over "tensor" within 1e-5 of the reference's."""
+    prompt, results = tensor_parallel
+    wd, tree = trees[name]
+    jcfg, _, _ = _decode_cfgs(name, trees)
+    want = jgenerate(_cfg(False, weight_dtype=wd), tree, jnp.asarray(prompt),
+                     max_new_tokens=TP_NEW)
+    (want_logits, _), _ = JTransformer(jcfg).apply(
+        {"params": tree}, jnp.asarray(prompt), return_aux=True, decode=True,
+        mutable=["cache"])
+    got = results[name]
+    first, second = got["tokens"]
+    assert first.shape == (2, 6 + TP_NEW)
+    assert torch.equal(first, second)
+    np.testing.assert_array_equal(first.numpy(), np.asarray(want))
+    np.testing.assert_allclose(got["logits"].numpy(), np.asarray(want_logits),
+                               atol=1e-5, rtol=0)
 
 
 def test_prepare_decode_matches_reference(stacked_tree):

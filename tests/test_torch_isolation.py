@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: neither its package nor chip_smoke.py
 imports JAX, flax, optax or the reference package, in the source or at
-run time."""
+run time.  Its subpackages export the reference's names lazily: every
+name resolves, and importing a subpackage imports none of its
+modules."""
 
 from __future__ import annotations
 
@@ -8,6 +10,8 @@ import ast
 import subprocess
 import sys
 from pathlib import Path
+
+import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "kubeflow_tpu"}
@@ -64,3 +68,72 @@ def test_importing_every_port_module_loads_no_reference():
     assert loaded == "[]", proc.stdout
     assert EXPECTED <= set(walked.split()), sorted(EXPECTED
                                                    - set(walked.split()))
+
+
+# the reference's package exports (kubeflow_tpu/{models,ops,parallel}/
+# __init__.py) that the port has, and the presets it adds
+EXPORTS = {
+    "models": {"GEMMA_7B", "LLAMA2_7B", "LLAMA2_350M", "MLP", "PRESETS",
+               "TINY", "Transformer", "TransformerConfig", "VIT_B16",
+               "VIT_TINY", "ViT", "ViTConfig", "LLAMA2_13B", "BENCH_CHIP",
+               "BENCH_MOE"},
+    "ops": {"attention", "flash_attention", "ring_attention",
+            "xla_attention"},
+    "parallel": {"DEFAULT_RULES", "MESH_AXES", "MeshConfig",
+                 "logical_to_spec", "make_mesh", "mesh_for_slice"},
+}
+
+
+def test_package_exports_resolve():
+    import importlib
+    import types
+
+    for sub, names in EXPORTS.items():
+        pkg = importlib.import_module(f"kubeflow_tpu_torch.{sub}")
+        assert set(pkg.__all__) == names, sub
+        for name in names:
+            assert getattr(pkg, name) is not None, (sub, name)
+    from kubeflow_tpu_torch.models import MLP, PRESETS, TINY, Transformer, ViT
+    from kubeflow_tpu_torch.models.mlp import MLP as MnistMLP
+    from kubeflow_tpu_torch.models.transformer import Transformer as Decoder
+    from kubeflow_tpu_torch.ops import attention, flash_attention
+    from kubeflow_tpu_torch.ops import ring_attention
+    from kubeflow_tpu_torch.parallel import make_mesh
+
+    assert Transformer is Decoder and MLP is MnistMLP
+    assert PRESETS["tiny"] is TINY and callable(ViT) and callable(make_mesh)
+    # three name submodules too: each is the module, and calling it calls
+    # its function of that name, the reference's export
+    q = torch.randn((1, 8, 2, 16), generator=torch.Generator().manual_seed(0))
+    for mod in (attention, flash_attention, ring_attention):
+        assert isinstance(mod, types.ModuleType) and callable(mod)
+    assert flash_attention.launches is not None
+    assert torch.equal(attention(q, q, q, impl="xla"),
+                       attention.attention(q, q, q, impl="xla"))
+    assert torch.equal(flash_attention(q, q, q),
+                       flash_attention.flash_attention(q, q, q))
+
+
+def test_package_exports_are_lazy():
+    """Importing a subpackage imports none of its modules (not
+    models.train, the heaviest); the first name asked for imports its
+    module only."""
+    code = (
+        "import sys\n"
+        "import kubeflow_tpu_torch.models, kubeflow_tpu_torch.ops\n"
+        "import kubeflow_tpu_torch.parallel\n"
+        "subs = ('models', 'ops', 'parallel')\n"
+        "def loaded():\n"
+        "    return sorted(n for n in sys.modules if n.count('.') == 2\n"
+        "                  and n.split('.')[1] in subs\n"
+        "                  and n.startswith('kubeflow_tpu_torch.'))\n"
+        "print(loaded())\n"
+        "from kubeflow_tpu_torch.models import TINY\n"
+        "print(loaded())\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    before, after = proc.stdout.strip().splitlines()
+    assert before == "[]", before
+    assert after == "['kubeflow_tpu_torch.models.configs']", after

@@ -1,7 +1,8 @@
 """The port's serving and small-model entry points on the CPU, with no
 reference package: `python -m kubeflow_tpu_torch.bench --decode` and
 `--vit`, the serving example, the MNIST loop, the speculative demo's
-data stream, and the launch accounting a CUDA graph's replays rely on.
+data stream, the launch accounting a CUDA graph's replays rely on, and
+the tensor-parallel decode mesh's refusals.
 (The parity tests against the reference are in test_torch_decode.py and
 test_torch_train.py; the graph itself runs only on the card, in
 chip_smoke.py.)"""
@@ -155,3 +156,73 @@ def test_generate_on_cpu_takes_the_eager_loop():
     a = generate(cfg, model, prompt, 10)
     b = generate(cfg, model, prompt, 10, cuda_graph=False)
     assert torch.equal(a, b) and tuple(a.shape) == (2, 16)
+
+
+@pytest.mark.parametrize("axis", ["data", "fsdp", "sequence", "pipeline",
+                                  "expert"])
+def test_decode_mesh_refuses_other_axes(axis):
+    """Decode runs tensor-parallel only: a decode model on a mesh with any
+    other populated axis raises, naming it."""
+    from kubeflow_tpu_torch.models.generate import decode_config
+    from kubeflow_tpu_torch.models.transformer import Transformer
+    from kubeflow_tpu_torch.parallel.mesh import MeshConfig
+
+    mesh = MeshConfig(**{"data": 1, "tensor": 2, axis: 2}).resolved(4)
+    with pytest.raises(ValueError, match=repr(axis)):
+        Transformer(decode_config(TINY), device="cpu", mesh=mesh)
+
+
+def test_decode_mesh_refuses_int4_shards_outside_the_kernel():
+    """out's K = 4 heads x 32 = 128 splits 4 ways into 32 rows, not a
+    multiple of the kernel's 64-row scale group."""
+    from kubeflow_tpu_torch.models.generate import decode_config
+    from kubeflow_tpu_torch.models.transformer import check_decode_mesh
+    from kubeflow_tpu_torch.parallel.mesh import MeshConfig
+
+    cfg = decode_config(TINY).with_(weight_dtype="int4", embed_dim=128,
+                                    num_kv_heads=4, head_dim=32, mlp_dim=512)
+    mesh = MeshConfig(tensor=4).resolved(4)
+    with pytest.raises(ValueError, match="out K/4 = 32"):
+        check_decode_mesh(cfg, mesh)
+    check_decode_mesh(cfg, MeshConfig(tensor=2).resolved(2))
+
+
+def test_decode_mesh_refuses_kv_heads_it_cannot_split():
+    from kubeflow_tpu_torch.models.generate import decode_config
+    from kubeflow_tpu_torch.models.transformer import Transformer
+    from kubeflow_tpu_torch.parallel.mesh import MeshConfig
+
+    with pytest.raises(ValueError, match="num_kv_heads"):
+        Transformer(decode_config(TINY), device="cpu",
+                    mesh=MeshConfig(tensor=4).resolved(4))
+
+
+def test_llama7b_int4_shards_at_tensor_2():
+    """The int4 Llama-2-7B decode layout at tensor 2 meets the kernel's
+    contract, and its layers' shards are qkv N 6144, gate_up N 11008 and
+    the head N 16000 at K 4096, out K 2048 and down K 5504 at N 4096."""
+    from kubeflow_tpu_torch.models.configs import LLAMA2_7B
+    from kubeflow_tpu_torch.models.generate import decode_config
+    from kubeflow_tpu_torch.models.quant import Int4Linear
+    from kubeflow_tpu_torch.models.transformer import (
+        Transformer,
+        check_decode_mesh,
+    )
+    from kubeflow_tpu_torch.parallel.mesh import MeshConfig
+
+    cfg = decode_config(LLAMA2_7B).with_(weight_dtype="int4")
+    check_decode_mesh(cfg, MeshConfig(tensor=2).resolved(2))
+    model = Transformer(cfg.with_(num_layers=1), device="meta")
+    cuts = {}
+    for name, mod in model.named_modules():
+        if isinstance(mod, Int4Linear):
+            k, n = 2 * mod.kernel_q4.shape[0], mod.kernel_q4.shape[1]
+            rows, cols = mod.kernel_q4.logical_axes
+            cut = "tensor" if cols in ("heads", "mlp", "vocab") else None
+            cuts[name.split(".")[-1]] = ((k // 2, n) if rows in (
+                "heads", "mlp") else (k, n // 2), cut)
+    assert cuts == {"qkv": ((4096, 6144), "tensor"),
+                    "out": ((2048, 4096), None),
+                    "gate_up": ((4096, 11008), "tensor"),
+                    "down": ((5504, 4096), None),
+                    "lm_head": ((4096, 16000), "tensor")}

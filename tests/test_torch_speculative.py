@@ -3,11 +3,15 @@
 Greedy: with the target itself as the draft and with a 1-layer draft of
 other widths, the port gives the reference's tokens and round count, and
 its own `generate`'s tokens; both caches are rewound to the accepted
-frontier each round.  Sampling draws from a torch.Generator, whose bits
-are not jax.random's, so it is held to the target's distribution: a
-chi-square gate on the first two emitted tokens against marginals
-enumerated from the reference model's logits, and the self-draft
-acceptance rate."""
+frontier each round.  The fixed-buffer round (`SpeculativeRound`, what
+the card captures as a CUDA graph), driven eagerly round by round, gives
+the reference's tokens and round count, and after each round both caches'
+device and host fill indices sit at the frontier.  Sampling draws from a
+torch.Generator by the exponential race, whose bits are not jax.random's,
+so it is held to the target's distribution: a chi-square gate on the
+first two emitted tokens against marginals enumerated from the reference
+model's logits, the race's own draws against their probabilities, and
+the self-draft acceptance rate."""
 
 from __future__ import annotations
 
@@ -27,8 +31,10 @@ from kubeflow_tpu.models.speculative import (
 from kubeflow_tpu.models.transformer import Transformer as JTransformer
 from kubeflow_tpu_torch.models.configs import TINY
 from kubeflow_tpu_torch.models.convert import params_from_flax
-from kubeflow_tpu_torch.models.generate import generate, prepare_decode
+from kubeflow_tpu_torch.models.generate import generate, prepare_decode, race
 from kubeflow_tpu_torch.models.speculative import (
+    SpeculativeRound,
+    run_rounds,
     speculative_generate,
     speculative_sample,
 )
@@ -89,6 +95,78 @@ def test_greedy_matches_reference_and_generate(draft, target, prompt):
     assert rounds == ceil(11 / 4) if draft == "perfect" else rounds <= 11
     plain = generate(TINY, target, prompt, 12, device="cpu")
     np.testing.assert_array_equal(got.numpy(), plain.numpy())
+
+
+@pytest.mark.parametrize("draft", ["perfect", "mismatched"])
+def test_fixed_buffer_round_matches_reference(draft, target, prompt):
+    """`SpeculativeRound` driven by `run_rounds` (eager on the CPU) gives
+    the reference's greedy tokens and its round count exactly."""
+    jdraft_cfg, draft_cfg, dtree = JTINY, TINY, target
+    if draft == "mismatched":
+        jdraft_cfg = JTINY.with_(**DRAFT)
+        draft_cfg, dtree = TINY.with_(**DRAFT), _params(jdraft_cfg, seed=7)
+    want, want_rounds = jspeculative_generate(
+        JTINY, target, jdraft_cfg, dtree, jnp.asarray(prompt), 12, gamma=4)
+    _, model = _model(TINY, target)
+    _, draft_model = _model(draft_cfg, dtree)
+    with torch.inference_mode():
+        rnd = SpeculativeRound(model, draft_model, torch.as_tensor(prompt),
+                               12, gamma=4)
+        rounds = run_rounds(rnd)
+    np.testing.assert_array_equal(rnd.tokens[:, :rnd.total].numpy(),
+                                  np.asarray(want))
+    assert rounds == int(want_rounds)
+
+
+def test_round_rewinds_both_caches_to_the_frontier(target, prompt):
+    """One call of the round moves the frontier n to n + m + 1 and both
+    caches' device fill index to n + m, with no host value; their host
+    mirrors ran ahead with the steps (gamma draft steps, a gamma + 1 token
+    verify pass) until `sync`, the round's host read, sets them to n + m
+    too.  The gamma proposals land at n .. n + gamma - 1 and the round's
+    last token at n + m."""
+    gamma = 4
+    _, model = _model(TINY, target)
+    _, draft = _model(TINY.with_(**DRAFT), _params(JTINY.with_(**DRAFT), 7))
+    with torch.inference_mode():
+        rnd = SpeculativeRound(model, draft, torch.as_tensor(prompt), 12,
+                               gamma)
+        t_cache, d_cache = rnd.caches
+        while rnd.n < rnd.total:
+            n = rnd.n
+            assert t_cache.index == d_cache.index == n - 1
+            assert int(t_cache.pos) == int(d_cache.pos) == n - 1
+            before = rnd.tokens.clone()
+            rnd()
+            frontier = int(rnd.frontier)
+            m = frontier - n - 1
+            assert 0 <= m <= gamma - 1
+            assert int(t_cache.pos) == int(d_cache.pos) == n + m
+            assert (t_cache.index, d_cache.index) == (n + gamma,
+                                                      n - 1 + gamma)
+            assert rnd.sync() == frontier == rnd.n
+            assert t_cache.index == d_cache.index == n + m
+            changed = (rnd.tokens != before).any(dim=0).nonzero()[:, 0]
+            assert set(changed.tolist()) <= set(range(n, n + gamma))
+            assert torch.equal(rnd.tokens[:, :n], before[:, :n])
+    out, _ = speculative_generate(TINY, target, TINY.with_(**DRAFT),
+                                  _params(JTINY.with_(**DRAFT), 7), prompt,
+                                  12, gamma=gamma, device="cpu")
+    assert torch.equal(rnd.tokens[:, :rnd.total], out)
+
+
+def test_exponential_race_draws_its_probabilities():
+    """`race`, the round's sampler: 20000 draws from one row of 8
+    probabilities against their expected counts (chi-square, the 99.9%
+    bound of the distribution test below)."""
+    probs = torch.tensor([0.3, 0.2, 0.15, 0.1, 0.1, 0.08, 0.05, 0.02])
+    draws = race(probs.expand(20000, 8).contiguous(),
+                 torch.Generator().manual_seed(3))
+    counts = np.bincount(draws.numpy(), minlength=8)
+    expected = probs.numpy() * 20000
+    chi2 = float(np.sum((counts - expected) ** 2 / expected))
+    dof = 7
+    assert chi2 < dof + 3.1 * sqrt(2 * dof) + 9.5, (chi2, counts)
 
 
 def test_caches_rewound_to_the_accepted_frontier(target, prompt):

@@ -203,19 +203,34 @@ non-zero without its result line):
 11. notebook_train: the in-notebook runtime (runtime/data.py, telemetry.py,
    checkpoint.py) driving BENCH_CHIP at full width and depth, batch 8,
    AdamW (warmup 2, bf16 first moment), over a corpus of seeded
-   ascending token runs.  Run A: 12 steps through input_pipeline
-   (prefetch 2, pinned copies on a side stream) with a TelemetryAgent,
-   one boundary a step after the host read of the loss.  Run B, the
-   same seed: the cull request file appears before step 6's
-   checkpoint_on_cull hook, which saves through the local backend and
-   acknowledges; the loop exits and the pipeline closes.  A truncated
-   copy of the checkpoint as step 7 and a leftover temp file are
-   planted; a fresh setup from another seed restores (step 6, both
-   deleted) and runs the pipeline's batches 7-12.  Then one dcp save
-   and restore of the mesh setup on a world-1 NCCL group: a fresh mesh
-   setup resumes it for 2 steps against the uninterrupted mesh run.
-   Last, `python -m kubeflow_tpu_torch.examples.train_llm` as a
-   subprocess must print RESULT: OK.  Gates: exactly 20/10/10 flash
+   ascending token runs, in the pod the controller renders for this
+   card: core/workload.py renders spec.gpu {accelerator of this card
+   (gpu/topology.py), count 1} with a checkpoint store, and the main
+   container's env is resolved as the kubelet would for pod index 0
+   (the master's DNS name as 127.0.0.1, its rendered port 29500 as a free
+   one, each volume mount a directory under the phase's temporary
+   directory); nvidia.com/gpu must be "1"
+   in requests and limits and the table's peak GPU_PEAKS', and the
+   resources, nodeSelector and env names are printed.  Run A: 12 steps
+   through input_pipeline (prefetch 2, pinned copies on a side stream)
+   with a TelemetryAgent, one boundary a step after the host read of
+   the loss.  Run B, the same seed: before step 6's checkpoint_on_cull
+   hook the rendered preStop command runs as a subprocess with the
+   resolved env and writes its request into the signal directory; the
+   hook saves through the local backend and acknowledges, the loop exits
+   and the pipeline closes, and the preStop command must exit 0 on the
+   ack (its wait from request to ack printed).  A truncated copy of the
+   checkpoint as step 7 and a leftover temp file are planted; a fresh
+   setup from another seed restores (step 6, both deleted) and runs the
+   pipeline's batches 7-12.  Then one dcp save and restore of the mesh
+   setup on a world-1 NCCL group: a fresh mesh setup resumes it for 2
+   steps against the uninterrupted mesh run.  Last, side by side, two
+   launches of the example, no flag: `python -m torch.distributed.run -m
+   kubeflow_tpu_torch.examples.train_llm` with the rendered PET_* env,
+   its group formed by distributed_init under torchrun, and the bare
+   `python -m kubeflow_tpu_torch.examples.train_llm`, its group formed by
+   the example's one-rank fallback; each must print `devices: 1 x <this
+   card>` and RESULT: OK.  Gates: exactly 20/10/10 flash
    launches every step of runs A and B; every batch a step takes equals
    its TokenBatches batch bit for bit (compared on the step's stream,
    before it); the hook fires at step 6 only and the ack exists; the
@@ -283,6 +298,7 @@ import functools
 import io
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -2589,8 +2605,6 @@ def mesh_train_phase(device, smi: str, train_step_s) -> dict:
 def _nccl_probe_rank(rank: int, port: int, queue) -> None:
     """One of two ranks on card 0: an NCCL all-reduce, and what came of
     it.  The process ends without tearing NCCL down."""
-    import os
-
     import torch
     import torch.distributed as dist
 
@@ -2889,6 +2903,121 @@ def _nb_steps(setup, pipe, want: list, hook=None, before_hook=None,
     return out
 
 
+def render_gpu_pod(device_name: str, tmp: Path) -> dict:
+    """The controller's render of a one-GPU notebook on this card
+    (kubeflow_tpu_torch/core/workload.py, spec.gpu {accelerator of this
+    card, count 1}, a checkpoint store configured), its checks, and its
+    main container's env resolved as the kubelet would for pod index 0:
+    the master's DNS name is 127.0.0.1, its rendezvous port a free one
+    (29500 may be taken on this host), and each volume mount a directory
+    under `tmp`."""
+    from kubeflow_tpu_torch.api.types import Notebook
+    from kubeflow_tpu_torch.core import constants as K
+    from kubeflow_tpu_torch.core import workload
+    from kubeflow_tpu_torch.gpu import env as gpuenv
+    from kubeflow_tpu_torch.gpu import topology
+    from kubeflow_tpu_torch.runtime.roofline import GPU_PEAKS
+
+    accelerator = topology.accelerator_from_device_name(device_name)
+    nb = Notebook({
+        "apiVersion": "kubeflow.org/v1", "kind": "Notebook",
+        "metadata": {"name": "chip-smoke", "namespace": "smoke"},
+        "spec": {"gpu": {"accelerator": accelerator, "count": 1},
+                 "template": {"spec": {"containers": [
+                     {"name": "chip-smoke"}]}}}})
+    cfg = workload.WorkloadConfig(
+        checkpoint_store_uri=f"file://{tmp / 'store'}")
+    (sts,) = workload.generate_statefulsets(nb, cfg)
+    headless = workload.generate_headless_service(nb)
+    template = sts["spec"]["template"]
+    pod, main = template["spec"], template["spec"]["containers"][0]
+    env = gpuenv.resolve_env(main["env"], {
+        "name": f"{sts['metadata']['name']}-0", "namespace": nb.namespace,
+        "labels": {**template["metadata"]["labels"],
+                   gpuenv.POD_INDEX_LABEL: "0"},
+        "annotations": template["metadata"]["annotations"]})
+    mounts = {m["mountPath"]: tmp / m["name"] for m in main["volumeMounts"]}
+    for path in mounts.values():
+        path.mkdir(parents=True)
+    env = {k: str(mounts.get(v, v)) for k, v in env.items()}
+    rendered_port = env["PET_MASTER_PORT"]
+    env.update(PET_MASTER_ADDR="127.0.0.1", PET_MASTER_PORT=str(_free_port()))
+    row = topology.ACCELERATORS[accelerator]
+    peak = GPU_PEAKS.get(device_name)
+    gpus = {kind: main["resources"][kind].get(K.GPU_RESOURCE)
+            for kind in ("requests", "limits")}
+    print(f"render: resources {main['resources']}; nodeSelector "
+          f"{pod['nodeSelector']}; env {[e['name'] for e in main['env']]}",
+          flush=True)
+    bad = []
+    if gpus != {"requests": "1", "limits": "1"}:
+        bad.append(f"nvidia.com/gpu {gpus}")
+    if peak is None or row.bf16_peak_tflops != peak.bf16_tflops \
+            or row.hbm_gbps != peak.hbm_gbps:
+        bad.append(f"the table's {accelerator} peak {row} is not GPU_PEAKS' "
+                   f"{peak}")
+    if (sts["spec"]["replicas"], env["PET_NNODES"],
+            env["PET_NPROC_PER_NODE"], env["PET_NODE_RANK"],
+            rendered_port) != (1, "1", "1", "0", "29500"):
+        bad.append(f"replicas {sts['spec']['replicas']}, env {env}, "
+                   f"rendered PET_MASTER_PORT {rendered_port}")
+    if bad:
+        raise RuntimeError("render: " + "; ".join(bad))
+    return {"accelerator": accelerator, "resources": main["resources"],
+            "node_selector": pod["nodeSelector"],
+            "env_names": [e["name"] for e in main["env"]],
+            "headless_ports": headless["spec"]["ports"],
+            "pre_stop": main["lifecycle"]["preStop"]["exec"]["command"],
+            "signal_dir": Path(env[K.ENV_CHECKPOINT_SIGNAL_DIR]),
+            "podinfo": mounts[K.PODINFO_MOUNT], "env": env}
+
+
+def start_pre_stop(rendered: dict) -> dict:
+    """Start the rendered preStop command with the pod's resolved env (the
+    pod's interpreter is the one running this script) and wait for its
+    request file: a pod's loop meets the request at a later step, this
+    one waits so that the cull stays at its step."""
+    from kubeflow_tpu_torch.runtime import checkpoint as ckpt
+
+    command = rendered["pre_stop"]
+    command = [sys.executable if command[0] == "python" else command[0]] \
+        + command[1:]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(command, cwd=ROOT,
+                            env={**os.environ, **rendered["env"]},
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    request = rendered["signal_dir"] / ckpt.REQUEST_FILE
+    while not request.exists():
+        if proc.poll() is not None or time.perf_counter() - t0 > 60:
+            proc.kill()
+            out, err = proc.communicate()
+            raise RuntimeError(f"the preStop command {command} wrote no "
+                               f"request (rc {proc.returncode}): {out}"
+                               f"{err[-2000:]}")
+        time.sleep(0.005)
+    return {"proc": proc, "command": command, "t0": t0,
+            "startup_s": time.perf_counter() - t0}
+
+
+def finish_pre_stop(started: dict) -> dict:
+    """Wait for the preStop command; it must exit 0 on the ack and print
+    its wait from request to ack."""
+    proc = started["proc"]
+    try:
+        out, err = proc.communicate(timeout=60)
+    finally:
+        proc.kill()
+    wall_s = time.perf_counter() - started["t0"]
+    lines = [json.loads(line) for line in out.splitlines()
+             if line.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(f"the preStop command {started['command']} "
+                           f"exited {proc.returncode}: {out}{err[-2000:]}")
+    return {"rc": proc.returncode, "wait_s": lines[-1]["wait_s"],
+            "wall_s": wall_s}
+
+
 def notebook_train_phase(device, device_name, smi: str) -> dict:
     """BENCH_CHIP at full width and depth, batch 8, through the in-notebook
     runtime (input_pipeline, TelemetryAgent, checkpoint_on_cull,
@@ -2897,6 +3026,7 @@ def notebook_train_phase(device, device_name, smi: str) -> dict:
     import itertools
     import shutil
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     import torch
     import torch.distributed as dist
@@ -2959,22 +3089,39 @@ def notebook_train_phase(device, device_name, smi: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         free_gb = shutil.disk_usage(tmp).free / 1e9
-        # run B: the same seed; the request file appears before step 6's
-        # hook, which saves through the local backend and acknowledges
-        signals = tmp / "podinfo"
-        signals.mkdir()
+        t0 = time.perf_counter()
+        rendered = render_gpu_pod(device_name, tmp / "pod")
+        render_s = time.perf_counter() - t0
+        signals = rendered["signal_dir"]
+        # run B: the same seed; before step 6's hook the rendered preStop
+        # command runs, as the kubelet runs it before a pod delete, and
+        # writes its request; the hook saves through the local backend
+        # and acknowledges, and the preStop command exits on the ack
         local = ckpt.CheckpointManager(str(tmp / "local"), backend="local")
-        hook = ckpt.checkpoint_on_cull(local,
-                                       ckpt.CullSignalWatcher(str(signals)))
+        hook = ckpt.checkpoint_on_cull(local, ckpt.CullSignalWatcher(
+            str(rendered["podinfo"]), hook_dir=str(signals)))
+        pre_stop = {}
 
         def cull_request(step):
             if step == NB_CULL_STEP:
-                (signals / ckpt.REQUEST_FILE).write_text("true")
+                pre_stop.update(start_pre_stop(rendered))
 
         run_b = setup(SEED)
         pipe = pipeline()
-        b = _nb_steps(run_b, pipe, want, hook=hook, before_hook=cull_request)
-        pipe.close()
+        try:
+            b = _nb_steps(run_b, pipe, want, hook=hook,
+                          before_hook=cull_request)
+        finally:
+            pipe.close()
+            if pre_stop:
+                pre_stop.update(finish_pre_stop(pre_stop))
+        if not pre_stop:
+            raise RuntimeError(f"run B ended before step {NB_CULL_STEP}")
+        print(f"notebook_train preStop: {' '.join(rendered['pre_stop'])} "
+              f"exited {pre_stop['rc']}, request to ack "
+              f"{pre_stop['wait_s']:.3f} s (the save "
+              f"{b.get('hook_s', float('nan')):.3f} s), start to request "
+              f"{pre_stop['startup_s']:.3f} s; {smi}", flush=True)
         acked = (signals / ckpt.ACK_FILE).exists()
         path = local._step_path(NB_CULL_STEP)
         ckpt_bytes = path.stat().st_size
@@ -3059,14 +3206,47 @@ def notebook_train_phase(device, device_name, smi: str) -> dict:
             dist.destroy_process_group()
     torch.cuda.empty_cache()
 
-    # the example, as a user runs it
+    # the example, side by side as a user runs it: in the pod, torchrun
+    # with no flag, its world from the rendered PET_* env; on one card, a
+    # bare launch, its group from the example's one-rank fallback
+    rendezvous = {k: v for k, v in rendered["env"].items()
+                  if k.startswith(("PET_", "GPU_"))}
+    module = ["-m", "kubeflow_tpu_torch.examples.train_llm"]
+    launches = {
+        "torchrun": ([sys.executable, "-m", "torch.distributed.run"]
+                     + module, {**os.environ, **rendezvous},
+                     "distributed_init under torchrun"),
+        "bare": ([sys.executable] + module, dict(os.environ),
+                 "the one-rank fallback")}
     t0 = time.perf_counter()
-    example = subprocess.run(
-        [sys.executable, "-m", "kubeflow_tpu_torch.examples.train_llm"],
-        cwd=ROOT, capture_output=True, text=True, timeout=NB_EXAMPLE_TIMEOUT_S)
-    example_s = time.perf_counter() - t0
-    example_ok = (example.returncode == 0
-                  and "RESULT: OK" in example.stdout.splitlines())
+    procs = {key: subprocess.Popen(command, cwd=ROOT, env=env,
+                                   stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True)
+             for key, (command, env, _) in launches.items()}
+
+    def finish(key):
+        # one thread a launch, so each one's seconds end at its own exit
+        out, err = procs[key].communicate(timeout=NB_EXAMPLE_TIMEOUT_S)
+        return key, out, err, time.perf_counter() - t0
+
+    examples = {}
+    try:
+        with ThreadPoolExecutor(len(procs)) as pool:
+            for key, out, err, seconds in pool.map(finish, procs):
+                lines = out.splitlines()
+                examples[key] = {
+                    "returncode": procs[key].returncode, "s": seconds,
+                    "tail": lines[-4:], "stdout": out, "stderr": err,
+                    "ok": (procs[key].returncode == 0
+                           and "RESULT: OK" in lines
+                           and f"devices: 1 x {device_name}" in lines
+                           and any(line.endswith(f"formed by "
+                                                 f"{launches[key][2]}")
+                                   for line in lines))}
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.wait()
 
     gb = ckpt_bytes / 1e9
     b_launches = b["launches"]
@@ -3102,8 +3282,18 @@ def notebook_train_phase(device, device_name, smi: str) -> dict:
         "dcp_restored_step": dcp_step,
         "dcp_losses_straight": straight, "dcp_losses_resumed": again,
         "dcp_params_bit_identical": dcp_params_equal,
-        "example_returncode": example.returncode, "example_s": example_s,
-        "example_tail": example.stdout.splitlines()[-4:],
+        "examples": {key: {k: v for k, v in ex.items()
+                           if k not in ("stdout", "stderr")}
+                     for key, ex in examples.items()},
+        "example_launchers": {key: " ".join(["python"] + command[1:])
+                              for key, (command, _, _) in launches.items()},
+        "example_env": rendezvous,
+        "render": {k: v for k, v in rendered.items()
+                   if k not in ("env", "signal_dir", "podinfo")},
+        "render_s": render_s, "pre_stop_returncode": pre_stop["rc"],
+        "pre_stop_wait_s": pre_stop["wait_s"],
+        "pre_stop_startup_s": pre_stop["startup_s"],
+        "pre_stop_wall_s": pre_stop["wall_s"],
         "phase_s": time.perf_counter() - phase_t0,
     }
     emit(res)
@@ -3114,9 +3304,16 @@ def notebook_train_phase(device, device_name, smi: str) -> dict:
           f"resident batch; {smi}", flush=True)
     print(f"notebook_train telemetry: {annotation_payload(summary)}",
           flush=True)
-    if not example_ok:
-        raise RuntimeError(f"the example failed ({example.returncode}):\n"
-                           f"{example.stdout[-2000:]}{example.stderr[-4000:]}")
+    print("notebook_train examples, side by side: " + "; ".join(
+        f"{res['example_launchers'][key]} {ex['s']:.2f} s, "
+        f"rc {ex['returncode']}" for key, ex in examples.items())
+        + f"; {smi}", flush=True)
+    for key, ex in examples.items():
+        if not ex["ok"]:
+            raise RuntimeError(f"the {key} launch of the example failed "
+                               f"({ex['returncode']}):\n"
+                               f"{ex['stdout'][-2000:]}"
+                               f"{ex['stderr'][-4000:]}")
     bad_launches = [i for i, n in enumerate(a["launches"] + b_launches)
                     if n != expected]
     if (bad_launches or len(a["launches"]) != NB_STEPS

@@ -3,14 +3,17 @@
 The port's twin of examples/train_llm.py, the whole runtime surface in
 one script:
 
-  1. `distributed_init()` consumes the controller's env injection (a
-     single-host pod: no-op; here a one-rank NCCL group on the card);
+  1. `distributed_init()` consumes the controller's env injection: under
+     `torchrun` it forms the gang's NCCL world, one rank per GPU, from
+     the pod's PET_* env alone; a bare single-host launch starts nothing
+     there, and the script starts a one-rank NCCL group on the card;
   2. `input_pipeline` streams rank-sharded, prefetched LM batches;
   3. `setup_training(TINY, mesh)` runs the sharded step over a mesh
      with every populated axis;
   4. a `TelemetryAgent` records one step boundary per synced step;
   5. `generate` decodes from the trained weights, gathered whole.
 
+    torchrun -m kubeflow_tpu_torch.examples.train_llm          # a GPU pod
     python -m kubeflow_tpu_torch.examples.train_llm            # one card
     python -m kubeflow_tpu_torch.examples.train_llm --cpu 8    # 8 gloo CPU
                                                                # processes
@@ -140,21 +143,30 @@ def main(argv=None) -> int:
             print("train_llm: no CUDA card (pass --cpu N to run on the CPU)",
                   file=sys.stderr)
             return 2
-        distributed_init(device="cuda")
-        owned = not dist.is_initialized()
-        if owned:
-            # a single-host pod: distributed_init starts nothing, and the
-            # mesh needs a process group, so this script starts one rank
+        identity = distributed_init(device="cuda")
+        formed = dist.is_initialized()
+        if not formed:
+            # a bare launch on a single host: distributed_init starts
+            # nothing, and the mesh needs a process group, so this script
+            # starts one rank
             with socket.socket() as sock:
                 sock.bind(("localhost", 0))
                 port = sock.getsockname()[1]
             dist.init_process_group("nccl", rank=0, world_size=1,
                                     init_method=f"tcp://localhost:{port}")
+        rank = dist.get_rank()
+        if rank == 0:
+            how = ("distributed_init under torchrun" if identity.torchrun
+                   else "distributed_init" if formed
+                   else "the one-rank fallback")
+            print(f"process group: {dist.get_world_size()} rank(s), "
+                  f"{dist.get_backend()}, formed by {how}", flush=True)
         try:
             run("cuda")
         finally:
-            if owned:
-                dist.destroy_process_group()
+            dist.destroy_process_group()
+        if rank != 0:
+            return 0
     print("RESULT: OK", flush=True)
     return 0
 

@@ -11,6 +11,21 @@ and its signal contract with the culling controller:
 The controller holds the cull until the acknowledgement or until one
 idleness period runs out, so a loop without the hook loses its state.
 
+The pod's pre-stop hook uses the same contract: `python -m
+kubeflow_tpu_torch.runtime.checkpoint --pre-stop` (`main`, rendered by
+core/workload.py) writes the request into the writable signal directory
+CHECKPOINT_SIGNAL_DIR (an emptyDir: /etc/podinfo is read-only), waits
+for the loop's checkpoint-complete there and exits 0, or exits 1 after
+its timeout: the renderer passes `--timeout`, a margin below the pod's
+termination grace period, which bounds the last save; without it the
+hook waits PRE_STOP_TIMEOUT_S, below the default 30 s period.  The
+watcher polls both directories and acknowledges where a request is
+pending, and nowhere when none is (the hook gave up).
+The reference renders the same hook for its own module, which has no
+`__main__`: there `python -m` runs the module's top level, saves nothing
+and exits 0.  This module imports torch only inside the functions that
+need it, so the hook starts without it.
+
 - `CheckpointManager`, keyed by step, has two backends:
   - "local", one process: `torch.save` of the state moved to the CPU,
     written temp file -> fsync -> atomic rename -> fsync(dir), old steps
@@ -35,18 +50,27 @@ idleness period runs out, so a loop without the hook loses its state.
 
 from __future__ import annotations
 
+import argparse
+import json
 import os
 import pickle
 import shutil
+import sys
 import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Callable, Mapping, Optional
+from typing import TYPE_CHECKING, Any, Callable, Mapping, Optional
 
-import torch
+if TYPE_CHECKING:
+    import torch
 
 DEFAULT_SIGNAL_DIR = "/etc/podinfo"
+# the pre-stop hook's wait for the ack when no --timeout is given: below
+# the pod's default 30 s termination grace period, which also bounds the
+# save
+PRE_STOP_TIMEOUT_S = 25.0
+_PRE_STOP_POLL_S = 0.05
 REQUEST_FILE = "checkpoint-requested"
 ACK_FILE = "checkpoint-complete"
 
@@ -55,6 +79,7 @@ ENV_STORE_URI = "CHECKPOINT_STORE_URI"
 ENV_INTERVAL_S = "CHECKPOINT_INTERVAL_S"
 ENV_RESTORE_URI = "CHECKPOINT_RESTORE_URI"
 ENV_RESTORE_GENERATION = "CHECKPOINT_RESTORE_GENERATION"
+ENV_SIGNAL_DIR = "CHECKPOINT_SIGNAL_DIR"
 
 _STEP_PREFIX = "step_"
 _STEP_SUFFIX = ".ckpt"
@@ -65,6 +90,8 @@ BACKENDS = ("auto", "local", "dcp")
 
 def _map(fn, tree: Any) -> Any:
     """`fn` on every tensor of a nest of dicts, lists and tuples."""
+    import torch
+
     if isinstance(tree, torch.Tensor):
         return fn(tree)
     if isinstance(tree, Mapping):
@@ -92,6 +119,7 @@ def _like(state_like: Any, stored: Any) -> Any:
     """Re-materialize restored leaves on the devices, dtypes and
     placements of `state_like` (the orbax StandardRestore analog); a
     structure that differs raises."""
+    import torch
     from torch.distributed.tensor import DTensor, distribute_tensor
 
     if state_like is None:
@@ -198,6 +226,8 @@ class CheckpointManager:
 
     # -- local backend ---------------------------------------------------------
     def _local_save(self, step: int, state: Any) -> None:
+        import torch
+
         final = self._step_path(step)
         tmp = self.directory / f"{_TMP_PREFIX}{final.name}-{os.getpid()}"
         with open(tmp, "wb") as f:
@@ -207,6 +237,8 @@ class CheckpointManager:
         self._commit(tmp, step)
 
     def _local_restore(self, state_like: Any, step: Optional[int]) -> Any:
+        import torch
+
         self._gc_partials()
         candidates = [step] if step is not None else \
             list(reversed(self._steps()))
@@ -273,27 +305,41 @@ class CheckpointManager:
 
 
 class CullSignalWatcher:
-    """Watches for the controller's checkpoint-before-cull request.
+    """Watches for a checkpoint request: the controller's
+    checkpoint-before-cull (`signal_dir`) or the pre-stop hook's
+    (`hook_dir`, CHECKPOINT_SIGNAL_DIR by default; none when unset).
 
     `check()` is cheap enough for a per-step call; `acknowledge()` writes
-    the completion marker the culling controller's checkpoint gate polls
-    for."""
+    the completion marker the culling controller's checkpoint gate, or the
+    hook, polls for, into each directory whose request is still pending:
+    none when the request went meanwhile (a hook that gave up removes
+    its own, and /etc/podinfo is read-only in a pod)."""
 
     def __init__(self, signal_dir: str = DEFAULT_SIGNAL_DIR,
-                 time_fn: Callable[[], float] = time.time):
+                 time_fn: Callable[[], float] = time.time,
+                 hook_dir: Optional[str] = None):
         self.signal_dir = Path(signal_dir)
         self.time_fn = time_fn
+        hook_dir = hook_dir if hook_dir is not None \
+            else os.environ.get(ENV_SIGNAL_DIR, "")
+        self.dirs = [self.signal_dir] + ([Path(hook_dir)] if hook_dir
+                                         else [])
 
-    def check(self) -> bool:
-        req = self.signal_dir / REQUEST_FILE
+    @staticmethod
+    def _requested(directory: Path) -> bool:
+        req = directory / REQUEST_FILE
         try:
             return req.exists() and req.read_text().strip() not in ("", "false")
         except OSError:
             return False
 
+    def check(self) -> bool:
+        return any(self._requested(d) for d in self.dirs)
+
     def acknowledge(self) -> None:
-        self.signal_dir.mkdir(parents=True, exist_ok=True)
-        (self.signal_dir / ACK_FILE).write_text(str(self.time_fn()))
+        for directory in self.dirs:
+            if self._requested(directory):
+                (directory / ACK_FILE).write_text(str(self.time_fn()))
 
 
 def checkpoint_on_cull(
@@ -421,7 +467,62 @@ class CheckpointSidecar:
                                   self.slice_id, instr.generation)
 
 
+# -- the pre-stop hook ----------------------------------------------------------
+def pre_stop(signal_dir: str,
+             timeout_s: float = PRE_STOP_TIMEOUT_S) -> Optional[float]:
+    """Request a checkpoint in `signal_dir` and wait for the training
+    loop's acknowledgement: the seconds from the request to the ack, or
+    None after `timeout_s`.  A stale ack is removed first, so only an
+    answer to this request counts; the request is removed on return."""
+    directory = Path(signal_dir)
+    directory.mkdir(parents=True, exist_ok=True)
+    request, ack = directory / REQUEST_FILE, directory / ACK_FILE
+    ack.unlink(missing_ok=True)
+    t0 = time.monotonic()
+    request.write_text(f"pre-stop {time.time()}")
+    try:
+        while not ack.exists():
+            if time.monotonic() - t0 >= timeout_s:
+                return None
+            time.sleep(_PRE_STOP_POLL_S)
+        return time.monotonic() - t0
+    finally:
+        request.unlink(missing_ok=True)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        description="the pod's pre-stop hook: request one last checkpoint "
+                    "from the training loop and wait for its ack")
+    parser.add_argument("--pre-stop", action="store_true", required=True,
+                        help="request a checkpoint and wait for the ack")
+    parser.add_argument("--signal-dir",
+                        default=os.environ.get(ENV_SIGNAL_DIR, ""),
+                        help=f"writable signal directory (default: "
+                             f"${ENV_SIGNAL_DIR})")
+    parser.add_argument("--timeout", type=float, default=PRE_STOP_TIMEOUT_S,
+                        help="seconds to wait for the ack (rendered below "
+                             "the pod's termination grace period)")
+    args = parser.parse_args(argv)
+    if not args.signal_dir:
+        print(f"pre-stop: no signal directory: set {ENV_SIGNAL_DIR} or "
+              f"pass --signal-dir", file=sys.stderr)
+        return 2
+    waited = pre_stop(args.signal_dir, args.timeout)
+    if waited is None:
+        print(f"pre-stop: no checkpoint ack in {args.signal_dir} within "
+              f"{args.timeout:g} s", file=sys.stderr)
+        return 1
+    print(json.dumps({"pre_stop": "acknowledged", "wait_s": waited}),
+          flush=True)
+    return 0
+
+
 __all__ = ["ACK_FILE", "BACKENDS", "CheckpointManager", "CheckpointSidecar",
-           "CullSignalWatcher", "DEFAULT_SIGNAL_DIR", "REQUEST_FILE",
-           "RestoreInstruction", "checkpoint_on_cull",
-           "restore_instructions"]
+           "CullSignalWatcher", "DEFAULT_SIGNAL_DIR", "PRE_STOP_TIMEOUT_S",
+           "REQUEST_FILE", "RestoreInstruction", "checkpoint_on_cull",
+           "main", "pre_stop", "restore_instructions"]
+
+
+if __name__ == "__main__":
+    sys.exit(main())

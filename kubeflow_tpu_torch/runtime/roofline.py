@@ -3,14 +3,17 @@
 The port's copy of kubeflow_tpu/runtime/roofline.py: the bytes and FLOPs
 one single-token decode step or one training step needs at the least,
 the floors they imply on a card, and the MFU definition.  Peaks come from
-`GPU_PEAKS`, keyed by `torch.cuda.get_device_name()`; a card missing from
-the table gives no floor and no MFU (None), never a guess.
+`GPU_PEAKS`, keyed by `torch.cuda.get_device_name()` and derived from the
+accelerator table (gpu/topology.py); a card missing from the table gives
+no floor and no MFU (None), never a guess.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional
+
+from ..gpu.topology import ACCELERATORS
 
 
 @dataclass(frozen=True)
@@ -19,9 +22,13 @@ class GpuPeak:
     hbm_gbps: float      # device-memory bandwidth, GB/s
 
 
-# NVIDIA data sheets, SXM parts, dense rates at the full power limit
+# NVIDIA data sheets, SXM parts, dense rates at the full power limit:
+# one row per card of the accelerator table (gpu/topology.py), so each
+# peak is written once
 GPU_PEAKS = {
-    "NVIDIA H100 80GB HBM3": GpuPeak(bf16_tflops=989.0, hbm_gbps=3350.0),
+    acc.device_name: GpuPeak(bf16_tflops=acc.bf16_peak_tflops,
+                             hbm_gbps=acc.hbm_gbps)
+    for acc in ACCELERATORS.values()
 }
 
 # bytes per element by dtype name; int4 is nibble-packed

@@ -16,11 +16,13 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "kubeflow_tpu"}
 # modules the two tests must reach, among all the others they walk: the
-# serving entry points, the small models and the compile-check entry
+# serving entry points, the small models, the compile-check entry and the
+# GPU side of the controller contract
 EXPECTED = {"bench", "entry", "examples.llama13b_decode",
             "examples.serve_model", "examples.speculative_demo",
             "examples.train_llm", "models.generate", "models.mlp",
-            "models.vit", "ops.launch_counts"}
+            "models.vit", "ops.launch_counts", "gpu.topology", "gpu.env",
+            "api.types", "core.constants", "core.workload", "odh.network"}
 
 
 def _port_sources() -> list:

@@ -2,7 +2,8 @@
 
 Pure Python first: the mesh config, the logical rule table and the
 worker-env parser, each mirroring the reference's tests with its expected
-values written out.  Then one module-scoped spawn of 4 gloo processes
+values written out, and the parser on a GPU gang's env: one rank per
+GPU.  Then one module-scoped spawn of 4 gloo processes
 (one thread each) runs a battery whose cases are the parametrised tests
 below: ring attention forward and backward against `xla_attention`, the
 expert-parallel MoE layer against one process (outputs and every
@@ -13,11 +14,15 @@ ranks import this module and the port, nothing else."""
 
 from __future__ import annotations
 
+import socket
+
 import numpy as np
 import pytest
 import torch
 
 from kubeflow_tpu_torch import dryrun
+from kubeflow_tpu_torch.gpu import env as gpuenv
+from kubeflow_tpu_torch.gpu import topology
 from kubeflow_tpu_torch.models import train
 from kubeflow_tpu_torch.models.configs import TINY
 from kubeflow_tpu_torch.parallel.mesh import (
@@ -129,6 +134,83 @@ def test_single_host_is_noop():
     identity = distributed_init({"TPU_WORKER_HOSTNAMES": "only-one"},
                                 device="cpu")
     assert not identity.is_multihost
+    assert not torch.distributed.is_initialized()
+
+
+def _gpu_pod_env(index: int, hosts: int = 2, per_host: int = 4) -> dict:
+    """The env the controller renders for pod `index` of a `hosts` x
+    `per_host`-GPU gang (gpu/env.py), resolved as the kubelet would."""
+    acc = topology.ACCELERATORS["h100-80gb"]
+    shape = topology.GpuShape(acc, gpus=hosts * per_host, num_hosts=hosts,
+                              gpus_per_host=per_host)
+    return gpuenv.resolve_env(gpuenv.gpu_env_vars("nb", shape),
+                              {"labels": {gpuenv.POD_INDEX_LABEL: str(index)}})
+
+
+@pytest.mark.parametrize("torchrun", [False, True], ids=["pod", "torchrun"])
+def test_gpu_env_gives_one_rank_per_gpu(torchrun):
+    """Pod 1 of a 2-host x 4-GPU gang, local rank 3: rank 7 of 8, as the
+    reference's world of hosts x chips; with the per-process names
+    torchrun sets too, which must agree."""
+    env = dict(_gpu_pod_env(1), LOCAL_RANK="3")
+    if torchrun:
+        env.update(RANK="7", WORLD_SIZE="8", LOCAL_WORLD_SIZE="4",
+                   GROUP_RANK="1", MASTER_ADDR="nb-0.nb-workers",
+                   MASTER_PORT="29500")
+    identity = parse_worker_env(env)
+    assert identity.num_processes == 8
+    assert identity.process_id == 1 * 4 + 3
+    assert (identity.local_rank, identity.procs_per_host) == (3, 4)
+    assert identity.coordinator_address == "nb-0.nb-workers:29500"
+    assert identity.hostnames == ("nb-0.nb-workers", "nb-1.nb-workers")
+    assert identity.torchrun == torchrun
+
+
+def test_gpu_pod_without_local_rank_is_refused():
+    """Several GPUs and no LOCAL_RANK: refused, naming torchrun, rather
+    than a world that drives one GPU of the pod."""
+    env = _gpu_pod_env(0)
+    with pytest.raises(ValueError, match="4 GPUs .* no LOCAL_RANK: start "
+                                         "it with torchrun"):
+        parse_worker_env(env)
+    with pytest.raises(ValueError, match="torchrun"):
+        distributed_init(env, device="cpu")
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(ValueError, match="RANK=5 disagrees"):
+        parse_worker_env(dict(env, LOCAL_RANK="0", RANK="5"))
+
+
+def test_single_gpu_pod_without_torchrun_is_noop():
+    identity = distributed_init(_gpu_pod_env(0, hosts=1, per_host=1),
+                                device="cpu")
+    assert (identity.num_processes, identity.process_id) == (1, 0)
+    assert not torch.distributed.is_initialized()
+
+
+def test_torchrun_world_uses_the_given_env(monkeypatch):
+    """Under torchrun the rendezvous is the one the `env` mapping names,
+    not the process's own: a world of 1 forms from a mapping whose
+    MASTER_ADDR/PORT are nowhere in os.environ; without an address it is
+    refused."""
+    for name in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+                 "TORCHELASTIC_USE_AGENT_STORE"):
+        monkeypatch.delenv(name, raising=False)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+           "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(port)}
+    identity = distributed_init(env, device="cpu")
+    try:
+        assert identity.torchrun
+        assert (torch.distributed.get_rank(),
+                torch.distributed.get_world_size()) == (0, 1)
+    finally:
+        torch.distributed.destroy_process_group()
+    env.pop("MASTER_ADDR")
+    with pytest.raises(ValueError, match="no MASTER_ADDR"):
+        distributed_init(env, device="cpu")
     assert not torch.distributed.is_initialized()
 
 

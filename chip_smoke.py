@@ -203,23 +203,37 @@ non-zero without its result line):
 11. notebook_train: the in-notebook runtime (runtime/data.py, telemetry.py,
    checkpoint.py) driving BENCH_CHIP at full width and depth, batch 8,
    AdamW (warmup 2, bf16 first moment), over a corpus of seeded
-   ascending token runs, in the pod the controller renders for this
-   card: core/workload.py renders spec.gpu {accelerator of this card
-   (gpu/topology.py), count 1} with a checkpoint store, and the main
-   container's env is resolved as the kubelet would for pod index 0
-   (the master's DNS name as 127.0.0.1, its rendered port 29500 as a free
-   one, each volume mount a directory under the phase's temporary
-   directory); nvidia.com/gpu must be "1"
-   in requests and limits and the table's peak GPU_PEAKS', and the
+   ascending token runs, in the pod the port's controller makes for this
+   card (`NotebookController`): `kubeflow_tpu_torch.main.build_manager`
+   (the notebook controller and the culler, on a FakeClock, the Jupyter
+   kernel reported idle) over the in-memory cluster, one node labelled
+   by gpu/device_plugin.py's label_gpu_node with this card's accelerator
+   (gpu/topology.py) and torch.cuda.device_count() nvidia.com/gpu, and
+   a Notebook CR with spec.gpu {that accelerator, 1} and a checkpoint
+   store.  Gates: one StatefulSet of 1 replica, one pod bound to the
+   node, nvidia.com/gpu 1 used of the node's count, "1" in the pod's
+   requests and limits, the table's peak GPU_PEAKS', sliceHealth
+   Unhealthy until the pod is marked running and Healthy after.  The
+   main container's env is resolved as the kubelet would from the pod
+   the cluster made (its pod-index label among it; the master's DNS name
+   as 127.0.0.1, its rendered port 29500 as a free one, each volume
+   mount a directory under the phase's temporary directory), and the
    resources, nodeSelector and env names are printed.  Run A: 12 steps
    through input_pipeline (prefetch 2, pinned copies on a side stream)
    with a TelemetryAgent, one boundary a step after the host read of
    the loss.  Run B, the same seed: before step 6's checkpoint_on_cull
-   hook the rendered preStop command runs as a subprocess with the
-   resolved env and writes its request into the signal directory; the
-   hook saves through the local backend and acknowledges, the loop exits
-   and the pipeline closes, and the preStop command must exit 0 on the
-   ack (its wait from request to ack printed).  A truncated copy of the
+   hook the FakeClock passes the idle limit and the culler stops the
+   notebook (gates: the stop annotation, one culling, replicas 0, the
+   pod deleted, sliceHealth Stopped); the deleted pod's rendered preStop
+   command runs as a subprocess with its resolved env, as the kubelet
+   runs it, and writes its request into the signal directory; the hook
+   saves through the local backend and acknowledges, the loop exits and
+   the pipeline closes, and the preStop command must exit 0 on the ack
+   (its wait from request to ack printed).  Removing the stop annotation
+   makes the controller recreate the pod, with the same resolved env,
+   preStop command and node (a gate), Healthy once running; the
+   controller's reconciles and wall ms by stage are printed and emitted
+   under "controller".  A truncated copy of the
    checkpoint as step 7 and a leftover temp file are planted; a fresh
    setup from another seed restores (step 6, both deleted) and runs the
    pipeline's batches 7-12.  Then one dcp save and restore of the mesh
@@ -409,6 +423,10 @@ TP_RANKS, TP_NEW, TP_TIMEOUT_S = 2, 8, 300
 # cull request before step 6's hook; the corpus is NB_RUNS seeded runs
 NB_BATCH, NB_STEPS, NB_CULL_STEP, NB_RUNS = 8, 12, 6, 16384
 NB_EXAMPLE_TIMEOUT_S = 240
+# the CR the port's controller turns into the phase's pod, the node of
+# this card, and the idle minutes after which its culler stops it
+NB_NAME, NB_NAMESPACE, NB_NODE = "chip-smoke", "smoke", "card-0"
+NB_CULL_IDLE_MIN = 5
 FLASH_REPLACES = {
     "flash_fwd": "kubeflow_tpu/ops/attention.py:173 -> jax/experimental/"
                  "pallas/ops/tpu/flash_attention.py:758",
@@ -2903,73 +2921,233 @@ def _nb_steps(setup, pipe, want: list, hook=None, before_hook=None,
     return out
 
 
-def render_gpu_pod(device_name: str, tmp: Path) -> dict:
-    """The controller's render of a one-GPU notebook on this card
-    (kubeflow_tpu_torch/core/workload.py, spec.gpu {accelerator of this
-    card, count 1}, a checkpoint store configured), its checks, and its
-    main container's env resolved as the kubelet would for pod index 0:
-    the master's DNS name is 127.0.0.1, its rendezvous port a free one
-    (29500 may be taken on this host), and each volume mount a directory
-    under `tmp`."""
-    from kubeflow_tpu_torch.api.types import Notebook
-    from kubeflow_tpu_torch.core import constants as K
-    from kubeflow_tpu_torch.core import workload
-    from kubeflow_tpu_torch.gpu import env as gpuenv
-    from kubeflow_tpu_torch.gpu import topology
-    from kubeflow_tpu_torch.runtime.roofline import GPU_PEAKS
+class NotebookController:
+    """The port's control plane standing up the phase's pod on this card:
+    `kubeflow_tpu_torch.main.build_manager` (the notebook controller and
+    the culler, on a FakeClock, with FakeJupyterState reporting one idle
+    kernel) over the in-memory cluster, one node for this card labelled
+    by `gpu/device_plugin.py:label_gpu_node` (its accelerator from
+    `gpu/topology.py`, `nvidia.com/gpu` from torch.cuda.device_count()),
+    and a Notebook CR with spec.gpu {that accelerator, 1} and a
+    checkpoint store.  The cluster does not start containers by itself:
+    `start()` marks the pod running once its env is resolved.  `cost`
+    keeps each stage's reconciles and wall ms of controller work."""
 
-    accelerator = topology.accelerator_from_device_name(device_name)
-    nb = Notebook({
-        "apiVersion": "kubeflow.org/v1", "kind": "Notebook",
-        "metadata": {"name": "chip-smoke", "namespace": "smoke"},
-        "spec": {"gpu": {"accelerator": accelerator, "count": 1},
-                 "template": {"spec": {"containers": [
-                     {"name": "chip-smoke"}]}}}})
-    cfg = workload.WorkloadConfig(
-        checkpoint_store_uri=f"file://{tmp / 'store'}")
-    (sts,) = workload.generate_statefulsets(nb, cfg)
-    headless = workload.generate_headless_service(nb)
-    template = sts["spec"]["template"]
-    pod, main = template["spec"], template["spec"]["containers"][0]
-    env = gpuenv.resolve_env(main["env"], {
-        "name": f"{sts['metadata']['name']}-0", "namespace": nb.namespace,
-        "labels": {**template["metadata"]["labels"],
-                   gpuenv.POD_INDEX_LABEL: "0"},
-        "annotations": template["metadata"]["annotations"]})
-    mounts = {m["mountPath"]: tmp / m["name"] for m in main["volumeMounts"]}
-    for path in mounts.values():
-        path.mkdir(parents=True)
-    env = {k: str(mounts.get(v, v)) for k, v in env.items()}
-    rendered_port = env["PET_MASTER_PORT"]
-    env.update(PET_MASTER_ADDR="127.0.0.1", PET_MASTER_PORT=str(_free_port()))
-    row = topology.ACCELERATORS[accelerator]
-    peak = GPU_PEAKS.get(device_name)
-    gpus = {kind: main["resources"][kind].get(K.GPU_RESOURCE)
-            for kind in ("requests", "limits")}
-    print(f"render: resources {main['resources']}; nodeSelector "
-          f"{pod['nodeSelector']}; env {[e['name'] for e in main['env']]}",
-          flush=True)
-    bad = []
-    if gpus != {"requests": "1", "limits": "1"}:
-        bad.append(f"nvidia.com/gpu {gpus}")
-    if peak is None or row.bf16_peak_tflops != peak.bf16_tflops \
-            or row.hbm_gbps != peak.hbm_gbps:
-        bad.append(f"the table's {accelerator} peak {row} is not GPU_PEAKS' "
-                   f"{peak}")
-    if (sts["spec"]["replicas"], env["PET_NNODES"],
-            env["PET_NPROC_PER_NODE"], env["PET_NODE_RANK"],
-            rendered_port) != (1, "1", "1", "0", "29500"):
-        bad.append(f"replicas {sts['spec']['replicas']}, env {env}, "
-                   f"rendered PET_MASTER_PORT {rendered_port}")
-    if bad:
-        raise RuntimeError("render: " + "; ".join(bad))
-    return {"accelerator": accelerator, "resources": main["resources"],
-            "node_selector": pod["nodeSelector"],
-            "env_names": [e["name"] for e in main["env"]],
-            "headless_ports": headless["spec"]["ports"],
-            "pre_stop": main["lifecycle"]["preStop"]["exec"]["command"],
-            "signal_dir": Path(env[K.ENV_CHECKPOINT_SIGNAL_DIR]),
-            "podinfo": mounts[K.PODINFO_MOUNT], "env": env}
+    def __init__(self, device_name: str, tmp: Path):
+        import torch
+
+        from kubeflow_tpu_torch.api.types import GPUSpec, Notebook
+        from kubeflow_tpu_torch.core.jupyter import FakeJupyterState
+        from kubeflow_tpu_torch.gpu import topology
+        from kubeflow_tpu_torch.gpu.device_plugin import label_gpu_node
+        from kubeflow_tpu_torch.kube import KubeObject
+        from kubeflow_tpu_torch.main import build_manager
+        from kubeflow_tpu_torch.utils.clock import FakeClock
+        from kubeflow_tpu_torch.utils.config import CoreConfig
+
+        self.tmp = tmp
+        self.cost = {"reconciles": 0, "wall_ms": 0.0, "stages": {}}
+        self.deleted = []
+        self.accelerator = topology.accelerator_from_device_name(device_name)
+        self.gpus = torch.cuda.device_count()
+        self.device_name = device_name
+        with self.stage("setup"):
+            self.jupyter = FakeJupyterState()
+            self.jupyter.set_kernels(NB_NAMESPACE, NB_NAME, [{
+                "id": "k1", "name": "python3", "execution_state": "idle",
+                "last_activity": "2023-01-01T00:00:00Z", "connections": 0}])
+            self.cfg = CoreConfig(
+                enable_culling=True, cull_idle_time_min=NB_CULL_IDLE_MIN,
+                idleness_check_period_min=1,
+                checkpoint_store_uri=f"file://{tmp / 'store'}")
+            self.mgr, self.api, self.cluster, self.metrics = build_manager(
+                self.cfg, clock=FakeClock(), jupyter=self.jupyter)
+            self.cluster.auto_ready = False
+            self.cluster.add_node(NB_NODE, allocatable={"cpu": "8",
+                                                        "memory": "96Gi"})
+            label_gpu_node(self.api, NB_NODE, gpus=self.gpus,
+                           accelerator=self.accelerator)
+            self.api.watch(self._on_pod, kinds=["Pod"])
+            self.api.create(KubeObject.from_dict(Notebook.new(
+                NB_NAME, NB_NAMESPACE,
+                gpu=GPUSpec(self.accelerator, 1)).obj))
+            self.run()
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        t0 = time.perf_counter()
+        before = self.cost["reconciles"]
+        try:
+            yield
+        finally:
+            ms = (time.perf_counter() - t0) * 1e3
+            self.cost["wall_ms"] += ms
+            self.cost["stages"][name] = {
+                "reconciles": self.cost["reconciles"] - before, "wall_ms": ms}
+
+    def _on_pod(self, ev) -> None:
+        if ev.type.value == "DELETED":
+            self.deleted.append(ev.obj)
+
+    def run(self, advance_s: float = 0.0) -> None:
+        self.cost["reconciles"] += self.mgr.advance(advance_s) \
+            if advance_s else self.mgr.run_until_idle()
+
+    def pod(self):
+        return self.api.try_get("Pod", NB_NAMESPACE, f"{NB_NAME}-0")
+
+    def status(self) -> dict:
+        return self.api.get("Notebook", NB_NAMESPACE, NB_NAME).status
+
+    def resolve(self, pod) -> dict:
+        """`pod`'s main container env resolved as the kubelet would from
+        the pod object itself (its pod-index label among them): the
+        master's DNS name as 127.0.0.1, its rendered port 29500 as a free
+        one (29500 may be taken on this host), each volume mount a
+        directory under the phase's temporary directory."""
+        from kubeflow_tpu_torch.core import constants as K
+        from kubeflow_tpu_torch.gpu import env as gpuenv
+
+        headless = self.api.get("Service", NB_NAMESPACE,
+                                gpuenv.headless_service_name(NB_NAME))
+        main = pod.spec["containers"][0]
+        env = gpuenv.resolve_env(main["env"], {
+            "name": pod.name, "namespace": pod.namespace,
+            "labels": pod.metadata.labels,
+            "annotations": pod.metadata.annotations})
+        mounts = {m["mountPath"]: self.tmp / "pod" / m["name"]
+                  for m in main["volumeMounts"]}
+        for path in mounts.values():
+            path.mkdir(parents=True, exist_ok=True)
+        env = {k: str(mounts.get(v, v)) for k, v in env.items()}
+        rendered_port = env["PET_MASTER_PORT"]
+        env.update(PET_MASTER_ADDR="127.0.0.1",
+                   PET_MASTER_PORT=str(_free_port()))
+        return {"accelerator": self.accelerator,
+                "resources": main["resources"],
+                "headless_ports": headless.spec["ports"],
+                "node_selector": pod.spec["nodeSelector"],
+                "node": pod.spec.get("nodeName"),
+                "env_names": [e["name"] for e in main["env"]],
+                "pre_stop": main["lifecycle"]["preStop"]["exec"]["command"],
+                "rendered_master_port": rendered_port,
+                "signal_dir": Path(env[K.ENV_CHECKPOINT_SIGNAL_DIR]),
+                "podinfo": mounts[K.PODINFO_MOUNT], "env": env}
+
+    def start(self) -> dict:
+        """The pod the controller made, its env resolved, then started;
+        the gates of the render and of the placement."""
+        from kubeflow_tpu_torch.core import constants as K
+        from kubeflow_tpu_torch.gpu import topology
+        from kubeflow_tpu_torch.runtime.roofline import GPU_PEAKS
+
+        sets = self.api.list("StatefulSet", namespace=NB_NAMESPACE)
+        pod = self.pod()
+        bad = []
+        if [(s.name, s.spec["replicas"]) for s in sets] != [(NB_NAME, 1)]:
+            bad.append(f"StatefulSets {[(s.name, s.spec['replicas']) for s in sets]}")
+        if pod is None:
+            raise RuntimeError("controller: no pod " + "; ".join(bad))
+        rendered = self.resolve(pod)
+        env, main = rendered["env"], pod.spec["containers"][0]
+        health_before = self.status().get("sliceHealth")
+        with self.stage("start"):
+            self.cluster.mark_running(NB_NAMESPACE, pod.name)
+            self.run()
+        node = self.api.get("Node", "", NB_NODE)
+        used = self.cluster.node_used(NB_NODE).get(K.GPU_RESOURCE)
+        allocatable = node.status["allocatable"].get(K.GPU_RESOURCE)
+        row = topology.ACCELERATORS[self.accelerator]
+        peak = GPU_PEAKS.get(self.device_name)
+        gpus = {kind: main["resources"][kind].get(K.GPU_RESOURCE)
+                for kind in ("requests", "limits")}
+        print(f"controller: pod {pod.name} on {rendered['node']} "
+              f"({node.metadata.labels}), nvidia.com/gpu {used:g} used of "
+              f"{allocatable}; resources {main['resources']}; nodeSelector "
+              f"{rendered['node_selector']}; env {rendered['env_names']}; "
+              f"sliceHealth {health_before} -> "
+              f"{self.status().get('sliceHealth')}", flush=True)
+        if gpus != {"requests": "1", "limits": "1"}:
+            bad.append(f"nvidia.com/gpu {gpus}")
+        if peak is None or row.bf16_peak_tflops != peak.bf16_tflops \
+                or row.hbm_gbps != peak.hbm_gbps:
+            bad.append(f"the table's {self.accelerator} peak {row} is not "
+                       f"GPU_PEAKS' {peak}")
+        if (env["PET_NNODES"], env["PET_NPROC_PER_NODE"],
+                env["PET_NODE_RANK"], rendered["rendered_master_port"]) \
+                != ("1", "1", "0", "29500"):
+            bad.append(f"env {env}, rendered PET_MASTER_PORT "
+                       f"{rendered['rendered_master_port']}")
+        if (rendered["node"], used, allocatable) != (NB_NODE, 1,
+                                                     str(self.gpus)):
+            bad.append(f"pod on {rendered['node']}, nvidia.com/gpu {used} "
+                       f"used of {allocatable}")
+        if node.metadata.labels.get(K.GKE_GPU_ACCELERATOR_LABEL) \
+                != row.gke_label:
+            bad.append(f"node labels {node.metadata.labels}")
+        if (health_before, self.status().get("sliceHealth")) != \
+                ("Unhealthy", "Healthy"):
+            bad.append(f"sliceHealth {health_before} -> "
+                       f"{self.status().get('sliceHealth')}")
+        if bad:
+            raise RuntimeError("controller: " + "; ".join(bad))
+        return rendered
+
+    def cull(self) -> dict:
+        """Time passes beyond the idle limit with the kernel idle: the
+        culler stops the notebook, and the notebook controller takes the
+        gang down.  Returns the deleted pod, resolved (its preStop
+        command is what the kubelet runs)."""
+        from kubeflow_tpu_torch.core import constants as K
+
+        with self.stage("cull"):
+            self.run(advance_s=(NB_CULL_IDLE_MIN + 1) * 60)
+        annotations = self.api.get("Notebook", NB_NAMESPACE,
+                                   NB_NAME).metadata.annotations
+        sts = self.api.get("StatefulSet", NB_NAMESPACE, NB_NAME)
+        culled = (K.STOP_ANNOTATION in annotations,
+                  self.metrics.culling.value(NB_NAMESPACE, NB_NAME),
+                  sts.spec["replicas"], self.pod() is None,
+                  [p.name for p in self.deleted],
+                  self.status().get("sliceHealth"))
+        print(f"controller: culled after {NB_CULL_IDLE_MIN + 1} idle "
+              f"minutes: stop annotation, cullings, replicas, pod gone, "
+              f"pods deleted, sliceHealth {culled}", flush=True)
+        if culled != (True, 1.0, 0, True, [f"{NB_NAME}-0"], "Stopped"):
+            raise RuntimeError(f"controller: the cull gave {culled}")
+        return self.resolve(self.deleted[-1])
+
+    def unstop(self, before: dict) -> dict:
+        """Remove the stop annotation: the controller recreates the pod,
+        which must get the same rendered env and checkpoint contract."""
+        from kubeflow_tpu_torch.core import constants as K
+
+        with self.stage("unstop"):
+            nb = self.api.get("Notebook", NB_NAMESPACE, NB_NAME)
+            nb.metadata.annotations.pop(K.STOP_ANNOTATION)
+            self.api.update(nb)
+            self.run()
+            pod = self.pod()
+            if pod is not None:
+                self.cluster.mark_running(NB_NAMESPACE, pod.name)
+                self.run()
+        if pod is None:
+            raise RuntimeError("controller: no pod after the unstop")
+        after = self.resolve(pod)
+        same = {k: after[k] == before[k]
+                for k in ("env_names", "pre_stop", "node", "resources")}
+        # the env but the master port, which each resolve maps afresh
+        same["env"] = {k: v for k, v in after["env"].items()
+                       if k != "PET_MASTER_PORT"} == \
+            {k: v for k, v in before["env"].items()
+             if k != "PET_MASTER_PORT"}
+        health = self.status().get("sliceHealth")
+        print(f"controller: recreated {pod.name} on {after['node']}, "
+              f"same as before {same}, sliceHealth {health}", flush=True)
+        if not all(same.values()) or health != "Healthy":
+            raise RuntimeError(f"controller: the recreated pod differs "
+                               f"{same}, or its health is {health}")
+        return after
 
 
 def start_pre_stop(rendered: dict) -> dict:
@@ -3090,21 +3268,25 @@ def notebook_train_phase(device, device_name, smi: str) -> dict:
         tmp = Path(tmp)
         free_gb = shutil.disk_usage(tmp).free / 1e9
         t0 = time.perf_counter()
-        rendered = render_gpu_pod(device_name, tmp / "pod")
+        controller = NotebookController(device_name, tmp)
+        rendered = controller.start()
         render_s = time.perf_counter() - t0
         signals = rendered["signal_dir"]
-        # run B: the same seed; before step 6's hook the rendered preStop
-        # command runs, as the kubelet runs it before a pod delete, and
-        # writes its request; the hook saves through the local backend
-        # and acknowledges, and the preStop command exits on the ack
+        # run B: the same seed; before step 6's hook the culler stops the
+        # idle notebook, the controller deletes its pod, and that pod's
+        # rendered preStop command runs, as the kubelet runs it on the
+        # delete, and writes its request; the hook saves through the local
+        # backend and acknowledges, and the preStop command exits on the
+        # ack
         local = ckpt.CheckpointManager(str(tmp / "local"), backend="local")
         hook = ckpt.checkpoint_on_cull(local, ckpt.CullSignalWatcher(
             str(rendered["podinfo"]), hook_dir=str(signals)))
-        pre_stop = {}
+        pre_stop, culled = {}, {}
 
         def cull_request(step):
             if step == NB_CULL_STEP:
-                pre_stop.update(start_pre_stop(rendered))
+                culled.update(controller.cull())
+                pre_stop.update(start_pre_stop(culled))
 
         run_b = setup(SEED)
         pipe = pipeline()
@@ -3123,6 +3305,14 @@ def notebook_train_phase(device, device_name, smi: str) -> dict:
               f"{b.get('hook_s', float('nan')):.3f} s), start to request "
               f"{pre_stop['startup_s']:.3f} s; {smi}", flush=True)
         acked = (signals / ckpt.ACK_FILE).exists()
+        # the deleted pod was the one the loop ran in; removing the stop
+        # annotation makes the controller recreate it, and the resume
+        # below runs in that pod
+        if (culled["pre_stop"], culled["signal_dir"]) != \
+                (rendered["pre_stop"], signals):
+            raise RuntimeError(f"the culled pod's preStop {culled} is not "
+                               f"the started one's {rendered}")
+        controller.unstop(rendered)
         path = local._step_path(NB_CULL_STEP)
         ckpt_bytes = path.stat().st_size
         del run_b
@@ -3290,12 +3480,19 @@ def notebook_train_phase(device, device_name, smi: str) -> dict:
         "example_env": rendezvous,
         "render": {k: v for k, v in rendered.items()
                    if k not in ("env", "signal_dir", "podinfo")},
-        "render_s": render_s, "pre_stop_returncode": pre_stop["rc"],
+        "render_s": render_s,
+        "controller": {**controller.cost, "nvidia_smi": smi},
+        "pre_stop_returncode": pre_stop["rc"],
         "pre_stop_wait_s": pre_stop["wait_s"],
         "pre_stop_startup_s": pre_stop["startup_s"],
         "pre_stop_wall_s": pre_stop["wall_s"],
         "phase_s": time.perf_counter() - phase_t0,
     }
+    print("notebook_train controller: " + "; ".join(
+        f"{stage} {c['reconciles']} reconciles, {c['wall_ms']:.2f} ms"
+        for stage, c in controller.cost["stages"].items())
+        + f"; in all {controller.cost['reconciles']} reconciles, "
+        f"{controller.cost['wall_ms']:.2f} ms; {smi}", flush=True)
     emit(res)
     print(f"notebook_train: checkpoint {ckpt_bytes} bytes ({gb:.3f} GB), "
           f"save {res['save_s']:.3f} s ({res['save_gb_s']:.3f} GB/s), "

@@ -12,19 +12,29 @@ core/workload.py uses, with `spec.gpu` in the place of `spec.tpu`:
 
 `Notebook` here is a thin read-only view over a Notebook CR in its dict
 form (`apiVersion`, `kind`, `metadata`, `spec`, `status`), with the
-accessors of the reference's `Notebook` that the renderer uses.  The
-rest of the API (versions, conversion, priority, the status helpers) is not
-ported.
+accessors of the reference's `Notebook` that the renderer uses, and
+`Notebook.new`, the twin of the reference's constructor.
+`notebook_status` builds the status the notebook controller writes, under
+the reference's field names.  The rest of the API (versions, conversion,
+priority, validation) is not ported.
 """
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import Mapping, Optional
 
 from ..gpu.topology import GpuShape, TopologyError, resolve
 
+GROUP = "kubeflow.org"
 KIND = "Notebook"
+STORAGE_VERSION = "v1"
+
+# terminal verdict of the reference's self-healing engine: a slice that
+# spent its restart budget.  The port writes it never, but carries it
+# forward through every status rewrite as the reference does.
+CONDITION_RECOVERY_EXHAUSTED = "RecoveryExhausted"
 
 
 class InvalidError(ValueError):
@@ -77,6 +87,34 @@ class Notebook:
             raise ValueError(f"not a Notebook: {obj.get('kind')}")
         self.obj = obj
 
+    @classmethod
+    def new(
+        cls,
+        name: str,
+        namespace: str,
+        pod_spec: Optional[dict] = None,
+        gpu: Optional[GPUSpec] = None,
+        labels: Optional[dict] = None,
+        annotations: Optional[dict] = None,
+        replication: Optional[ReplicationSpec] = None,
+    ) -> "Notebook":
+        """A new CR, the twin of the reference's `Notebook.new` with
+        `gpu` in the place of `tpu`."""
+        spec: dict = {"template": {"spec": pod_spec
+                                   or {"containers": [{"name": name}]}}}
+        if gpu is not None:
+            spec["gpu"] = gpu.to_dict()
+        if replication is not None:
+            spec["replication"] = {"replicas": replication.replicas}
+        return cls({
+            "apiVersion": f"{GROUP}/{STORAGE_VERSION}",
+            "kind": KIND,
+            "metadata": {"name": name, "namespace": namespace,
+                         "labels": dict(labels or {}),
+                         "annotations": dict(annotations or {})},
+            "spec": spec,
+        })
+
     @property
     def _meta(self) -> Mapping:
         return self.obj.get("metadata") or {}
@@ -121,4 +159,39 @@ class Notebook:
         return self.obj.get("status") or {}
 
 
-__all__ = ["GPUSpec", "InvalidError", "KIND", "Notebook", "ReplicationSpec"]
+def notebook_status(
+    ready_replicas: int,
+    conditions: list[dict],
+    container_state: dict,
+    worker_states: Optional[list[dict]] = None,
+    slice_health: Optional[str] = None,
+    slice_recovery: Optional[dict] = None,
+    session_state: Optional[dict] = None,
+    replication: Optional[dict] = None,
+) -> dict:
+    """NotebookStatus, the reference's shape and field names: conditions,
+    readyReplicas and containerState, plus for a GPU gang `workerStates`
+    (one entry per worker pod) and `sliceHealth` (the gang's health, under
+    the reference's name so the same clients read it).  The self-healing
+    and replication records are carried as given."""
+    status = {
+        "conditions": conditions,
+        "readyReplicas": ready_replicas,
+        "containerState": copy.deepcopy(container_state),
+    }
+    if worker_states is not None:
+        status["workerStates"] = worker_states
+    if slice_health is not None:
+        status["sliceHealth"] = slice_health
+    if slice_recovery:
+        status["sliceRecovery"] = copy.deepcopy(slice_recovery)
+    if session_state:
+        status["sessionState"] = copy.deepcopy(session_state)
+    if replication:
+        status["replication"] = copy.deepcopy(replication)
+    return status
+
+
+__all__ = ["CONDITION_RECOVERY_EXHAUSTED", "GPUSpec", "GROUP",
+           "InvalidError", "KIND", "Notebook", "ReplicationSpec",
+           "STORAGE_VERSION", "notebook_status"]

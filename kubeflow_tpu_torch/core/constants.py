@@ -1,8 +1,10 @@
-"""Constants the GPU workload renderer needs.
+"""Constants the GPU workload renderer and the controllers need.
 
 The port's copy of the part of kubeflow_tpu/core/constants.py that
-core/workload.py and odh/network.py read, plus the GPU's resource and
-node label and the checkpoint hook's writable signal directory.
+core/{workload,notebook_controller,culling_controller,culler}.py,
+kube/cluster.py and odh/network.py read, plus the GPU's resource, the GPU
+node's labels, the pod-index label and the checkpoint hook's writable
+signal directory.
 """
 
 DEFAULT_CONTAINER_PORT = 8888
@@ -12,9 +14,15 @@ MAX_STATEFULSET_NAME_LENGTH = 52  # name + controller hash must fit 63 chars
 
 # annotations (user-facing API surface)
 STOP_ANNOTATION = "kubeflow-resource-stopped"
+ANNOTATION_NOTEBOOK_RESTART = "notebooks.opendatahub.io/notebook-restart"
+LAST_ACTIVITY_ANNOTATION = "notebooks.kubeflow.org/last-activity"
+LAST_ACTIVITY_CHECK_TIMESTAMP_ANNOTATION = (
+    "notebooks.kubeflow.org/last_activity_check_timestamp"
+)
 # set while a pre-cull checkpoint has been requested; the in-notebook
 # runtime acknowledges with checkpoint-complete
 ANNOTATION_CHECKPOINT_REQUESTED = "notebooks.kubeflow.org/checkpoint-requested"
+ANNOTATION_CHECKPOINT_COMPLETE = "notebooks.kubeflow.org/checkpoint-complete"
 # the scheduler's all-or-nothing placement intent: JSON {"v": 1,
 # "slices": {"<gang>": {"pool": ..., "nodes": [...]}}}; the renderer turns
 # each gang's pool assignment into a nodeSelector
@@ -48,6 +56,9 @@ WORKBENCH_LABEL = "opendatahub.io/workbenches"
 NOTEBOOK_NAME_LABEL = "notebook-name"
 STATEFULSET_LABEL = "statefulset"
 REPLICA_LABEL = "notebooks.kubeflow.org/replica"
+# the StatefulSet controller's ordinal label on each pod, which torchrun's
+# PET_NODE_RANK reads through the downward API
+POD_INDEX_LABEL = "apps.kubernetes.io/pod-index"
 
 # env var injected into the notebook container
 PREFIX_ENV_VAR = "NB_PREFIX"

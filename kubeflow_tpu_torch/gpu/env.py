@@ -28,10 +28,8 @@ from __future__ import annotations
 
 from typing import Mapping
 
-from ..core.constants import TORCH_RENDEZVOUS_PORT
+from ..core.constants import POD_INDEX_LABEL, TORCH_RENDEZVOUS_PORT
 from .topology import GpuShape
-
-POD_INDEX_LABEL = "apps.kubernetes.io/pod-index"
 
 
 def headless_service_name(notebook_name: str) -> str:

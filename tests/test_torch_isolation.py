@@ -16,13 +16,16 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "kubeflow_tpu"}
 # modules the two tests must reach, among all the others they walk: the
-# serving entry points, the small models, the compile-check entry and the
-# GPU side of the controller contract
+# serving entry points, the small models, the compile-check entry, the
+# GPU side of the controller contract and the controller itself
 EXPECTED = {"bench", "entry", "examples.llama13b_decode",
             "examples.serve_model", "examples.speculative_demo",
             "examples.train_llm", "models.generate", "models.mlp",
             "models.vit", "ops.launch_counts", "gpu.topology", "gpu.env",
-            "api.types", "core.constants", "core.workload", "odh.network"}
+            "api.types", "core.constants", "core.workload", "odh.network",
+            "main", "kube.cluster", "kube.controller",
+            "core.notebook_controller", "core.culling_controller",
+            "gpu.device_plugin"}
 
 
 def _port_sources() -> list:
@@ -70,6 +73,24 @@ def test_importing_every_port_module_loads_no_reference():
     assert loaded == "[]", proc.stdout
     assert EXPECTED <= set(walked.split()), sorted(EXPECTED
                                                    - set(walked.split()))
+
+
+# the control plane: none of these may import torch, directly or through
+# another module, so the controller's pod needs no GPU stack
+CONTROL_PLANE = ("main", "kube", "common.reconcilehelper",
+                 "core.notebook_controller", "core.culling_controller",
+                 "core.metrics", "gpu.device_plugin", "utils.config")
+
+
+def test_control_plane_imports_no_torch():
+    code = "".join(f"import kubeflow_tpu_torch.{m}\n" for m in CONTROL_PLANE)
+    code += ("import sys\n"
+             "print(sorted(n for n in sys.modules "
+             "if n.split('.')[0] == 'torch'))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]", proc.stdout
 
 
 # the reference's package exports (kubeflow_tpu/{models,ops,parallel}/

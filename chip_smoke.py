@@ -236,7 +236,38 @@ non-zero without its result line):
    under "controller".  A truncated copy of the
    checkpoint as step 7 and a leftover temp file are planted; a fresh
    setup from another seed restores (step 6, both deleted) and runs the
-   pipeline's batches 7-12.  Then one dcp save and restore of the mesh
+   pipeline's batches 7-12.  Then the self-healing engine's two drills
+   on the same pod, the kernel reported busy.  Drill 1, a voluntary
+   migration: a run from run A's seed takes steps 1-4, its serialized
+   train state is the gang's session payload, and the migrate annotation
+   (drain) makes the engine take a final snapshot into the CR's store,
+   write the restore intent into status.sessionState before the pod
+   delete (read off the apiserver's event stream), stamp the
+   StatefulSet's CHECKPOINT_RESTORE_* env and delete the pod, which the
+   cluster recreates on the card's node with the restore stamp; the
+   recreated pod's resolved env gives restore_instructions, and
+   CheckpointSidecar.restore_payload loads the snapshot into a setup
+   from another seed (state bit-equal to the snapshot's), which runs
+   steps 5-8 (state bit-equal to run A's at step 8, the AdamW count and
+   b1_mu among it).  Drill 2, a dead card: the kubelet fails the pod
+   (GPUUnhealthy), the gang answers no final snapshot, and once the
+   backoff the first migration armed runs out on the FakeClock the
+   engine migrates with drill 1's snapshot; the same setup restores it
+   again and runs steps 5-12 (parameters bit-equal to run A's).  Gates:
+   losses equal run A's and 20/10/10 flash launches every step; the
+   restored bytes' digest the pod's stamp; one final snapshot;
+   notebook_migrations_total {drain,migrated}, {drain,restored},
+   {failure,migrated} and {failure,restored} 1 each, no fallback;
+   notebook_slice_restarts_total{migrate} 1 after drill 1 and 2 after
+   drill 2; two attempts charged and no RecoveryExhausted;
+   notebook_disruption_recovery_seconds observed once (its FakeClock
+   seconds, simulated, printed); the migrate annotation cleared.  The
+   cull before it charges no attempt, and the unstopped pod carries no
+   restore stamp.  Printed and emitted under "recovery": the snapshot's
+   bytes, the serialize and store seconds and GB/s, each restore's
+   seconds, the engine's reconciles and wall ms per drill, the drills'
+   wall seconds by part, the largest resident set sampled after each
+   part and each load, and the process's peak before and after.  Then one dcp save and restore of the mesh
    setup on a world-1 NCCL group: a fresh mesh setup resumes it for 2
    steps against the uninterrupted mesh run.  Last, side by side, two
    launches of the example, no flag: `python -m torch.distributed.run -m
@@ -427,6 +458,10 @@ NB_EXAMPLE_TIMEOUT_S = 240
 # this card, and the idle minutes after which its culler stops it
 NB_NAME, NB_NAMESPACE, NB_NODE = "chip-smoke", "smoke", "card-0"
 NB_CULL_IDLE_MIN = 5
+# the recovery drills: the drain migration snapshots the state after step
+# NB_MIGRATE_STEP, and the card dies after step NB_FAIL_STEP of the run
+# restored from it
+NB_MIGRATE_STEP, NB_FAIL_STEP = 4, 8
 FLASH_REPLACES = {
     "flash_fwd": "kubeflow_tpu/ops/attention.py:173 -> jax/experimental/"
                  "pallas/ops/tpu/flash_attention.py:758",
@@ -2929,9 +2964,14 @@ class NotebookController:
     by `gpu/device_plugin.py:label_gpu_node` (its accelerator from
     `gpu/topology.py`, `nvidia.com/gpu` from torch.cuda.device_count()),
     and a Notebook CR with spec.gpu {that accelerator, 1} and a
-    checkpoint store.  The cluster does not start containers by itself:
-    `start()` marks the pod running once its env is resolved.  `cost`
-    keeps each stage's reconciles and wall ms of controller work."""
+    checkpoint store.  Self-healing is on, as by default: the reconciler
+    opens the store at the CR's CHECKPOINT_STORE_URI, which the fake
+    cluster answers final-snapshot requests into.  The cluster does not
+    start containers by itself: `start()` and `ready()` mark the pod
+    running once its env is resolved.  `stream` keeps the apiserver's
+    events in order (the gang's restore intent, its StatefulSet's restore
+    env, the pod deletes), and `cost` each stage's reconciles and wall ms
+    of controller work."""
 
     def __init__(self, device_name: str, tmp: Path):
         import torch
@@ -2948,6 +2988,7 @@ class NotebookController:
         self.tmp = tmp
         self.cost = {"reconciles": 0, "wall_ms": 0.0, "stages": {}}
         self.deleted = []
+        self.stream = []
         self.accelerator = topology.accelerator_from_device_name(device_name)
         self.gpus = torch.cuda.device_count()
         self.device_name = device_name
@@ -2967,7 +3008,8 @@ class NotebookController:
                                                         "memory": "96Gi"})
             label_gpu_node(self.api, NB_NODE, gpus=self.gpus,
                            accelerator=self.accelerator)
-            self.api.watch(self._on_pod, kinds=["Pod"])
+            self.api.watch(self._on_event,
+                           kinds=["Notebook", "StatefulSet", "Pod"])
             self.api.create(KubeObject.from_dict(Notebook.new(
                 NB_NAME, NB_NAMESPACE,
                 gpu=GPUSpec(self.accelerator, 1)).obj))
@@ -2985,9 +3027,23 @@ class NotebookController:
             self.cost["stages"][name] = {
                 "reconciles": self.cost["reconciles"] - before, "wall_ms": ms}
 
-    def _on_pod(self, ev) -> None:
-        if ev.type.value == "DELETED":
-            self.deleted.append(ev.obj)
+    def _on_event(self, ev) -> None:
+        from kubeflow_tpu_torch.core import constants as K
+
+        obj = ev.obj
+        if obj.kind == "Notebook":
+            entry = (obj.body.get("status", {}).get("sessionState")
+                     or {}).get("0") or {}
+            self.stream.append(("intent", entry.get("phase"),
+                                entry.get("restoreGeneration")))
+        elif obj.kind == "StatefulSet":
+            env = {e["name"]: e.get("value") for e in
+                   obj.spec["template"]["spec"]["containers"][0]["env"]}
+            self.stream.append(
+                ("sts", env.get(K.ENV_CHECKPOINT_RESTORE_GENERATION)))
+        elif ev.type.value == "DELETED":
+            self.deleted.append(obj)
+            self.stream.append(("deleted", obj.name, obj.metadata.uid))
 
     def run(self, advance_s: float = 0.0) -> None:
         self.cost["reconciles"] += self.mgr.advance(advance_s) \
@@ -3105,15 +3161,20 @@ class NotebookController:
         annotations = self.api.get("Notebook", NB_NAMESPACE,
                                    NB_NAME).metadata.annotations
         sts = self.api.get("StatefulSet", NB_NAMESPACE, NB_NAME)
+        # the cull is not a disruption: no recovery attempt is charged
+        charged = (self.status().get("sliceRecovery"),
+                   sum(self.metrics.slice_restarts.collect().values()))
         culled = (K.STOP_ANNOTATION in annotations,
                   self.metrics.culling.value(NB_NAMESPACE, NB_NAME),
                   sts.spec["replicas"], self.pod() is None,
                   [p.name for p in self.deleted],
-                  self.status().get("sliceHealth"))
+                  self.status().get("sliceHealth"), charged)
         print(f"controller: culled after {NB_CULL_IDLE_MIN + 1} idle "
               f"minutes: stop annotation, cullings, replicas, pod gone, "
-              f"pods deleted, sliceHealth {culled}", flush=True)
-        if culled != (True, 1.0, 0, True, [f"{NB_NAME}-0"], "Stopped"):
+              f"pods deleted, sliceHealth, (sliceRecovery, gang restarts) "
+              f"{culled}", flush=True)
+        if culled != (True, 1.0, 0, True, [f"{NB_NAME}-0"], "Stopped",
+                      (None, 0)):
             raise RuntimeError(f"controller: the cull gave {culled}")
         return self.resolve(self.deleted[-1])
 
@@ -3141,6 +3202,11 @@ class NotebookController:
                        if k != "PET_MASTER_PORT"} == \
             {k: v for k, v in before["env"].items()
              if k != "PET_MASTER_PORT"}
+        # an unstopped notebook restores nothing: no restore stamp
+        same["no_restore_stamp"] = not any(
+            k in pod.metadata.annotations
+            for k in (K.ANNOTATION_RESTORED_GENERATION,
+                      K.ANNOTATION_RESTORED_DIGEST))
         health = self.status().get("sliceHealth")
         print(f"controller: recreated {pod.name} on {after['node']}, "
               f"same as before {same}, sliceHealth {health}", flush=True)
@@ -3148,6 +3214,433 @@ class NotebookController:
             raise RuntimeError(f"controller: the recreated pod differs "
                                f"{same}, or its health is {health}")
         return after
+
+    def busy(self) -> None:
+        """The kernel runs the training loop: busy, so the culler leaves
+        the notebook alone while the drills move the FakeClock."""
+        self.jupyter.set_kernels(NB_NAMESPACE, NB_NAME, [{
+            "id": "k1", "name": "python3", "execution_state": "busy",
+            "last_activity": "2023-01-01T00:00:00Z", "connections": 1}])
+
+    def store(self):
+        """The CR's session store, opened at its CHECKPOINT_STORE_URI as a
+        pod's sidecar opens it."""
+        from kubeflow_tpu_torch.core.sessionstate import open_store
+
+        return open_store(self.cfg.checkpoint_store_uri)
+
+    def _recreated(self, start: int, before, trigger: str) -> dict:
+        """The gates of a migration the engine just ran: the restore
+        intent in status.sessionState before the StatefulSet's restore env
+        before the pod delete (the apiserver's event stream), the pod
+        recreated on the card's node with its GPU, and the restore stamp
+        of the snapshot the intent names."""
+        from kubeflow_tpu_torch.core import constants as K
+
+        pod, status = self.pod(), self.status()
+        intent = (status.get("sessionState") or {}).get("0") or {}
+        gen = intent.get("restoreGeneration")
+        stream = self.stream[start:]
+
+        def first(pred):
+            return next((i for i, e in enumerate(stream) if pred(e)), None)
+
+        # the intent lands before the pod delete, and the StatefulSet
+        # names the intent's generation when the pod goes
+        order = [first(lambda e: e[:3] == ("intent", "migrating", gen)),
+                 first(lambda e: e == ("deleted", before.name,
+                                       before.metadata.uid))]
+        sts_at_delete = None if order[1] is None else next(
+            (e[1] for e in reversed(stream[:order[1]]) if e[0] == "sts"),
+            None)
+        sts = self.api.get("StatefulSet", NB_NAMESPACE, NB_NAME)
+        env = {e["name"]: e.get("value") for e in
+               sts.spec["template"]["spec"]["containers"][0]["env"]}
+        snap = self.store().info(NB_NAMESPACE, NB_NAME, 0, gen) \
+            if gen is not None else None
+        ann = pod.metadata.annotations if pod is not None else {}
+        out = {
+            "trigger": trigger, "generation": gen,
+            "intent": intent.get("phase"), "order": order,
+            "sts_generation_at_delete": sts_at_delete,
+            "restore_env": [env.get(K.ENV_CHECKPOINT_RESTORE_URI),
+                            env.get(K.ENV_CHECKPOINT_RESTORE_GENERATION)],
+            "recreated": pod is not None
+            and pod.metadata.uid != before.metadata.uid,
+            "node": pod.spec.get("nodeName") if pod is not None else None,
+            "gpus_used": self.cluster.node_used(NB_NODE).get(K.GPU_RESOURCE),
+            "stamp": [ann.get(K.ANNOTATION_RESTORED_GENERATION),
+                      ann.get(K.ANNOTATION_RESTORED_DIGEST)],
+            "snapshot": None if snap is None else {
+                "generation": snap.generation, "trigger": snap.trigger,
+                "digest": snap.digest, "size": snap.size},
+            "recovery": status.get("sliceRecovery"),
+            "migrate_annotation": K.ANNOTATION_MIGRATE in self.api.get(
+                "Notebook", NB_NAMESPACE, NB_NAME).metadata.annotations,
+        }
+        bad = []
+        if None in order or order != sorted(order) or \
+                sts_at_delete != str(gen):
+            bad.append(f"intent and pod delete at {order} of the event "
+                       f"stream, the StatefulSet's generation then "
+                       f"{sts_at_delete}")
+        if snap is None or out["stamp"] != [str(gen), snap.digest]:
+            bad.append(f"stamp {out['stamp']} against {out['snapshot']}")
+        if out["restore_env"] != [intent.get("restoreUri"), str(gen)]:
+            bad.append(f"StatefulSet restore env {out['restore_env']}")
+        if not out["recreated"] or (out["node"], out["gpus_used"]) != \
+                (NB_NODE, 1):
+            bad.append(f"pod recreated {out['recreated']} on "
+                       f"{out['node']}, nvidia.com/gpu {out['gpus_used']}")
+        if intent.get("phase") != "migrating" or \
+                intent.get("trigger") != trigger or out["migrate_annotation"]:
+            bad.append(f"intent {intent}, migrate annotation "
+                       f"{out['migrate_annotation']}")
+        if bad:
+            raise RuntimeError(f"controller: the {trigger} migration: "
+                               + "; ".join(bad))
+        return out
+
+    def migrate(self, payload: bytes) -> dict:
+        """Drill 1: the gang's state is `payload`; the migrate annotation
+        (drain) makes the engine take a final snapshot, write the intent,
+        stamp the StatefulSet and delete the pod, which the cluster
+        recreates with the restore env and stamp."""
+        from kubeflow_tpu_torch.core import constants as K
+
+        self.cluster.set_session_payload(NB_NAMESPACE, NB_NAME, payload)
+        before, start = self.pod(), len(self.stream)
+        with self.stage("migrate"):
+            nb = self.api.get("Notebook", NB_NAMESPACE, NB_NAME)
+            nb.metadata.annotations[K.ANNOTATION_MIGRATE] = "drain"
+            self.api.update(nb)
+            self.run()
+        return self._recreated(start, before, "drain")
+
+    def kill_card(self) -> dict:
+        """Drill 2: the card falls off the bus (the kubelet fails the pod,
+        GPUUnhealthy).  The gang cannot flush, so the engine migrates with
+        the freshest stored snapshot once the backoff its last migration
+        armed has run out on the FakeClock."""
+        before, start = self.pod(), len(self.stream)
+        with self.stage("dead_card"):
+            self.cluster.fail_pod(NB_NAMESPACE, before.name, "GPUUnhealthy")
+            # the engine's own store, whose handler is the cluster's
+            final = self.cluster.session_store.request_final_snapshot(
+                NB_NAMESPACE, NB_NAME, 0)
+            self.run()
+            self.run(advance_s=self.cfg.recovery_backoff_base_s)
+        out = self._recreated(start, before, "failure")
+        out["final_snapshot_of_dead_card"] = final
+        state = (out["recovery"] or {}).get("0") or {}
+        if final is not None or state.get("reason") != "pod-failed" \
+                or not state.get("disruptedAt"):
+            raise RuntimeError(f"controller: the dead card answered a "
+                               f"final snapshot {final}, or the engine "
+                               f"recorded {state}")
+        return out
+
+    def ready(self, trigger: str) -> dict:
+        """The restored pod's containers run: the engine closes the
+        migration (MigrationComplete, sessionState restored)."""
+        from kubeflow_tpu_torch.core import constants as K
+
+        with self.stage(f"ready_{trigger}"):
+            self.cluster.mark_running(NB_NAMESPACE, self.pod().name)
+            self.run()
+        status = self.status()
+        complete = sum(
+            e.body.get("count", 1) for e in self.api.list(
+                "Event", namespace=NB_NAMESPACE)
+            if e.body.get("reason") == "MigrationComplete")
+        out = {"health": status.get("sliceHealth"),
+               "intent": ((status.get("sessionState") or {}).get("0")
+                          or {}).get("phase"),
+               "migration_complete_events": complete,
+               "restored": self.metrics.migrations.value(trigger, "restored"),
+               "migrate_annotation": K.ANNOTATION_MIGRATE in self.api.get(
+                   "Notebook", NB_NAMESPACE, NB_NAME).metadata.annotations}
+        if (out["health"], out["intent"], out["restored"],
+                out["migrate_annotation"]) != ("Healthy", "restored", 1.0,
+                                               False):
+            raise RuntimeError(f"controller: after the {trigger} restore "
+                               f"{out}")
+        return out
+
+
+def _state_bytes(state) -> bytes:
+    """The train state serialized as one payload (torch.save of
+    `train_state_dict`), what the gang's session snapshot holds."""
+    import torch
+
+    from kubeflow_tpu_torch.models import train
+
+    buf = io.BytesIO()
+    torch.save(train.train_state_dict(state), buf)
+    return buf.getvalue()
+
+
+def _clone_state(state_dict: dict) -> dict:
+    """A copy of a `train_state_dict` (parameters, AdamW moments, count,
+    b1_mu, step) that later steps do not change."""
+    opt = state_dict["optimizer"]
+    return {"model": {n: t.clone() for n, t in state_dict["model"].items()},
+            "optimizer": {**opt, "mu": {n: t.clone()
+                                        for n, t in opt["mu"].items()},
+                          "nu": {n: t.clone() for n, t in opt["nu"].items()}},
+            "step": state_dict["step"]}
+
+
+def _states_equal(a: dict, b: dict) -> bool:
+    """Two train state dicts bit for bit: every parameter and moment, the
+    AdamW count and b1_mu, and the step."""
+    import torch
+
+    oa, ob = a["optimizer"], b["optimizer"]
+    return (a["step"] == b["step"] and oa["count"] == ob["count"]
+            and oa["b1_mu"] == ob["b1_mu"]
+            and all(torch.equal(a["model"][n], b["model"][n])
+                    for n in a["model"])
+            and all(torch.equal(oa[k][n], ob[k][n])
+                    for k in ("mu", "nu") for n in oa[k]))
+
+
+def _rss():
+    """This process's resident set now, in bytes (/proc/self/statm); None
+    where /proc does not say."""
+    try:
+        pages = int(Path("/proc/self/statm").read_text().split()[1])
+    except (OSError, IndexError, ValueError):
+        return None
+    return pages * os.sysconf("SC_PAGE_SIZE")
+
+
+def boot_restore(controller, target, device) -> dict:
+    """The recreated pod's boot path on this card: its env resolved as the
+    kubelet would, `restore_instructions(env)`, the payload fetched
+    through `CheckpointSidecar.restore_payload` from the store the env
+    names, and loaded into `target`.  The payload's digest is computed on
+    another thread while it loads (hashlib releases the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from kubeflow_tpu_torch.core.sessionstate import payload_digest
+    from kubeflow_tpu_torch.models import train
+    from kubeflow_tpu_torch.runtime import checkpoint as ckpt
+
+    env = controller.resolve(controller.pod())["env"]
+    instruction = ckpt.restore_instructions(env)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sidecar = ckpt.CheckpointSidecar.from_env(NB_NAMESPACE, NB_NAME, 0,
+                                              env=env)
+    payload = sidecar.restore_payload(env)
+    fetch_s = time.perf_counter() - t0
+    with ThreadPoolExecutor(1) as pool:
+        digest = pool.submit(payload_digest, payload)
+        train.load_train_state(target.state, torch.load(
+            io.BytesIO(payload), map_location=device, weights_only=True))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        digest = digest.result()
+    return {"generation": instruction.generation, "bytes": len(payload),
+            "digest": digest, "fetch_s": fetch_s, "restore_s": restore_s,
+            "rss_bytes": _rss()}
+
+
+def recovery_drills(controller, setup, pipeline, want, a, state_a_fail,
+                    final_a, expected, device, smi) -> dict:
+    """The self-healing engine's two drills on the phase's pod, at
+    BENCH_CHIP's full width and depth (see the module docstring): a drain
+    migration of the state after step NB_MIGRATE_STEP, restored into a
+    setup from another seed, then a dead card after step NB_FAIL_STEP,
+    restored from the same snapshot into the same setup.  `a` is run A's
+    record, `state_a_fail` its state after step NB_FAIL_STEP and
+    `final_a` its final parameters."""
+    import itertools
+    import resource
+
+    import torch
+
+    from kubeflow_tpu_torch.models import train
+
+    k, m = NB_MIGRATE_STEP, NB_FAIL_STEP
+    peak_before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    wall, mark, rss = {}, [time.perf_counter()], [_rss()]
+
+    def part(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        wall[name] = wall.get(name, 0.0) + now - mark[0]
+        mark[0] = now
+        rss.append(_rss())
+
+    controller.busy()
+
+    # drill 1: a run from run A's seed takes steps 1..k; its serialized
+    # train state is the session payload the final snapshot captures
+    source = setup(SEED)
+    part("setups")
+    pipe = pipeline()
+    pre = _nb_steps(source, pipe, want[:k])
+    pipe.close()
+    part("steps")
+    payload = _state_bytes(source.state)
+    part("serialize")
+    serialize_s = wall["serialize"]
+    size = len(payload)
+    drain = controller.migrate(payload)
+    del payload
+    part("migrate")
+    store_s = controller.cost["stages"]["migrate"]["wall_ms"] / 1e3
+    target = setup(SEED + 2)
+    part("setups")
+    boot1 = boot_restore(controller, target, device)
+    part("restores")
+    restored_equal = _states_equal(train.train_state_dict(target.state),
+                                   train.train_state_dict(source.state))
+    del source
+    torch.cuda.empty_cache()
+    ready1 = controller.ready("drain")
+    part("compare and ready")
+    ready1["slice_restarts"] = {r: v for (_, r), v in
+                                controller.metrics.slice_restarts.collect()
+                                .items()}
+    if ready1["slice_restarts"] != {"migrate": 1.0}:
+        raise RuntimeError(f"notebook_train recovery: the drain migration "
+                           f"counted {ready1['slice_restarts']}")
+    pipe = pipeline()
+    mid = _nb_steps(target, itertools.islice(pipe, k, None), want[k:m])
+    pipe.close()
+    part("steps")
+    at_fail_equal = _states_equal(train.train_state_dict(target.state),
+                                  state_a_fail)
+
+    # drill 2: the card dies; the same snapshot is restored into the same
+    # setup, which runs steps k+1..NB_STEPS again
+    dead = controller.kill_card()
+    part("compare and ready")
+    boot2 = boot_restore(controller, target, device)
+    part("restores")
+    ready2 = controller.ready("failure")
+    part("compare and ready")
+    pipe = pipeline()
+    again = _nb_steps(target, itertools.islice(pipe, k, None), want[k:])
+    pipe.close()
+    part("steps")
+    final_equal = all(torch.equal(final_a[n], train.local_tensor(p))
+                      for n, p in target.model.named_parameters())
+    del target
+    controller.cluster.set_session_payload(NB_NAMESPACE, NB_NAME, b"")
+    torch.cuda.empty_cache()
+    part("compare and ready")
+    peak_after = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    rss += [boot1["rss_bytes"], boot2["rss_bytes"]]
+    rss_max = max((r for r in rss if r is not None), default=None)
+
+    metrics, store = controller.metrics, controller.store()
+    finals = [s.generation for s in store.snapshots(NB_NAMESPACE, NB_NAME, 0)
+              if s.trigger == "final"]
+    status = controller.status()
+    attempts = ((status.get("sliceRecovery") or {}).get("0")
+                or {}).get("attempts", [])
+    exhausted = [c for c in status.get("conditions") or []
+                 if c.get("type") == "RecoveryExhausted"]
+    counted = {
+        "migrations": {f"{t},{r}": metrics.migrations.value(t, r)
+                       for t in ("drain", "failure")
+                       for r in ("migrated", "restored",
+                                 "fallback-restart")},
+        "slice_restarts": {r: v for (_, r), v in
+                           metrics.slice_restarts.collect().items()},
+        "checkpoint_snapshots_final": metrics.checkpoint_snapshots.value(
+            NB_NAMESPACE, "final"),
+        "recovery_observations":
+            metrics.disruption_recovery_seconds.count_value(NB_NAMESPACE),
+        "fakeclock_recovery_s":
+            metrics.disruption_recovery_seconds.sum_value(NB_NAMESPACE),
+    }
+    gb = size / 1e9
+    out = {
+        "migrate_step": k, "fail_step": m, "snapshot_bytes": size,
+        "serialize_s": serialize_s, "store_s": store_s,
+        "serialize_store_s": serialize_s + store_s,
+        "serialize_store_gb_s": gb / (serialize_s + store_s),
+        "restore_s": [boot1["restore_s"], boot2["restore_s"]],
+        "fetch_s": [boot1["fetch_s"], boot2["fetch_s"]],
+        "restore_gb_s": [gb / boot1["restore_s"], gb / boot2["restore_s"]],
+        "process_peak_rss_bytes": [peak_before, peak_after],
+        "max_sampled_rss_bytes": rss_max, "wall_s": wall,
+        "drills_s": sum(wall.values()),
+        "drills": {"drain": {**drain, "boot": boot1, "ready": ready1},
+                   "failure": {**dead, "boot": boot2, "ready": ready2}},
+        "engine": {stage: controller.cost["stages"][stage] for stage in
+                   ("migrate", "ready_drain", "dead_card", "ready_failure")},
+        "final_snapshots": finals, "attempts": len(attempts),
+        "recovery_exhausted": bool(exhausted), **counted,
+        "losses_before_migrate": pre["losses"],
+        "losses_after_migrate": mid["losses"],
+        "losses_after_dead_card": again["losses"],
+        "restored_state_bit_identical": restored_equal,
+        "state_at_fail_step_bit_identical": at_fail_equal,
+        "final_params_bit_identical": final_equal,
+        "nvidia_smi": smi,
+    }
+    print(f"notebook_train recovery: snapshot {size} bytes ({gb:.3f} GB), "
+          f"serialize {serialize_s:.3f} s + store {store_s:.3f} s "
+          f"({out['serialize_store_gb_s']:.3f} GB/s); restores "
+          f"{boot1['restore_s']:.3f} s and {boot2['restore_s']:.3f} s; "
+          f"engine " + "; ".join(
+              f"{stage} {c['reconciles']} reconciles {c['wall_ms']:.2f} ms"
+              for stage, c in out["engine"].items())
+          + f"; FakeClock (simulated) recovery "
+          f"{counted['fakeclock_recovery_s']:.1f} s; RSS at most "
+          + (f"{rss_max / 2**30:.2f} GiB" if rss_max is not None
+             else "not measured")
+          + f" where sampled (after each part and each load), the "
+          f"process's peak {peak_before / 2**30:.2f} -> "
+          f"{peak_after / 2**30:.2f} GiB; {out['drills_s']:.2f} s in "
+          f"all: " + ", ".join(
+              f"{name} {s:.2f}" for name, s in wall.items())
+          + f" s; {smi}", flush=True)
+
+    bad = []
+    runs = {"before the migration": (pre, a["losses"][:k]),
+            "after the migration": (mid, a["losses"][k:m]),
+            "after the dead card": (again, a["losses"][k:])}
+    for what, (run, losses) in runs.items():
+        if run["losses"] != losses or not run["same"] or any(
+                n != expected for n in run["launches"]):
+            bad.append(f"the run {what}: losses {run['losses']} against "
+                       f"run A's {losses}, batches equal {run['same']}, "
+                       f"launches {run['launches']}")
+    if not (restored_equal and at_fail_equal and final_equal):
+        bad.append(f"restored state equal {restored_equal}, at step {m} "
+                   f"{at_fail_equal}, final parameters {final_equal}")
+    for boot, drill in ((boot1, drain), (boot2, dead)):
+        if [str(boot["generation"]), boot["digest"]] != drill["stamp"] or                 boot["bytes"] != size:
+            bad.append(f"restored generation {boot['generation']}, digest "
+                       f"{boot['digest']}, {boot['bytes']} bytes against "
+                       f"the pod's stamp {drill['stamp']}, {size} bytes")
+    if finals != [drain["generation"]] or \
+            dead["generation"] != drain["generation"]:
+        bad.append(f"final snapshots {finals}, migrations restored "
+                   f"{drain['generation']} and {dead['generation']}")
+    want_counts = {"drain,migrated": 1.0, "drain,restored": 1.0,
+                   "drain,fallback-restart": 0.0, "failure,migrated": 1.0,
+                   "failure,restored": 1.0, "failure,fallback-restart": 0.0}
+    if counted["migrations"] != want_counts or \
+            counted["slice_restarts"] != {"migrate": 2.0} or \
+            counted["checkpoint_snapshots_final"] != 1.0 or \
+            counted["recovery_observations"] != 1 or len(attempts) != 2 \
+            or exhausted or ready2["migration_complete_events"] != 2:
+        bad.append(f"counted {counted}, {len(attempts)} attempts, "
+                   f"RecoveryExhausted {exhausted}, MigrationComplete "
+                   f"{ready2['migration_complete_events']}")
+    if bad:
+        raise RuntimeError("notebook_train recovery: " + "; ".join(bad))
+    return out
 
 
 def start_pre_stop(rendered: dict) -> dict:
@@ -3242,13 +3735,21 @@ def notebook_train_phase(device, device_name, smi: str) -> dict:
         return {n: train.local_tensor(p).detach().clone()
                 for n, p in s.model.named_parameters()}
 
-    # run A: 12 steps through the pipeline with a telemetry agent
+    # run A: 12 steps through the pipeline with a telemetry agent; its
+    # state after step NB_FAIL_STEP is kept for the recovery drills
     run_a = setup(SEED)
     agent = TelemetryAgent(config=cfg, batch=NB_BATCH, seq_len=seq,
                            num_chips=1, accelerator=device_name,
                            worker="chip-smoke")
+    state_a_fail = {}
+
+    def keep_fail_step(step, state):
+        if step == NB_FAIL_STEP:
+            state_a_fail.update(_clone_state(state))
+        return False
+
     pipe = pipeline()
-    a = _nb_steps(run_a, pipe, want, agent=agent)
+    a = _nb_steps(run_a, pipe, want, hook=keep_fail_step, agent=agent)
     pipe.close()
     final_a = clone_params(run_a)
     summary = agent.summary()
@@ -3348,8 +3849,16 @@ def notebook_train_phase(device, device_name, smi: str) -> dict:
         final_r = clone_params(resumed)
         params_equal = all(torch.equal(final_a[n], final_r[n])
                            for n in final_a)
-        del resumed, final_a, final_r
+        del resumed, final_r
         shutil.rmtree(tmp / "local")
+        torch.cuda.empty_cache()
+
+        # the self-healing engine's drills on the same pod: a drain
+        # migration, then a dead card
+        recovery = recovery_drills(controller, setup, pipeline, want, a,
+                                   state_a_fail, final_a, expected, device,
+                                   smi)
+        del state_a_fail, final_a
         torch.cuda.empty_cache()
 
         # dcp: one save and restore of the mesh setup at world size 1 on
@@ -3482,6 +3991,7 @@ def notebook_train_phase(device, device_name, smi: str) -> dict:
                    if k not in ("env", "signal_dir", "podinfo")},
         "render_s": render_s,
         "controller": {**controller.cost, "nvidia_smi": smi},
+        "recovery": recovery,
         "pre_stop_returncode": pre_stop["rc"],
         "pre_stop_wait_s": pre_stop["wait_s"],
         "pre_stop_startup_s": pre_stop["startup_s"],

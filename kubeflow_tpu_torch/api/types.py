@@ -31,9 +31,9 @@ GROUP = "kubeflow.org"
 KIND = "Notebook"
 STORAGE_VERSION = "v1"
 
-# terminal verdict of the reference's self-healing engine: a slice that
-# spent its restart budget.  The port writes it never, but carries it
-# forward through every status rewrite as the reference does.
+# terminal verdict of the self-healing engine (core/selfheal.py): a gang
+# that spent its restart budget.  The status writer carries it forward
+# through every status rewrite, as the reference's does.
 CONDITION_RECOVERY_EXHAUSTED = "RecoveryExhausted"
 
 

@@ -1,7 +1,7 @@
 """Constants the GPU workload renderer and the controllers need.
 
 The port's copy of the part of kubeflow_tpu/core/constants.py that
-core/{workload,notebook_controller,culling_controller,culler}.py,
+core/{workload,notebook_controller,culling_controller,culler,selfheal}.py,
 kube/cluster.py and odh/network.py read, plus the GPU's resource, the GPU
 node's labels, the pod-index label and the checkpoint hook's writable
 signal directory.
@@ -23,6 +23,15 @@ LAST_ACTIVITY_CHECK_TIMESTAMP_ANNOTATION = (
 # runtime acknowledges with checkpoint-complete
 ANNOTATION_CHECKPOINT_REQUESTED = "notebooks.kubeflow.org/checkpoint-requested"
 ANNOTATION_CHECKPOINT_COMPLETE = "notebooks.kubeflow.org/checkpoint-complete"
+# voluntary migration request (drain/defrag): the recovery engine runs
+# the snapshot -> gang restart -> restore verb it uses for disruption, no
+# failure required, and clears the annotation once handled.  The value is
+# the trigger ("drain" or "defrag"; anything else reads as "drain").
+ANNOTATION_MIGRATE = "notebooks.kubeflow.org/migrate"
+# stamped onto a worker pod by the kubelet-side runtime after it restored
+# the session checkpoint its CHECKPOINT_RESTORE_* env names
+ANNOTATION_RESTORED_GENERATION = "notebooks.kubeflow.org/restored-generation"
+ANNOTATION_RESTORED_DIGEST = "notebooks.kubeflow.org/restored-digest"
 # the scheduler's all-or-nothing placement intent: JSON {"v": 1,
 # "slices": {"<gang>": {"pool": ..., "nodes": [...]}}}; the renderer turns
 # each gang's pool assignment into a nodeSelector

@@ -2,7 +2,9 @@
 `NotebookMetrics`, for the families the port's reconcilers write.
 
 Counters for creations, failures, cullings and cull checkpoints, the
-last-cull timestamp, the first-readiness histogram, and a scraper-style
+last-cull timestamp, the first-readiness histogram, the self-healing
+engine's restarts, migrations, checkpoint ages and recovery latency
+(core/selfheal.py), and a scraper-style
 gauge that counts running notebooks from the workload StatefulSets
 carrying the notebook-name label, with the GPUs their running gangs
 request beside it.  The families keep the reference's names and labels,
@@ -10,8 +12,9 @@ on the port's `utils/metrics.py` Registry; the GPU gauge is the twin of
 the reference's `notebook_tpu_chips_requested`.
 
 The reference's other registrations (diagnosis, lifecycle, metering,
-profiler, SLO, data plane, self-healing, scheduler, shards) wait for the
-modules that write them (`ROADMAP.md` queue 1 item 16).
+profiler, SLO, data plane, scheduler, shards) wait for the modules that
+write them (`ROADMAP.md` queue 1 item 16), and the promotion families for
+the replicated tier (item 14).
 """
 
 from __future__ import annotations
@@ -71,11 +74,46 @@ class NotebookMetrics:
             buckets=(1.0, 5.0, 10.0, 30.0, 60.0, 120.0, 300.0, 600.0,
                      1800.0, 3600.0),
         )
-        # cull checkpoints the culler confirmed (trigger: cull)
+        # self-healing (core/selfheal.py): gang-atomic restarts performed
+        # by the recovery engine, labeled by the disruption classification
+        # (a bounded set, selfheal.REASON_*), and the disruption-detected
+        # -> gang-Healthy-again latency distribution
+        self.slice_restarts = self.registry.counter(
+            "notebook_slice_restarts_total",
+            "Slice-atomic worker restarts performed by the self-healing "
+            "engine",
+            labels=("namespace", "reason"),
+        )
+        self.disruption_recovery_seconds = self.registry.histogram(
+            "notebook_disruption_recovery_seconds",
+            "Latency from disruption detection to the slice reading "
+            "Healthy again",
+            labels=("namespace",),
+            buckets=(1.0, 5.0, 15.0, 30.0, 60.0, 120.0, 300.0, 600.0,
+                     1800.0),
+        )
+        # session checkpoints the controllers recorded or confirmed
+        # (trigger: final from the migrate verb, cull from the culler), the
+        # checkpoint age at each migrate decision, and the migrate verb's
+        # outcomes (trigger and result are the bounded selfheal.MIGRATE_*
+        # sets)
         self.checkpoint_snapshots = self.registry.counter(
             "notebook_checkpoint_snapshots_total",
             "Session checkpoints recorded or confirmed by the controllers",
             labels=("namespace", "trigger"),
+        )
+        self.checkpoint_age_seconds = self.registry.histogram(
+            "notebook_checkpoint_age_seconds",
+            "Age of the freshest session checkpoint at migrate-decision "
+            "time",
+            labels=("namespace",),
+            buckets=(1.0, 10.0, 30.0, 60.0, 120.0, 300.0, 600.0, 1800.0,
+                     3600.0),
+        )
+        self.migrations = self.registry.counter(
+            "notebook_migrations_total",
+            "Checkpoint/migrate recoveries by trigger and outcome",
+            labels=("trigger", "result"),
         )
 
     def attach_manager(self, manager) -> None:

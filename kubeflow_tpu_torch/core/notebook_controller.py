@@ -9,15 +9,17 @@ the renderer takes the CR as a dict and returns dicts, and `_render` is
 the one place that converts between the two.  `workerStates` and
 `sliceHealth` are computed over the gang's pods under the reference's
 status names, so the same clients read them.  Stop, cull and the restart
-annotation act on the whole gang.  Event re-emission lives in its own
-controller, as in the reference.
+annotation act on the whole gang.  After the status pass and the restart
+annotation, the self-healing engine (core/selfheal.py) runs its recovery
+pass over the gang, with the session-state store opened from
+`CHECKPOINT_STORE_URI` for its migrate verb.  Event re-emission lives in
+its own controller, as in the reference.
 
 Not ported yet, and refused when turned on rather than skipped
 (`setup_core_controllers` for a config, the Notebook admission hook for
 a CR), each naming the `ROADMAP.md` queue 1 item that ports it: the
-self-healing engine's recovery pass (item 12), the slice scheduler's
-gang gate and warm pool (item 13), `spec.replication` (item 14) and the
-Istio VirtualService (item 15).
+slice scheduler's gang gate and warm pool (item 13), `spec.replication`
+(item 14) and the Istio VirtualService (item 15).
 """
 
 from __future__ import annotations
@@ -55,6 +57,8 @@ from ..utils.clock import Clock
 from ..utils.config import CoreConfig, NotPortedError, not_ported
 from . import constants as C
 from .metrics import NotebookMetrics
+from .selfheal import RecoveryEngine, SliceRestartError
+from .sessionstate import SessionStateStore, open_store
 from .workload import (
     WorkloadConfig,
     generate_headless_service,
@@ -73,9 +77,6 @@ API_VERSIONS = ("v1alpha1", "v1beta1", "v1")
 
 def check_config(cfg: CoreConfig) -> None:
     """Refuse a config that turns on a part this port does not run."""
-    if cfg.enable_self_healing:
-        raise NotPortedError(not_ported(
-            "ENABLE_SELF_HEALING", 12, "kubeflow_tpu/core/selfheal.py"))
     if cfg.enable_slice_scheduler:
         raise NotPortedError(not_ported(
             "ENABLE_SLICE_SCHEDULER", 13,
@@ -117,20 +118,6 @@ def workload_config(cfg: CoreConfig) -> WorkloadConfig:
                           checkpoint_interval_s=cfg.checkpoint_interval_s)
 
 
-class GangRestartError(Exception):
-    """Aggregate of per-pod delete failures from a gang-atomic restart,
-    raised only after every pod of the gang was attempted, so the
-    manager's backoff retries the whole gang (the reference's
-    SliceRestartError)."""
-
-    def __init__(self, errors: list[Exception], attempted: int) -> None:
-        self.errors = errors
-        self.attempted = attempted
-        super().__init__(
-            f"gang restart: {len(errors)}/{attempted} pod deletes failed; "
-            f"first: {errors[0]}")
-
-
 class NotebookReconciler:
     def __init__(
         self,
@@ -140,6 +127,7 @@ class NotebookReconciler:
         recorder: Optional[EventRecorder] = None,
         clock: Optional[Clock] = None,
         cache=None,
+        session: Optional[SessionStateStore] = None,
     ):
         self.api = api
         self.cfg = cfg
@@ -151,6 +139,17 @@ class NotebookReconciler:
         # owner uid, worker pods by label index.  None falls back to live
         # reads (direct-construction unit tests).
         self.cache = cache
+        # session-state store: when wired (an explicit store, or
+        # CHECKPOINT_STORE_URI in config, the same store the pods'
+        # checkpoint sidecars write), the recovery engine prefers the
+        # migrate verb over bare gang restarts
+        if session is None and cfg.checkpoint_store_uri:
+            session = open_store(cfg.checkpoint_store_uri, clock=self.clock)
+        self.session = session
+        # gang-atomic self-healing, its bookkeeping persisted on the CR
+        self.recovery = RecoveryEngine(api, cfg, metrics, self.recorder,
+                                       clock=self.clock, cache=cache,
+                                       session=session)
         # first-readiness tracking for the notebook_to_ready_seconds
         # histogram: first-seen clock time per live notebook (keyed by uid
         # so a delete+recreate measures afresh), dropped once observed
@@ -251,6 +250,19 @@ class NotebookReconciler:
                                               None)
                 self.api.update(live)
             retry_on_conflict(clear)
+
+        # self-healing pass, after the status pass (it keys off the slice
+        # health just written) and after the restart annotation (an
+        # operator's restart is not charged against the budget)
+        requeue_s = self.recovery.maybe_recover(
+            nb, live_names,
+            pods_of=lambda name: self._pods_of(nb, name),
+            restart_slice=lambda name: self._restart_pods(nb, [name]),
+            stamp_restore=lambda name, idx: self._stamp_restore(
+                nb, name, idx),
+        )
+        if requeue_s > 0:
+            return Result(requeue_after=requeue_s)
         return Result()
 
     def _apply_workload(self, req, desired_sets, existing, live_names,
@@ -331,7 +343,31 @@ class NotebookReconciler:
                 except Exception as err:  # noqa: BLE001 — aggregated below
                     errors.append(err)
         if errors:
-            raise GangRestartError(errors, attempted)
+            raise SliceRestartError(errors, attempted)
+
+    def _stamp_restore(self, nb: Notebook, live_name: str,
+                       gang: int) -> None:
+        """Sync the gang's live StatefulSet with the restore intent the
+        recovery engine just wrote into status.sessionState: re-render the
+        template (the renderer injects CHECKPOINT_RESTORE_URI/_GENERATION
+        from the live status) and copy the owned fields onto the live
+        object, so the pods the restart recreates boot with the restore
+        env.  Reads the apiserver, not the cache: the write-ahead status
+        update may be younger than the informer stream."""
+        fresh = self.api.try_get("Notebook", nb.namespace, nb.name)
+        if fresh is None:
+            return
+        desired_sets = generate_statefulsets(Notebook(fresh.to_dict()),
+                                             self.workload_cfg)
+        if gang >= len(desired_sets):
+            return
+        desired = KubeObject.from_dict(desired_sets[gang])
+        set_controller_reference(fresh, desired)
+        live = self.api.try_get("StatefulSet", nb.namespace, live_name)
+        if live is None:
+            return
+        if rh.copy_statefulset_fields(desired, live):
+            self.api.update(live)
 
     def _update_status(self, nb: Notebook, obj: KubeObject,
                        live_names: list[str]) -> None:
@@ -419,9 +455,9 @@ class NotebookReconciler:
                     container_state = cs.get("state", {})
                     break
 
-        # the reference's self-healing and session records ride the same
-        # status object; this writer rebuilds status from pod state, so it
-        # carries them forward untouched (the renderer reads sessionState)
+        # the self-healing engine's records ride the same status object;
+        # this writer rebuilds status from pod state, so it carries them
+        # forward untouched (the renderer reads sessionState)
         for cond in (nb.status.get("conditions") or []):
             if cond.get("type") == CONDITION_RECOVERY_EXHAUSTED:
                 conditions.append(copy.deepcopy(cond))
@@ -585,10 +621,12 @@ def setup_core_controllers(
     mgr: Manager,
     cfg: Optional[CoreConfig] = None,
     metrics: Optional[NotebookMetrics] = None,
+    session: Optional[SessionStateStore] = None,
 ) -> NotebookReconciler:
     """Wire the core controllers into a manager (main.go:58-148 analog;
     culling registration is separate, gated on ENABLE_CULLING — see
-    core.culling_controller.setup_culling).  Raises NotPortedError for a
+    core.culling_controller.setup_culling).  `session` overrides the
+    store opened from CHECKPOINT_STORE_URI.  Raises NotPortedError for a
     config that turns on a part this port does not run."""
     cfg = cfg or CoreConfig.from_env()
     check_config(cfg)
@@ -620,7 +658,7 @@ def setup_core_controllers(
         metrics.attach_manager(mgr)
     recorder = EventRecorder(api, "notebook-controller")
     rec = NotebookReconciler(api, cfg, metrics, recorder, clock=mgr.clock,
-                             cache=cache)
+                             cache=cache, session=session)
 
     def pod_to_request(pod: KubeObject) -> list[Request]:
         name = pod.metadata.labels.get(C.NOTEBOOK_NAME_LABEL)
@@ -657,6 +695,6 @@ def setup_core_controllers(
     return rec
 
 
-__all__ = ["EventReemitReconciler", "GangRestartError", "NotPortedError",
+__all__ = ["EventReemitReconciler", "NotPortedError",
            "NotebookReconciler", "check_config", "setup_core_controllers",
            "workload_config"]

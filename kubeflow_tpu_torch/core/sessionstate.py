@@ -1,10 +1,14 @@
-"""Session-state store: the half of kubeflow_tpu/core/sessionstate.py
-that a notebook pod uses.
+"""Session-state store: the port of kubeflow_tpu/core/sessionstate.py.
 
 The pod's checkpoint sidecar (runtime/checkpoint.py) writes periodic,
 pre-stop and cull snapshots of the session payload into a store keyed
-by (namespace, notebook, slice); the controller reads the same store to
-decide whether a disrupted slice can be migrated.  So `DirSessionStore`
+by (namespace, notebook, slice); the controller's recovery engine
+(core/selfheal.py) reads the same store to decide whether a disrupted
+gang can be migrated, and asks the gang for a final snapshot through
+`request_final_snapshot`, which the registered handler answers (the
+in-pod sidecar in production, the fake cluster in tests) with the fresh
+`SnapshotInfo`, or None when the gang is unreachable.  A GPU gang is
+slice 0.  So `DirSessionStore`
 writes the reference's on-disk layout byte for byte:
 `<root>/<ns>/<notebook>/slice-<id>/gen-<G>.bin` (payload) and
 `gen-<G>.json` (metadata, the commit marker), each written tmp file ->
@@ -12,10 +16,11 @@ fsync -> atomic rename -> fsync(dir), the marker last, so a sidecar
 killed mid-save leaves an orphan that reads as "no snapshot" and is
 GC'd on the next scan.
 
-Copied: `SnapshotInfo`, `SessionStateStore.put` / `latest` / `payload`,
-`InMemorySessionStore`, `DirSessionStore` and `open_store`.  The
-replicated tier (delta chains, write fences, follower replicas) is the
-controller's and is left out.
+Copied: `SnapshotInfo`, `SessionStateStore.put` / `latest` / `info` /
+`payload`, the final-snapshot handler, `InMemorySessionStore`,
+`DirSessionStore` and `open_store`.  The replicated tier (delta chains,
+write fences, compaction, follower replicas) waits for `ROADMAP.md`
+queue 1 item 14.
 """
 
 from __future__ import annotations
@@ -26,13 +31,18 @@ import os
 import threading
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional
 
 from ..utils.clock import Clock
 
+# snapshot triggers, a bounded set (they label
+# notebook_checkpoint_snapshots_total{trigger})
 TRIGGER_PERIODIC = "periodic"
+TRIGGER_FINAL = "final"
 
 DEFAULT_MAX_TO_KEEP = 5
+
+FinalSnapshotHandler = Callable[[str, str, int], Optional["SnapshotInfo"]]
 
 
 @dataclass(frozen=True)
@@ -64,6 +74,7 @@ class SessionStateStore:
         self.clock = clock or Clock()
         self.max_to_keep = max_to_keep
         self._lock = threading.RLock()
+        self._final_handler: Optional[FinalSnapshotHandler] = None
 
     @property
     def uri(self) -> str:
@@ -104,9 +115,35 @@ class SessionStateStore:
         snaps = self.snapshots(namespace, notebook, slice_id)
         return snaps[-1] if snaps else None
 
+    def info(self, namespace: str, notebook: str, slice_id: int,
+             generation: int) -> Optional[SnapshotInfo]:
+        return next((s for s in self.snapshots(namespace, notebook, slice_id)
+                     if s.generation == generation), None)
+
     def payload(self, namespace: str, notebook: str, slice_id: int,
                 generation: Optional[int] = None) -> Optional[bytes]:
         raise NotImplementedError
+
+    # -- the control plane's "flush now" hook ----------------------------------
+    def set_final_snapshot_handler(
+            self, handler: Optional[FinalSnapshotHandler]) -> None:
+        """Register the data-plane responder (the in-pod sidecar; in tests,
+        FakeCluster).  One handler: the store is per fleet, and the
+        handler fans out to the addressed gang itself."""
+        self._final_handler = handler
+
+    def request_final_snapshot(self, namespace: str, notebook: str,
+                               slice_id: int) -> Optional[SnapshotInfo]:
+        """Ask the gang to snapshot now (the pre-migration flush).  Returns
+        the fresh SnapshotInfo, or None when no handler is wired or the
+        gang is unreachable or failed to snapshot."""
+        handler = self._final_handler
+        if handler is None:
+            return None
+        try:
+            return handler(namespace, notebook, slice_id)
+        except Exception:  # noqa: BLE001 — an unreachable gang is a
+            return None    # normal outcome, not an engine error
 
     def _store(self, info: SnapshotInfo, payload: bytes) -> None:
         raise NotImplementedError
@@ -288,5 +325,6 @@ def open_store(uri: str, clock: Optional[Clock] = None,
     return DirSessionStore(uri, clock=clock, max_to_keep=max_to_keep)
 
 
-__all__ = ["DirSessionStore", "InMemorySessionStore", "SessionStateStore",
-           "SnapshotInfo", "TRIGGER_PERIODIC", "open_store", "payload_digest"]
+__all__ = ["DirSessionStore", "FinalSnapshotHandler", "InMemorySessionStore",
+           "SessionStateStore", "SnapshotInfo", "TRIGGER_FINAL",
+           "TRIGGER_PERIODIC", "open_store", "payload_digest"]

@@ -13,13 +13,21 @@ requested resource, `nvidia.com/gpu` as the reference counts
 `google.com/tpu`: a gang that does not fit stays Pending, and a stopped
 gang's GPUs return to the pool.
 
-Left out until the self-healing engine is ported (`ROADMAP.md` queue 1
-item 12): the session-store, replication and restore-stamp hooks, and
-the crash-loop, node-loss, cordon, poisoned-StatefulSet and restore-hold
-drills; the warm-pool provisioner hooks wait for the slice scheduler
-(item 13), the telemetry stamping for the data-plane rollup (item 16),
-the ServiceAccount pull-secret controller for the ODH controller (item
-15), and the fault-plan exemption for fault plans (item 17).
+For the self-healing engine (core/selfheal.py) it also plays the data
+plane of the session-state contract: `attach_session_store` makes it
+answer the controller's final-snapshot requests for a reachable gang and
+stamp the restored generation and digest onto a pod created with
+CHECKPOINT_RESTORE_* env, and `restore_hold` parks such a pod Pending
+until `release_restores`.  A gang is slice 0.  Its drills are the
+reference's: a failed pod, a crash loop, a node deleted or cordoned, and
+a poisoned StatefulSet whose pods always come up Failed.
+
+Left out until the modules that use them are ported (`ROADMAP.md` queue
+1): the delta-stream and follower hooks for the replicated tier (item
+14), the warm-pool provisioner hooks for the slice scheduler (item 13),
+the telemetry stamping for the data-plane rollup (item 16), the
+ServiceAccount pull-secret controller for the ODH controller (item 15),
+and the fault-plan exemption for fault plans (item 17).
 """
 
 from __future__ import annotations
@@ -59,6 +67,21 @@ class FakeCluster:
         self.api = api
         self.auto_ready = auto_ready
         self._pod_ip_counter = 0
+        self._failed_pods: set[tuple[str, str]] = set()
+        # checkpoint-restore latency model: with restore_hold on, a pod
+        # recreated with CHECKPOINT_RESTORE_* env stays Pending
+        # ("RestoringCheckpoint") until release_restores()
+        self.restore_hold = False
+        self._held_restores: set[tuple[str, str]] = set()
+        # (namespace, sts_name) -> failure reason: pods (re)created for a
+        # poisoned StatefulSet come up Failed (see poison_statefulset)
+        self._poisoned: dict[tuple[str, str], str] = {}
+        # session-state plumbing (attach_session_store): the data plane
+        # plays the checkpoint sidecar, answering final-snapshot requests
+        # and stamping what a restored pod restored
+        self._session_store = None
+        self._session_default_payload = b"torch-session"
+        self._session_payload: dict[tuple[str, str], bytes] = {}
         # incremental scheduler accounting: per-node used resources kept in
         # lockstep with pod bind/delete events, so one placement decision
         # costs O(nodes) instead of O(pods x nodes).  _bound remembers each
@@ -137,27 +160,107 @@ class FakeCluster:
     # -- failure injection -----------------------------------------------------
     def fail_pod(self, namespace: str, name: str,
                  reason: str = "GPUUnhealthy") -> None:
-        """Mark a pod failed, as its kubelet does when a GPU or the
-        container dies."""
+        """Mark a pod failed, as its kubelet does when a GPU falls off
+        the bus (an XID error) or the container dies."""
+        with self._mutex:
+            self._fail_pod(namespace, name, reason)
+
+    def _fail_pod(self, namespace: str, name: str, reason: str) -> None:
+        pod = self.api.get("Pod", namespace, name)
+        pod.status = {
+            "phase": "Failed",
+            "reason": reason,
+            "conditions": [{"type": "Ready", "status": "False",
+                            "reason": reason}],
+            "containerStatuses": [
+                {
+                    "name": c.get("name", "main"),
+                    "ready": False,
+                    "state": {"terminated": {"exitCode": 137,
+                                             "reason": reason}},
+                }
+                for c in pod.spec.get("containers", [])
+            ],
+        }
+        self._failed_pods.add((namespace, name))
+        self.api.update_status(pod)
+        self._sync_sts_status_for_pod(pod)
+
+    def crashloop_pod(self, namespace: str, name: str) -> None:
+        """The pod's container is stuck in the kubelet's CrashLoopBackOff:
+        the pod stays Running but never turns Ready (the state
+        core/selfheal.py classifies as crash-loop)."""
         with self._mutex:
             pod = self.api.get("Pod", namespace, name)
             pod.status = {
-                "phase": "Failed",
-                "reason": reason,
-                "conditions": [{"type": "Ready", "status": "False",
-                                "reason": reason}],
+                "phase": "Running",
+                "conditions": [
+                    {"type": "PodScheduled", "status": "True"},
+                    {"type": "Ready", "status": "False",
+                     "reason": "ContainersNotReady"},
+                ],
                 "containerStatuses": [
                     {
                         "name": c.get("name", "main"),
                         "ready": False,
-                        "state": {"terminated": {"exitCode": 137,
-                                                 "reason": reason}},
+                        "restartCount": 7,
+                        "state": {"waiting": {
+                            "reason": "CrashLoopBackOff",
+                            "message": "back-off 5m0s restarting failed "
+                                       "container",
+                        }},
                     }
                     for c in pod.spec.get("containers", [])
                 ],
             }
             self.api.update_status(pod)
             self._sync_sts_status_for_pod(pod)
+
+    def delete_node(self, name: str) -> None:
+        """Node-driven disruption (preemption, pool scale-down): the Node
+        object vanishes while its pods linger with a dangling nodeName."""
+        try:
+            self.api.delete("Node", "", name)
+        except NotFoundError:
+            pass
+
+    def cordon_node(self, name: str) -> None:
+        """Mark a node unschedulable (kubectl cordon), the voluntary
+        migration trigger: its pods keep running, and the scheduler places
+        no new ones there."""
+        node = self.api.try_get("Node", "", name)
+        if node is None:
+            return
+        node.spec["unschedulable"] = True
+        self.api.update(node)
+
+    def uncordon_node(self, name: str) -> None:
+        node = self.api.try_get("Node", "", name)
+        if node is None:
+            return
+        node.spec.pop("unschedulable", None)
+        self.api.update(node)
+        # pods the cordon left Pending retry now: a no-op update notifies
+        # no watcher, so the Node-MODIFIED path alone cannot be relied on
+        with self._mutex:
+            self._retry_pending_pods()
+
+    def poison_statefulset(self, namespace: str, name: str,
+                           reason: str = "GPUUnhealthy") -> None:
+        """Every pod (re)created for this StatefulSet comes up Failed: a
+        permanently broken gang (a bad host, a dead NVLink).  Self-healing
+        must exhaust its restart budget on it, not churn forever.
+        Existing pods fail at once."""
+        with self._mutex:
+            self._poisoned[(namespace, name)] = reason
+            for pod_name in sorted(self._sts_pods.get((namespace, name), ())):
+                self._fail_pod(namespace, pod_name, reason)
+
+    def heal_statefulset(self, namespace: str, name: str) -> None:
+        """Undo poison_statefulset: the next gang restart comes up clean
+        (the operator replaced the hardware)."""
+        with self._mutex:
+            self._poisoned.pop((namespace, name), None)
 
     def mark_running(self, namespace: str, name: str) -> None:
         """Drive a created-but-not-yet-Ready pod to Running/Ready by hand —
@@ -169,6 +272,159 @@ class FakeCluster:
                 return
             self._mark_running(pod)
             self._sync_sts_status_for_pod(pod)
+
+    # -- session-state data plane ----------------------------------------------
+    def attach_session_store(self, store,
+                             default_payload: bytes = b"torch-session"
+                             ) -> None:
+        """Wire a core/sessionstate.py store: this cluster now answers
+        `request_final_snapshot` (a reachable gang flushes its current
+        session payload as a `final` snapshot; an unreachable one returns
+        None) and stamps restore annotations onto pods that boot with
+        CHECKPOINT_RESTORE_* env."""
+        self._session_store = store
+        self._session_default_payload = default_payload
+        store.set_final_snapshot_handler(self._final_snapshot)
+
+    @property
+    def session_store(self):
+        """The store this data plane answers final-snapshot requests for
+        (None until attach_session_store)."""
+        return self._session_store
+
+    def set_session_payload(self, namespace: str, notebook: str,
+                            payload: bytes) -> None:
+        """The in-memory state of one notebook's gang (a serialized train
+        state): what snapshots capture and restores must reproduce."""
+        self._session_payload[(namespace, notebook)] = bytes(payload)
+
+    def session_payload(self, namespace: str, notebook: str) -> bytes:
+        return self._session_payload.get((namespace, notebook),
+                                         self._session_default_payload)
+
+    def snapshot_sessions(self, namespace: str, notebook: str,
+                          trigger: str = "periodic") -> list:
+        """The in-pod sidecar's periodic snapshot tick: one snapshot of the
+        current session payload per live gang."""
+        assert self._session_store is not None, "attach_session_store first"
+        return [self._session_store.put(
+                    namespace, notebook, slice_id,
+                    self.session_payload(namespace, notebook),
+                    trigger=trigger)
+                for slice_id in sorted(self._slice_ids(namespace, notebook))]
+
+    def _gang_pods(self, namespace: str, notebook: str) -> list[KubeObject]:
+        return [p for p in self.api.list("Pod", namespace=namespace)
+                if p.metadata.labels.get(C.NOTEBOOK_NAME_LABEL) == notebook]
+
+    def _slice_ids(self, namespace: str, notebook: str) -> set[int]:
+        return {0} if self._gang_pods(namespace, notebook) else set()
+
+    def _final_snapshot(self, namespace: str, notebook: str, slice_id: int):
+        """The control plane asked the gang to flush now.  Reachable =
+        every worker pod exists, is Running with live containers, and
+        still has its Ready node; then the current session payload lands
+        as a `final` snapshot.  Anything less returns None and the engine
+        falls back to stored checkpoints."""
+        with self._mutex:
+            pods = self._gang_pods(namespace, notebook) \
+                if slice_id == 0 else []
+            if not pods:
+                return None
+            for pod in pods:
+                if (namespace, pod.name) in self._failed_pods:
+                    return None
+                status = pod.body.get("status", {}) or {}
+                if status.get("phase") != "Running":
+                    return None
+                for cs in status.get("containerStatuses", []) or []:
+                    waiting = (cs.get("state") or {}).get("waiting") or {}
+                    if waiting.get("reason") == "CrashLoopBackOff":
+                        return None
+                node_name = pod.spec.get("nodeName", "")
+                node = self.api.try_get("Node", "", node_name) \
+                    if node_name else None
+                if node_name and (node is None or not any(
+                        c.get("type") == "Ready"
+                        and c.get("status") == "True"
+                        for c in node.body.get("status", {}).get(
+                            "conditions", []))):
+                    return None
+            return self._session_store.put(
+                namespace, notebook, slice_id,
+                self.session_payload(namespace, notebook), trigger="final")
+
+    def _apply_restore_stamp(self, pod: KubeObject) -> None:
+        """A pod whose template carries CHECKPOINT_RESTORE_* env boots by
+        restoring that snapshot: the fake kubelet records what the runtime
+        restores as annotations on the pod."""
+        if self._session_store is None:
+            return
+        env = {}
+        for c in pod.spec.get("containers", []):
+            for e in c.get("env", []) or []:
+                if "value" in e:
+                    env.setdefault(e.get("name"), e["value"])
+        gen_raw = env.get(C.ENV_CHECKPOINT_RESTORE_GENERATION)
+        if gen_raw is None:
+            return
+        try:
+            generation = int(gen_raw)
+        except ValueError:
+            return
+        notebook = pod.metadata.labels.get(C.NOTEBOOK_NAME_LABEL, "")
+        info = self._session_store.info(pod.namespace, notebook, 0,
+                                        generation)
+        if info is None:
+            return
+        pod.metadata.annotations[C.ANNOTATION_RESTORED_GENERATION] = \
+            str(generation)
+        pod.metadata.annotations[C.ANNOTATION_RESTORED_DIGEST] = info.digest
+
+    def _hold_restore(self, pod: KubeObject) -> None:
+        """Park a restore-stamped pod in Pending while the modelled
+        checkpoint reload runs; release_restores() flips it Ready."""
+        self._held_restores.add((pod.namespace, pod.name))
+        pod.status = {
+            "phase": "Pending",
+            "conditions": [
+                {"type": "PodScheduled", "status": "True"},
+                {
+                    "type": "Ready",
+                    "status": "False",
+                    "reason": "RestoringCheckpoint",
+                    "message": "reloading session snapshot into the runtime",
+                },
+            ],
+        }
+        self.api.update_status(pod)
+
+    def release_restores(self) -> int:
+        """Complete every checkpoint reload in flight: flip the held pods
+        to Running/Ready.  Call after advancing the fake clock by the
+        restore time the drill wants a migration to pay."""
+        with self._mutex:
+            held = sorted(self._held_restores)
+            self._held_restores.clear()
+        for ns, name in held:
+            self.mark_running(ns, name)
+        return len(held)
+
+    def _start_bound(self, pod: KubeObject) -> None:
+        """What the kubelet does with a pod just bound to a node: fail it
+        (a poisoned StatefulSet), hold it while it restores, or (with
+        auto_ready) run it."""
+        ref = pod.metadata.controller_owner()
+        poison = self._poisoned.get((pod.namespace, ref.name)) \
+            if ref is not None and ref.kind == "StatefulSet" else None
+        if poison is not None:
+            self._fail_pod(pod.namespace, pod.name, poison)
+        elif self.auto_ready:
+            if self.restore_hold and C.ANNOTATION_RESTORED_GENERATION \
+                    in pod.metadata.annotations:
+                self._hold_restore(pod)
+            else:
+                self._mark_running(pod)
 
     # -- event loop ------------------------------------------------------------
     def _on_event(self, ev: WatchEvent) -> None:
@@ -211,6 +467,8 @@ class FakeCluster:
             if ev.type == EventType.DELETED:
                 self._unaccount_pod(ev.obj)
                 self._unindex_pod(ev.obj)
+                self._failed_pods.discard((ev.obj.namespace, ev.obj.name))
+                self._held_restores.discard((ev.obj.namespace, ev.obj.name))
                 owner = ev.obj.metadata.controller_owner()
                 if owner is not None and owner.kind == "StatefulSet":
                     self._reconcile_sts(ev.obj.namespace, owner.name)
@@ -276,6 +534,7 @@ class FakeCluster:
         pod.metadata.labels.setdefault(
             "statefulset.kubernetes.io/pod-name", name
         )
+        self._apply_restore_stamp(pod)
         sts_live = self.api.get("StatefulSet", namespace, sts.name)
         set_controller_reference(sts_live, pod)
 
@@ -297,8 +556,7 @@ class FakeCluster:
             return
         pod.spec["nodeName"] = node.name
         pod = self.api.update(pod)
-        if self.auto_ready:
-            self._mark_running(pod)
+        self._start_bound(pod)
 
     def _mark_running(self, pod: KubeObject) -> None:
         self._pod_ip_counter += 1
@@ -415,8 +673,7 @@ class FakeCluster:
                 continue
             pod.spec["nodeName"] = node.name
             pod = self.api.update(pod)
-            if self.auto_ready:
-                self._mark_running(pod)
+            self._start_bound(pod)
             self._sync_sts_status_for_pod(pod)
 
     def _sync_sts_status_for_pod(self, pod: KubeObject) -> None:

@@ -161,7 +161,12 @@ def build_manager(
     cluster = FakeCluster(api)
     mgr = Manager(api, clock=clock)
     metrics = NotebookMetrics(api, manager=mgr)
-    setup_core_controllers(mgr, core_cfg, metrics)
+    rec = setup_core_controllers(mgr, core_cfg, metrics)
+    # the cluster plays the pods' checkpoint sidecars against the store
+    # the reconciler opened: it answers final-snapshot requests and stamps
+    # what a restored pod restored
+    if rec.session is not None:
+        cluster.attach_session_store(rec.session)
     setup_culling(mgr, core_cfg, jupyter, metrics)
     return mgr, api, cluster, metrics
 

@@ -5,13 +5,13 @@ The reference's de-facto config system is environment variables fed by
 kustomize params ConfigMaps; the same variable names bind into an
 injectable Config object so tests don't mutate process env.  The port
 keeps the fields its controllers read, under the reference's env names,
-and the switches of three tiers it does not run yet (self-healing, the
-slice scheduler, the Istio VirtualService), which `setup_core_controllers`
-refuses when on.  `from_env` refuses the env switch of any other tier that
-is not ported (`NOT_PORTED_SWITCHES`); a tier's tuning knobs are not read,
-as the reference reads none while the tier is off.  Each field comes back
-with the `ROADMAP.md` item that ports its reader.  One default differs:
-`enable_self_healing` is False here.  `OdhConfig` is not ported.
+defaults and parses, and the switches of two tiers it does not run yet
+(the slice scheduler, the Istio VirtualService), which
+`setup_core_controllers` refuses when on.  `from_env` refuses the env
+switch of any other tier that is not ported (`NOT_PORTED_SWITCHES`); a
+tier's tuning knobs are not read, as the reference reads none while the
+tier is off.  Each field comes back with the `ROADMAP.md` item that ports
+its reader.  `OdhConfig` is not ported.
 """
 
 from __future__ import annotations
@@ -161,14 +161,27 @@ class CoreConfig:
     # window gets 410 Gone and relists.  Sized per kind, so one chatty
     # kind cannot evict another's resume window.
     watch_history_size: int = 2048          # WATCH_HISTORY_SIZE
-    # slice-atomic self-healing: refused (ROADMAP.md queue 1 item 12)
-    enable_self_healing: bool = False         # ENABLE_SELF_HEALING
+    # slice-atomic self-healing (core/selfheal.py): budgeted recovery of
+    # disrupted GPU gangs.  Backoff between gang restarts is exponential
+    # (base * 2^n, capped); at most recovery_max_attempts restarts within a
+    # sliding recovery_window_s before the gang is declared
+    # RecoveryExhausted; a worker Pending longer than
+    # recovery_pending_deadline_s counts as disrupted.
+    enable_self_healing: bool = True          # ENABLE_SELF_HEALING
+    recovery_backoff_base_s: float = 10.0     # RECOVERY_BACKOFF_BASE_S
+    recovery_backoff_max_s: float = 300.0     # RECOVERY_BACKOFF_MAX_S
+    recovery_max_attempts: int = 5            # RECOVERY_MAX_ATTEMPTS
+    recovery_window_s: float = 3600.0         # RECOVERY_WINDOW_S
+    recovery_pending_deadline_s: float = 300.0  # RECOVERY_PENDING_DEADLINE_S
     # the checkpoint-sidecar contract: a non-empty store URI turns it on
-    # in the rendered pod template.  checkpoint_signal_root hosts the
-    # per-notebook cull-signal dirs the CullSignalWatcher polls (empty =
-    # annotation handshake only).
+    # in the rendered pod template and teaches the recovery engine the
+    # `migrate` verb.  A checkpoint older than checkpoint_max_age_s is
+    # stale: the engine falls back to a bare restart.
+    # checkpoint_signal_root hosts the per-notebook cull-signal dirs the
+    # CullSignalWatcher polls (empty = annotation handshake only).
     checkpoint_store_uri: str = ""            # CHECKPOINT_STORE_URI
     checkpoint_interval_s: float = 300.0      # CHECKPOINT_INTERVAL_S
+    checkpoint_max_age_s: float = 600.0       # CHECKPOINT_MAX_AGE_S
     checkpoint_signal_root: str = ""          # CHECKPOINT_SIGNAL_ROOT
     # topology-aware slice scheduler and warm pool: refused (ROADMAP.md
     # queue 1 item 13)
@@ -195,10 +208,20 @@ class CoreConfig:
             workqueue_burst=_int(env, "WORKQUEUE_BURST", 100),
             workqueue_workers=max(1, _int(env, "WORKQUEUE_WORKERS", 1)),
             watch_history_size=max(1, _int(env, "WATCH_HISTORY_SIZE", 2048)),
-            enable_self_healing=_bool(env, "ENABLE_SELF_HEALING", False),
+            enable_self_healing=_bool(env, "ENABLE_SELF_HEALING", True),
+            recovery_backoff_base_s=_float(
+                env, "RECOVERY_BACKOFF_BASE_S", 10.0),
+            recovery_backoff_max_s=_float(
+                env, "RECOVERY_BACKOFF_MAX_S", 300.0),
+            recovery_max_attempts=_int(env, "RECOVERY_MAX_ATTEMPTS", 5),
+            recovery_window_s=_float(env, "RECOVERY_WINDOW_S", 3600.0),
+            recovery_pending_deadline_s=_float(
+                env, "RECOVERY_PENDING_DEADLINE_S", 300.0),
             checkpoint_store_uri=env.get("CHECKPOINT_STORE_URI", ""),
             checkpoint_interval_s=_float(
                 env, "CHECKPOINT_INTERVAL_S", 300.0),
+            checkpoint_max_age_s=_float(
+                env, "CHECKPOINT_MAX_AGE_S", 600.0),
             checkpoint_signal_root=env.get("CHECKPOINT_SIGNAL_ROOT", ""),
             enable_slice_scheduler=_bool(
                 env, "ENABLE_SLICE_SCHEDULER", False),

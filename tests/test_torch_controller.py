@@ -17,7 +17,8 @@ under `CoreConfig(enable_self_healing=False)`:
 - `python -m kubeflow_tpu_torch.main --demo` runs in-process and serves
   /healthz and /metrics; a config, env or CR that turns on a part the
   port does not run is refused with its ROADMAP item named, and the env
-  names the port reads parse as the reference's.
+  names the port reads parse as the reference's.  The self-healing
+  engine is held to the reference's in tests/test_torch_selfheal.py.
 
 Only the reference's control plane is imported."""
 
@@ -428,6 +429,13 @@ def test_main_demo_serves_health_and_metrics(monkeypatch, capsys,
     ("use_istio", 15), ("spec.replication", 14)])
 def test_parts_not_ported_are_refused(knob, item):
     mgr = kube.Manager(kube.ApiServer(), clock=FakeClock())
+    if knob == "enable_self_healing":
+        # item 12 is ported: the switch is taken, and the reconciler runs
+        # the recovery engine
+        rec = setup_core_controllers(mgr, CoreConfig(**{knob: True}))
+        assert rec.recovery.cfg.enable_self_healing
+        assert CoreConfig().enable_self_healing
+        return
     if knob.startswith("spec."):
         setup_core_controllers(mgr, CoreConfig(), NotebookMetrics(mgr.api))
         nb = Notebook.new("nb", NS, gpu=GPUSpec("h100-80gb", 8),
@@ -474,13 +482,10 @@ def test_env_switches_not_ported_are_refused(name, item):
     "ENABLE_SELF_HEALING": "false"}])
 def test_env_names_match_the_reference(env):
     """Every field the port keeps reads the reference's env name, with the
-    reference's parse and default (but `enable_self_healing`'s)."""
+    reference's parse and default."""
     ours, ref = CoreConfig.from_env(env), RefConfig.from_env(env)
     for f in dataclasses.fields(CoreConfig):
-        want = getattr(ref, f.name)
-        if f.name == "enable_self_healing" and not env:
-            want = False
-        assert getattr(ours, f.name) == want, f.name
+        assert getattr(ours, f.name) == getattr(ref, f.name), f.name
 
 
 def test_invalid_gpu_spec_and_tpu_spec_are_refused():

@@ -297,6 +297,7 @@ def test_env_of_a_two_by_two_gang():
 
 WORKER = """
 import json
+import sys
 import torch
 import torch.distributed as dist
 from kubeflow_tpu_torch.runtime.init import distributed_init
@@ -304,11 +305,16 @@ from kubeflow_tpu_torch.runtime.init import distributed_init
 identity = distributed_init(device="cpu")
 total = torch.tensor([float(dist.get_rank())])
 dist.all_reduce(total)
-print(json.dumps({"rank": dist.get_rank(), "world": dist.get_world_size(),
-                  "process_id": identity.process_id,
-                  "node_rank": identity.node_rank,
-                  "local_rank": identity.local_rank,
-                  "sum": total.item()}), flush=True)
+# one write of the whole line: a pod's two ranks share its stdout pipe,
+# and print's separate write of the newline can land after the other
+# rank's line
+sys.stdout.write(json.dumps({"rank": dist.get_rank(),
+                             "world": dist.get_world_size(),
+                             "process_id": identity.process_id,
+                             "node_rank": identity.node_rank,
+                             "local_rank": identity.local_rank,
+                             "sum": total.item()}) + "\\n")
+sys.stdout.flush()
 dist.destroy_process_group()
 """
 

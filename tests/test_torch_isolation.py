@@ -25,7 +25,7 @@ EXPECTED = {"bench", "entry", "examples.llama13b_decode",
             "api.types", "core.constants", "core.workload", "odh.network",
             "main", "kube.cluster", "kube.controller",
             "core.notebook_controller", "core.culling_controller",
-            "gpu.device_plugin"}
+            "core.selfheal", "core.sessionstate", "gpu.device_plugin"}
 
 
 def _port_sources() -> list:
@@ -79,7 +79,8 @@ def test_importing_every_port_module_loads_no_reference():
 # another module, so the controller's pod needs no GPU stack
 CONTROL_PLANE = ("main", "kube", "common.reconcilehelper",
                  "core.notebook_controller", "core.culling_controller",
-                 "core.metrics", "gpu.device_plugin", "utils.config")
+                 "core.metrics", "core.selfheal", "core.sessionstate",
+                 "gpu.device_plugin", "utils.config")
 
 
 def test_control_plane_imports_no_torch():

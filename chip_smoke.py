@@ -185,8 +185,10 @@ non-zero without its result line):
    process group is destroyed at the end;
 10. pipeline_train: BENCH_CHIP at full width and depth in 2 pipeline
    stages of 5 layers (parallel/pipeline.py), under GPipe and under 1F1B.
-   The machine has one card, so first two processes ask NCCL for an
-   all-reduce on it and what it says is printed; the stages then run as
+   The machine has one card, so two processes ask NCCL for an
+   all-reduce on it and what it says is printed (they start before the
+   build and are collected after it, so their start-up overlaps nvcc and
+   no other phase runs beside them); the stages then run as
    two processes on the one card over a gloo process group, whose
    stage-to-stage sends go through pinned host memory (the transport is
    printed); compute, the flash kernels and the optimizer stay on the
@@ -205,15 +207,22 @@ non-zero without its result line):
    AdamW (warmup 2, bf16 first moment), over a corpus of seeded
    ascending token runs, in the pod the port's controller makes for this
    card (`NotebookController`): `kubeflow_tpu_torch.main.build_manager`
-   (the notebook controller and the culler, on a FakeClock, the Jupyter
-   kernel reported idle) over the in-memory cluster, one node labelled
+   (the notebook controller, the gang scheduler with its tenancy layer
+   and the culler, on a FakeClock, the Jupyter kernel reported idle)
+   over the in-memory cluster, one node in node pool card-pool labelled
    by gpu/device_plugin.py's label_gpu_node with this card's accelerator
    (gpu/topology.py) and torch.cuda.device_count() nvidia.com/gpu, and
-   a Notebook CR with spec.gpu {that accelerator, 1} and a checkpoint
-   store.  Gates: one StatefulSet of 1 replica, one pod bound to the
-   node, nvidia.com/gpu 1 used of the node's count, "1" in the pod's
-   requests and limits, the table's peak GPU_PEAKS', sliceHealth
-   Unhealthy until the pod is marked running and Healthy after.  The
+   a Notebook CR with spec.gpu {that accelerator, 1}, spec.priority low
+   and a checkpoint store.  The scheduler places the gang on the card's
+   pool as a bypass claim (unmanaged capacity) before any StatefulSet
+   exists.  Gates: the Notebook update carrying the placement intent
+   before the first StatefulSet event on the apiserver's stream, the
+   StatefulSet's nodeSelector naming the pool,
+   notebook_warmpool_hits_total{bypass} 1, one StatefulSet of 1
+   replica, one pod bound to the node, nvidia.com/gpu 1 used of the
+   node's count, "1" in the pod's requests and limits, the table's peak
+   GPU_PEAKS', sliceHealth Unhealthy until the pod is marked running
+   and Healthy after.  The
    main container's env is resolved as the kubelet would from the pod
    the cluster made (its pod-index label among it; the master's DNS name
    as 127.0.0.1, its rendered port 29500 as a free one, each volume
@@ -224,7 +233,8 @@ non-zero without its result line):
    the loss.  Run B, the same seed: before step 6's checkpoint_on_cull
    hook the FakeClock passes the idle limit and the culler stops the
    notebook (gates: the stop annotation, one culling, replicas 0, the
-   pod deleted, sliceHealth Stopped); the deleted pod's rendered preStop
+   pod deleted, sliceHealth Stopped, the placement released); the
+   deleted pod's rendered preStop
    command runs as a subprocess with its resolved env, as the kubelet
    runs it, and writes its request into the signal directory; the hook
    saves through the local backend and acknowledges, the loop exits and
@@ -236,8 +246,9 @@ non-zero without its result line):
    under "controller".  A truncated copy of the
    checkpoint as step 7 and a leftover temp file are planted; a fresh
    setup from another seed restores (step 6, both deleted) and runs the
-   pipeline's batches 7-12.  Then the self-healing engine's two drills
-   on the same pod, the kernel reported busy.  Drill 1, a voluntary
+   pipeline's batches 7-12.  Then three drills on the same pod, the
+   kernel reported busy: the self-healing engine's two and a
+   preemption.  Drill 1, a voluntary
    migration: a run from run A's seed takes steps 1-4, its serialized
    train state is the gang's session payload, and the migrate annotation
    (drain) makes the engine take a final snapshot into the CR's store,
@@ -253,11 +264,32 @@ non-zero without its result line):
    (GPUUnhealthy), the gang answers no final snapshot, and once the
    backoff the first migration armed runs out on the FakeClock the
    engine migrates with drill 1's snapshot; the same setup restores it
-   again and runs steps 5-12 (parameters bit-equal to run A's).  Gates:
-   losses equal run A's and 20/10/10 flash launches every step; the
-   restored bytes' digest the pod's stamp; one final snapshot;
+   again and runs steps 5-10 (state bit-equal to run A's at step 10).
+   Drill 3, a preemption: the live state after step 10 is the gang's
+   session payload, and a second CR of the same shape at priority high
+   arrives.  The card is the cluster's only GPU and no warm pool is
+   configured (cold provisioning an hour of FakeClock away), so the
+   scheduler admits it, reserves a cold provision and asks the
+   preemption engine, which takes exactly one final snapshot of the
+   gang into the CR's store, commits the Pending record to TenantQuota
+   before the pod delete, persists the restore intent (trigger
+   preempt) and the queued stamp (reason preempted), tears the gang
+   down and closes the record (Done); the beneficiary is placed on the
+   card, its pod marked running, and it holds the card 60 s of
+   FakeClock while the victim reads Queued.  Then it stops: its claim
+   drains, the victim is placed again before its StatefulSet exists,
+   the StatefulSet carries the restore env and the recreated pod the
+   restore stamp; CheckpointSidecar.restore_payload loads the snapshot
+   into a setup from a third seed (state bit-equal to run A's at step
+   10, the AdamW count and b1_mu among it), which runs steps 11-12
+   (parameters bit-equal to run A's).  Gates: losses equal run A's and
+   20/10/10 flash launches every step; the restored bytes' digest the
+   pod's stamp; one final snapshot before the preemption and one more
+   by it; notebook_preemptions_total{evicted,low} 1; no attempt
+   charged for the eviction;
    notebook_migrations_total {drain,migrated}, {drain,restored},
-   {failure,migrated} and {failure,restored} 1 each, no fallback;
+   {failure,migrated}, {failure,restored} and {preempt,restored} 1
+   each, no fallback;
    notebook_slice_restarts_total{migrate} 1 after drill 1 and 2 after
    drill 2; two attempts charged and no RecoveryExhausted;
    notebook_disruption_recovery_seconds observed once (its FakeClock
@@ -265,12 +297,16 @@ non-zero without its result line):
    cull before it charges no attempt, and the unstopped pod carries no
    restore stamp.  Printed and emitted under "recovery": the snapshot's
    bytes, the serialize and store seconds and GB/s, each restore's
-   seconds, the engine's reconciles and wall ms per drill, the drills'
-   wall seconds by part, the largest resident set sampled after each
-   part and each load, and the process's peak before and after.  Then one dcp save and restore of the mesh
-   setup on a world-1 NCCL group: a fresh mesh setup resumes it for 2
-   steps against the uninterrupted mesh run.  Last, side by side, two
-   launches of the example, no flag: `python -m torch.distributed.run -m
+   seconds, the engine's reconciles and wall ms per drill, the
+   preemption's serialize, store and restore seconds, the scheduler's
+   and engine's own ms and its FakeClock (simulated) queue wait, the
+   drills' wall seconds by part, the largest resident set sampled after
+   each part and each load, and the process's peak before and after.
+   Then one dcp save and restore of the mesh setup on a world-1 NCCL
+   group: a fresh mesh setup resumes it for 2 steps against the
+   uninterrupted mesh run.  Beside that round (started before it,
+   collected after it), side by side, two launches of the example, no
+   flag: `python -m torch.distributed.run -m
    kubeflow_tpu_torch.examples.train_llm` with the rendered PET_* env,
    its group formed by distributed_init under torchrun, and the bare
    `python -m kubeflow_tpu_torch.examples.train_llm`, its group formed by
@@ -462,6 +498,14 @@ NB_CULL_IDLE_MIN = 5
 # NB_MIGRATE_STEP, and the card dies after step NB_FAIL_STEP of the run
 # restored from it
 NB_MIGRATE_STEP, NB_FAIL_STEP = 4, 8
+# the card's node pool (unmanaged capacity: the scheduler's first
+# placement there is a bypass claim), and the preemption drill: a
+# high-priority CR of the same shape arrives after step NB_PREEMPT_STEP of
+# the run the dead-card drill restored, and holds the card NB_BEN_HOLD_S
+# of FakeClock time before it stops
+NB_POOL = "card-pool"
+NB_BENEFICIARY = "chip-smoke-high"
+NB_PREEMPT_STEP, NB_BEN_HOLD_S = 10, 60.0
 FLASH_REPLACES = {
     "flash_fwd": "kubeflow_tpu/ops/attention.py:173 -> jax/experimental/"
                  "pallas/ops/tpu/flash_attention.py:758",
@@ -2677,22 +2721,36 @@ def _nccl_probe_rank(rank: int, port: int, queue) -> None:
     os._exit(0)
 
 
-def nccl_probe() -> dict:
-    """Whether NCCL takes two ranks on the one card: {rank: what it
-    said}, "no answer" from a rank that neither failed nor finished in
-    180 s."""
+def start_nccl_probe() -> dict:
+    """Start the probe of whether NCCL takes two ranks on the one card:
+    two spawned ranks, which `finish_nccl_probe` collects.  `main` starts
+    it before the kernel build and collects it after, so its two
+    interpreters start while nvcc runs and the card is idle."""
     import multiprocessing
-    import queue as queues
 
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     port = _free_port()
     procs = [ctx.Process(target=_nccl_probe_rank, args=(rank, port, results))
              for rank in range(2)]
+    t0 = time.perf_counter()
     for p in procs:
         p.start()
+    return {"procs": procs, "results": results, "t0": t0,
+            "deadline": time.monotonic() + 180}
+
+
+def finish_nccl_probe(started: dict) -> dict:
+    """The probe's answer: {rank: what it said}, "no answer" from a rank
+    that neither failed nor finished within 180 s of its start; and the
+    probe's wall seconds, and how many of them were left to wait for
+    here."""
+    import queue as queues
+
+    procs, results = started["procs"], started["results"]
+    deadline = started["deadline"]
     said = {}
-    deadline = time.monotonic() + 180
+    wait_t0 = time.perf_counter()
     try:
         while len(said) < 2 and time.monotonic() < deadline:
             try:
@@ -2706,7 +2764,9 @@ def nccl_probe() -> dict:
             if p.is_alive():
                 p.kill()
             p.join()
-    return {rank: said.get(rank, "no answer") for rank in range(2)}
+    now = time.perf_counter()
+    return {"said": {rank: said.get(rank, "no answer") for rank in range(2)},
+            "wall_s": now - started["t0"], "waited_s": now - wait_t0}
 
 
 def _pipeline_rank(reference_path: str, batch: dict) -> list:
@@ -2793,10 +2853,11 @@ def _pipeline_rank(reference_path: str, batch: dict) -> list:
     return sorted(reports, key=lambda r: r["stage"])
 
 
-def pipeline_train_phase(device, smi: str) -> dict:
+def pipeline_train_phase(device, smi: str, nccl: dict) -> dict:
     """BENCH_CHIP at full width and depth in PIPE_STAGES pipeline stages
     under GPipe and 1F1B: one process a stage on the one card, over
-    gloo, held to the unsharded kernel path."""
+    gloo, held to the unsharded kernel path.  `nccl` is what the NCCL
+    probe said of two ranks on the one card (`finish_nccl_probe`)."""
     import tempfile
 
     import torch
@@ -2807,7 +2868,6 @@ def pipeline_train_phase(device, smi: str) -> dict:
 
     phase_t0 = time.perf_counter()
     cfg, seq = BENCH_CHIP, BENCH_CHIP.max_seq_len
-    nccl = nccl_probe()
     per_step = {"fwd": 2 * cfg.num_layers, "dkv": cfg.num_layers,
                 "dq": cfg.num_layers}
     expected = {k: PIPE_MICRO * n for k, n in per_step.items()}
@@ -2863,7 +2923,10 @@ def pipeline_train_phase(device, smi: str) -> dict:
         "layers_per_stage": cfg.num_layers // PIPE_STAGES,
         "backend": reports[0]["backend"],
         "transport": reports[0]["transport"],
-        "nccl_two_ranks_one_card": nccl, "batch": COMPARE_BATCH, "seq": seq,
+        "nccl_two_ranks_one_card": nccl["said"],
+        "nccl_probe_s": {"wall": nccl["wall_s"],
+                         "waited_after_build": nccl["waited_s"]},
+        "batch": COMPARE_BATCH, "seq": seq,
         "microbatches": PIPE_MICRO,
         "memory_microbatches": PIPE_MEMORY_MICRO,
         "schedules": schedules, "nvidia_smi": smi,
@@ -2977,6 +3040,7 @@ class NotebookController:
         import torch
 
         from kubeflow_tpu_torch.api.types import GPUSpec, Notebook
+        from kubeflow_tpu_torch.core import constants as K
         from kubeflow_tpu_torch.core.jupyter import FakeJupyterState
         from kubeflow_tpu_torch.gpu import topology
         from kubeflow_tpu_torch.gpu.device_plugin import label_gpu_node
@@ -2997,22 +3061,33 @@ class NotebookController:
             self.jupyter.set_kernels(NB_NAMESPACE, NB_NAME, [{
                 "id": "k1", "name": "python3", "execution_state": "idle",
                 "last_activity": "2023-01-01T00:00:00Z", "connections": 0}])
+            # the gang scheduler on, cold provisioning an hour of
+            # FakeClock away: the card is the only capacity there is
             self.cfg = CoreConfig(
                 enable_culling=True, cull_idle_time_min=NB_CULL_IDLE_MIN,
                 idleness_check_period_min=1,
-                checkpoint_store_uri=f"file://{tmp / 'store'}")
+                checkpoint_store_uri=f"file://{tmp / 'store'}",
+                enable_slice_scheduler=True, warmpool_provision_s=3600.0)
             self.mgr, self.api, self.cluster, self.metrics = build_manager(
                 self.cfg, clock=FakeClock(), jupyter=self.jupyter)
             self.cluster.auto_ready = False
-            self.cluster.add_node(NB_NODE, allocatable={"cpu": "8",
-                                                        "memory": "96Gi"})
+            self.cluster.add_node(NB_NODE,
+                                  labels={K.GKE_NODEPOOL_LABEL: NB_POOL},
+                                  allocatable={"cpu": "8",
+                                               "memory": "96Gi"})
             label_gpu_node(self.api, NB_NODE, gpus=self.gpus,
                            accelerator=self.accelerator)
-            self.api.watch(self._on_event,
-                           kinds=["Notebook", "StatefulSet", "Pod"])
+            self.api.watch(self._on_event, kinds=[
+                "Notebook", "StatefulSet", "Pod", K.TENANTQUOTA_KIND])
             self.api.create(KubeObject.from_dict(Notebook.new(
-                NB_NAME, NB_NAMESPACE,
-                gpu=GPUSpec(self.accelerator, 1)).obj))
+                NB_NAME, NB_NAMESPACE, gpu=GPUSpec(self.accelerator, 1),
+                priority="low").obj))
+            self.run()
+            # the culler wakes on Notebook events only, and its look at
+            # the new CR came before the gang gate let the pod exist (the
+            # reference's culler waits the same way): a resync of the
+            # culler, as a manager's periodic one, lets it see the pod
+            self.mgr.enqueue_all("culling")
             self.run()
 
     @contextlib.contextmanager
@@ -3032,15 +3107,29 @@ class NotebookController:
 
         obj = ev.obj
         if obj.kind == "Notebook":
-            entry = (obj.body.get("status", {}).get("sessionState")
-                     or {}).get("0") or {}
-            self.stream.append(("intent", entry.get("phase"),
-                                entry.get("restoreGeneration")))
+            ann = obj.metadata.annotations
+            if obj.name == NB_NAME:
+                entry = (obj.body.get("status", {}).get("sessionState")
+                         or {}).get("0") or {}
+                self.stream.append(("intent", entry.get("phase"),
+                                    entry.get("restoreGeneration")))
+            self.stream.append(("placement", obj.name,
+                                K.ANNOTATION_PLACEMENT in ann,
+                                K.ANNOTATION_QUEUED in ann))
         elif obj.kind == "StatefulSet":
             env = {e["name"]: e.get("value") for e in
                    obj.spec["template"]["spec"]["containers"][0]["env"]}
             self.stream.append(
-                ("sts", env.get(K.ENV_CHECKPOINT_RESTORE_GENERATION)))
+                ("sts", env.get(K.ENV_CHECKPOINT_RESTORE_GENERATION),
+                 obj.name, ev.type.value))
+        elif obj.kind == K.TENANTQUOTA_KIND:
+            # the phase of the write-ahead record naming this CR victim
+            st = obj.body.get("status") or {}
+            key = f"{NB_NAMESPACE}/{NB_NAME}"
+            rec = (st.get("preemptions") or {}).get(key) or next(
+                (r for r in reversed(st.get("recentPreemptions") or [])
+                 if r.get("victim") == key), {})
+            self.stream.append(("record", rec.get("phase")))
         elif ev.type.value == "DELETED":
             self.deleted.append(obj)
             self.stream.append(("deleted", obj.name, obj.metadata.uid))
@@ -3117,12 +3206,36 @@ class NotebookController:
         peak = GPU_PEAKS.get(self.device_name)
         gpus = {kind: main["resources"][kind].get(K.GPU_RESOURCE)
                 for kind in ("requests", "limits")}
+        # the gang scheduler placed the gang before any StatefulSet
+        # existed: the intent's Notebook update precedes the first
+        # StatefulSet event on the apiserver's stream
+        placed_at = next((i for i, e in enumerate(self.stream)
+                          if e[:3] == ("placement", NB_NAME, True)), None)
+        sts_at = next((i for i, e in enumerate(self.stream)
+                       if e[0] == "sts"), None)
+        intent = json.loads(self.api.get(
+            "Notebook", NB_NAMESPACE, NB_NAME).metadata.annotations.get(
+                K.ANNOTATION_PLACEMENT, "{}"))
+        claims = {r: self.metrics.warmpool_hits.value(r)
+                  for r in ("hit", "miss", "bypass")}
         print(f"controller: pod {pod.name} on {rendered['node']} "
               f"({node.metadata.labels}), nvidia.com/gpu {used:g} used of "
               f"{allocatable}; resources {main['resources']}; nodeSelector "
               f"{rendered['node_selector']}; env {rendered['env_names']}; "
               f"sliceHealth {health_before} -> "
-              f"{self.status().get('sliceHealth')}", flush=True)
+              f"{self.status().get('sliceHealth')}; placement intent "
+              f"{intent} at event {placed_at}, first StatefulSet event "
+              f"{sts_at}; warm-pool claims {claims}", flush=True)
+        if placed_at is None or sts_at is None or not placed_at < sts_at \
+                or intent.get("slices", {}).get("0", {}).get("nodes") \
+                != [NB_NODE]:
+            bad.append(f"placement intent {intent} at event {placed_at}, "
+                       f"first StatefulSet event {sts_at}")
+        if rendered["node_selector"].get(K.GKE_NODEPOOL_LABEL) != NB_POOL:
+            bad.append(f"nodeSelector {rendered['node_selector']} names "
+                       f"no pool {NB_POOL}")
+        if claims != {"hit": 0.0, "miss": 0.0, "bypass": 1.0}:
+            bad.append(f"warm-pool claims {claims}")
         if gpus != {"requests": "1", "limits": "1"}:
             bad.append(f"nvidia.com/gpu {gpus}")
         if peak is None or row.bf16_peak_tflops != peak.bf16_tflops \
@@ -3176,6 +3289,12 @@ class NotebookController:
         if culled != (True, 1.0, 0, True, [f"{NB_NAME}-0"], "Stopped",
                       (None, 0)):
             raise RuntimeError(f"controller: the cull gave {culled}")
+        # the stopped gang's claim went back and its intent retired, so
+        # that the unstop places it afresh
+        if K.ANNOTATION_PLACEMENT in annotations or \
+                self.metrics.schedule_attempts.value("released") != 1:
+            raise RuntimeError("controller: the culled gang's placement "
+                               "was not released")
         return self.resolve(self.deleted[-1])
 
     def unstop(self, before: dict) -> dict:
@@ -3368,6 +3487,245 @@ class NotebookController:
         return out
 
 
+    def _attempts(self) -> list:
+        return ((self.status().get("sliceRecovery") or {}).get("0")
+                or {}).get("attempts", [])
+
+    def _finals(self) -> list:
+        return [snap.generation for snap in self.store().snapshots(
+            NB_NAMESPACE, NB_NAME, 0) if snap.trigger == "final"]
+
+    def _events(self, reason: str) -> int:
+        return sum(e.body.get("count", 1) for e in self.api.list(
+            "Event", namespace=NB_NAMESPACE)
+            if e.body.get("reason") == reason)
+
+    def preempt(self, payload: bytes) -> dict:
+        """Drill 3, the eviction: the gang's live state is `payload`, and
+        a CR of the same shape at priority high arrives.  The card is the
+        cluster's only GPU and no warm pool is configured, so the
+        scheduler admits it, reserves a cold provision and asks the
+        preemption engine, which takes a final snapshot of this gang
+        (the fake cluster's handler writes the payload into the CR's
+        store), commits the Pending record to TenantQuota, persists the
+        restore intent and the queued stamp, tears the gang down and
+        closes the record; the beneficiary is placed on the card.  The
+        store's request is timed, so the engine's own work is the
+        stage's wall time less it."""
+        from kubeflow_tpu_torch.api.types import GPUSpec, Notebook
+        from kubeflow_tpu_torch.core import constants as K
+        from kubeflow_tpu_torch.kube import KubeObject
+
+        self.cluster.set_session_payload(NB_NAMESPACE, NB_NAME, payload)
+        store = self.cluster.session_store
+        finals_before, attempts_before = self._finals(), self._attempts()
+        before, start = self.pod(), len(self.stream)
+        calls, inner = [], store.request_final_snapshot
+
+        def timed(*args):
+            t0 = time.perf_counter()
+            snap = inner(*args)
+            calls.append({"args": list(args), "s": time.perf_counter() - t0,
+                          "generation": getattr(snap, "generation", None)})
+            return snap
+
+        store.request_final_snapshot = timed
+        try:
+            with self.stage("preempt"):
+                self.api.create(KubeObject.from_dict(Notebook.new(
+                    NB_BENEFICIARY, NB_NAMESPACE,
+                    gpu=GPUSpec(self.accelerator, 1),
+                    priority="high").obj))
+                self.run()
+        finally:
+            del store.request_final_snapshot
+        victim = self.api.get("Notebook", NB_NAMESPACE, NB_NAME)
+        ben = self.api.get("Notebook", NB_NAMESPACE, NB_BENEFICIARY)
+        queued = json.loads(victim.metadata.annotations.get(
+            K.ANNOTATION_QUEUED, "{}"))
+        intent = (victim.status.get("sessionState") or {}).get("0") or {}
+        new_finals = [g for g in self._finals() if g not in finals_before]
+        snap = store.info(NB_NAMESPACE, NB_NAME, 0, new_finals[0]) \
+            if len(new_finals) == 1 else None
+        stream = self.stream[start:]
+
+        def first(entry):
+            return next((i for i, e in enumerate(stream) if e == entry),
+                        None)
+
+        order = [first(("record", "Pending")),
+                 first(("deleted", before.name, before.metadata.uid)),
+                 first(("record", "Done"))]
+        ben_pod = self.api.try_get("Pod", NB_NAMESPACE,
+                                   f"{NB_BENEFICIARY}-0")
+        quota = self.api.get(K.TENANTQUOTA_KIND, "",
+                             K.TENANTQUOTA_NAME).status
+        stage = self.cost["stages"]["preempt"]
+        store_s = sum(c["s"] for c in calls)
+        out = {
+            "final_snapshot_requests": calls, "final_snapshots": new_finals,
+            "snapshot": None if snap is None else {
+                "generation": snap.generation, "digest": snap.digest,
+                "size": snap.size},
+            "store_s": store_s,
+            "engine_ms": stage["wall_ms"] - store_s * 1e3,
+            "reconciles": stage["reconciles"],
+            "record_pending_delete_done_at": order,
+            "records_left": quota.get("preemptions") or {},
+            "recent": [(r.get("victim"), r.get("phase"))
+                       for r in quota.get("recentPreemptions") or []],
+            "victim": {
+                "placement": K.ANNOTATION_PLACEMENT
+                in victim.metadata.annotations, "queued": queued,
+                "health": victim.status.get("sliceHealth"),
+                "intent": {k: intent.get(k) for k in (
+                    "phase", "trigger", "restoreGeneration", "digest")},
+                "statefulset": self.api.try_get(
+                    "StatefulSet", NB_NAMESPACE, NB_NAME) is not None,
+                "pod": self.pod() is not None},
+            "beneficiary": {
+                "placement": json.loads(ben.metadata.annotations.get(
+                    K.ANNOTATION_PLACEMENT, "{}")),
+                "node": ben_pod.spec.get("nodeName") if ben_pod else None},
+            "preemptions": {f"{r},{p}": self.metrics.preemptions.value(r, p)
+                            for r, p in (("evicted", "low"),
+                                         ("no-victim", "high"))},
+            "events": {r: self._events(r) for r in (
+                "NotebookPreempted", "PreemptionIssued")},
+            "attempts": [len(attempts_before), len(self._attempts())],
+        }
+        bad = []
+        if len(calls) != 1 or calls[0]["args"] != [NB_NAMESPACE, NB_NAME, 0] \
+                or snap is None or new_finals != [calls[0]["generation"]]:
+            bad.append(f"final snapshots {calls}, new in the store "
+                       f"{new_finals}")
+        if None in order or order != sorted(order) or out["records_left"] \
+                or out["recent"][-1:] != [(f"{NB_NAMESPACE}/{NB_NAME}",
+                                           "Done")]:
+            bad.append(f"the record Pending, the pod delete and Done at "
+                       f"{order} of the event stream, records left "
+                       f"{out['records_left']}, recent {out['recent']}")
+        want_victim = {
+            "placement": False, "queued": {
+                "beneficiary": f"{NB_NAMESPACE}/{NB_BENEFICIARY}",
+                "priority": "low", "reason": "preempted",
+                "since": queued.get("since")},
+            "health": "Queued", "intent": {
+                "phase": "migrating", "trigger": "preempt",
+                "restoreGeneration": snap and snap.generation,
+                "digest": snap and snap.digest},
+            "statefulset": False, "pod": False}
+        if out["victim"] != want_victim:
+            bad.append(f"victim {out['victim']}")
+        ben_gang = out["beneficiary"]["placement"].get("slices", {}).get(
+            "0", {})
+        if (ben_gang.get("pool"), ben_gang.get("nodes"),
+                out["beneficiary"]["node"]) != (NB_POOL, [NB_NODE],
+                                                NB_NODE):
+            bad.append(f"beneficiary {out['beneficiary']}")
+        if out["preemptions"] != {"evicted,low": 1.0, "no-victim,high": 0.0} \
+                or out["events"] != {"NotebookPreempted": 1,
+                                     "PreemptionIssued": 1} \
+                or out["attempts"][0] != out["attempts"][1]:
+            bad.append(f"preemptions {out['preemptions']}, events "
+                       f"{out['events']}, attempts {out['attempts']}")
+        if bad:
+            raise RuntimeError("controller: the preemption: "
+                               + "; ".join(bad))
+        return out
+
+    def hold_beneficiary(self) -> dict:
+        """The beneficiary's pod runs and holds the card NB_BEN_HOLD_S of
+        FakeClock time; the victim stays queued, fenced until the
+        beneficiary placed and then out of capacity."""
+        from kubeflow_tpu_torch.core import constants as K
+
+        with self.stage("beneficiary"):
+            self.cluster.mark_running(NB_NAMESPACE, f"{NB_BENEFICIARY}-0")
+            self.run()
+            self.run(advance_s=NB_BEN_HOLD_S)
+        ben = self.api.get("Notebook", NB_NAMESPACE, NB_BENEFICIARY)
+        out = {"beneficiary": ben.status.get("sliceHealth"),
+               "victim": self.status().get("sliceHealth"),
+               "victim_placed": K.ANNOTATION_PLACEMENT in self.api.get(
+                   "Notebook", NB_NAMESPACE, NB_NAME).metadata.annotations,
+               "gpus_used": self.cluster.node_used(NB_NODE).get(
+                   K.GPU_RESOURCE)}
+        if out != {"beneficiary": "Healthy", "victim": "Queued",
+                   "victim_placed": False, "gpus_used": 1}:
+            raise RuntimeError(f"controller: while the beneficiary holds "
+                               f"the card {out}")
+        return out
+
+    def stop_beneficiary(self) -> dict:
+        """The beneficiary stops: its gang goes and its claim drains, and
+        the victim, woken by the pool, is placed on the card again before
+        its StatefulSet exists; the StatefulSet carries the restore env of
+        the record's snapshot and the recreated pod its stamp."""
+        from kubeflow_tpu_torch.core import constants as K
+
+        start = len(self.stream)
+        with self.stage("beneficiary_stop"):
+            ben = self.api.get("Notebook", NB_NAMESPACE, NB_BENEFICIARY)
+            ben.metadata.annotations[K.STOP_ANNOTATION] = "true"
+            self.api.update(ben)
+            self.run()
+        stream = self.stream[start:]
+        placed_at = next((i for i, e in enumerate(stream)
+                          if e[:3] == ("placement", NB_NAME, True)), None)
+        sts_at = next((i for i, e in enumerate(stream)
+                       if e[0] == "sts" and e[2] == NB_NAME), None)
+        nb = self.api.get("Notebook", NB_NAMESPACE, NB_NAME)
+        intent = (nb.status.get("sessionState") or {}).get("0") or {}
+        gen = intent.get("restoreGeneration")
+        snap = self.store().info(NB_NAMESPACE, NB_NAME, 0, gen) \
+            if gen is not None else None
+        sts = self.api.get("StatefulSet", NB_NAMESPACE, NB_NAME)
+        env = {e["name"]: e.get("value") for e in
+               sts.spec["template"]["spec"]["containers"][0]["env"]}
+        pod = self.pod()
+        ann = pod.metadata.annotations if pod is not None else {}
+        waits = self.metrics.queue_wait_seconds
+        out = {
+            "placed_before_statefulset": [placed_at, sts_at],
+            "queued": K.ANNOTATION_QUEUED in nb.metadata.annotations,
+            "restore_env": [env.get(K.ENV_CHECKPOINT_RESTORE_URI),
+                            env.get(K.ENV_CHECKPOINT_RESTORE_GENERATION)],
+            "node": pod.spec.get("nodeName") if pod is not None else None,
+            "gpus_used": self.cluster.node_used(NB_NODE).get(
+                K.GPU_RESOURCE),
+            "stamp": [ann.get(K.ANNOTATION_RESTORED_GENERATION),
+                      ann.get(K.ANNOTATION_RESTORED_DIGEST)],
+            "beneficiary": self.api.get(
+                "Notebook", NB_NAMESPACE, NB_BENEFICIARY).status.get(
+                    "sliceHealth"),
+            # FakeClock seconds: simulated, not measured
+            "fakeclock_queue_wait_s": waits.sum_value("low"),
+            "placements_low": waits.count_value("low"),
+            "claims": {r: self.metrics.warmpool_hits.value(r)
+                       for r in ("hit", "miss", "bypass")},
+        }
+        bad = []
+        if None in (placed_at, sts_at) or not placed_at < sts_at \
+                or out["queued"]:
+            bad.append(f"placement and StatefulSet at {[placed_at, sts_at]} "
+                       f"of the event stream, queued {out['queued']}")
+        if snap is None or intent.get("phase") != "migrating" or \
+                out["restore_env"] != [intent.get("restoreUri"), str(gen)] \
+                or out["stamp"] != [str(gen), snap.digest]:
+            bad.append(f"intent {intent}, restore env {out['restore_env']}, "
+                       f"stamp {out['stamp']}")
+        if (out["node"], out["gpus_used"], out["beneficiary"]) != \
+                (NB_NODE, 1, "Stopped"):
+            bad.append(f"the victim's pod on {out['node']}, nvidia.com/gpu "
+                       f"{out['gpus_used']}, the beneficiary "
+                       f"{out['beneficiary']}")
+        if bad:
+            raise RuntimeError("controller: the victim's return: "
+                               + "; ".join(bad))
+        return out
+
+
 def _state_bytes(state) -> bytes:
     """The train state serialized as one payload (torch.save of
     `train_state_dict`), what the gang's session snapshot holds."""
@@ -3450,14 +3808,19 @@ def boot_restore(controller, target, device) -> dict:
 
 
 def recovery_drills(controller, setup, pipeline, want, a, state_a_fail,
-                    final_a, expected, device, smi) -> dict:
-    """The self-healing engine's two drills on the phase's pod, at
-    BENCH_CHIP's full width and depth (see the module docstring): a drain
-    migration of the state after step NB_MIGRATE_STEP, restored into a
-    setup from another seed, then a dead card after step NB_FAIL_STEP,
-    restored from the same snapshot into the same setup.  `a` is run A's
-    record, `state_a_fail` its state after step NB_FAIL_STEP and
-    `final_a` its final parameters."""
+                    state_a_preempt, final_a, expected, device,
+                    smi) -> dict:
+    """The self-healing engine's two drills and the preemption drill on
+    the phase's pod, at BENCH_CHIP's full width and depth (see the module
+    docstring): a drain migration of the state after step
+    NB_MIGRATE_STEP, restored into a setup from another seed, then a dead
+    card after step NB_FAIL_STEP, restored from the same snapshot into the
+    same setup, which trains on to step NB_PREEMPT_STEP; there a
+    high-priority CR preempts the gang, and once it stops the gang
+    returns and restores into a setup from a third seed, which trains the
+    last steps.  `a` is run A's record, `state_a_fail` and
+    `state_a_preempt` its states after steps NB_FAIL_STEP and
+    NB_PREEMPT_STEP, and `final_a` its final parameters."""
     import itertools
     import resource
 
@@ -3465,7 +3828,7 @@ def recovery_drills(controller, setup, pipeline, want, a, state_a_fail,
 
     from kubeflow_tpu_torch.models import train
 
-    k, m = NB_MIGRATE_STEP, NB_FAIL_STEP
+    k, m, p = NB_MIGRATE_STEP, NB_FAIL_STEP, NB_PREEMPT_STEP
     peak_before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
     wall, mark, rss = {}, [time.perf_counter()], [_rss()]
 
@@ -3518,7 +3881,7 @@ def recovery_drills(controller, setup, pipeline, want, a, state_a_fail,
                                   state_a_fail)
 
     # drill 2: the card dies; the same snapshot is restored into the same
-    # setup, which runs steps k+1..NB_STEPS again
+    # setup, which runs steps k+1..p again
     dead = controller.kill_card()
     part("compare and ready")
     boot2 = boot_restore(controller, target, device)
@@ -3526,22 +3889,51 @@ def recovery_drills(controller, setup, pipeline, want, a, state_a_fail,
     ready2 = controller.ready("failure")
     part("compare and ready")
     pipe = pipeline()
-    again = _nb_steps(target, itertools.islice(pipe, k, None), want[k:])
+    again = _nb_steps(target, itertools.islice(pipe, k, None), want[k:p])
     pipe.close()
     part("steps")
-    final_equal = all(torch.equal(final_a[n], train.local_tensor(p))
-                      for n, p in target.model.named_parameters())
+    at_preempt_equal = _states_equal(train.train_state_dict(target.state),
+                                     state_a_preempt)
+    finals = controller._finals()
+
+    # drill 3: a high-priority CR of the same shape preempts the gang at
+    # step p; its live state is the payload of the engine's final
+    # snapshot, and the pod it ran in is gone with it
+    payload = _state_bytes(target.state)
+    part("serialize")
+    preempt_serialize_s = wall["serialize"] - serialize_s
     del target
+    torch.cuda.empty_cache()
+    evicted = controller.preempt(payload)
+    del payload
+    part("preempt")
+    held = controller.hold_beneficiary()
+    back = controller.stop_beneficiary()
+    part("compare and ready")
+    # the returned gang's pod restores into a setup from a third seed
+    resumed = setup(SEED + 3)
+    part("setups")
+    boot3 = boot_restore(controller, resumed, device)
+    part("restores")
+    preempt_restored_equal = _states_equal(
+        train.train_state_dict(resumed.state), state_a_preempt)
+    ready3 = controller.ready("preempt")
+    part("compare and ready")
+    pipe = pipeline()
+    after = _nb_steps(resumed, itertools.islice(pipe, p, None), want[p:])
+    pipe.close()
+    part("steps")
+    final_equal = all(torch.equal(final_a[n], train.local_tensor(t))
+                      for n, t in resumed.model.named_parameters())
+    del resumed
     controller.cluster.set_session_payload(NB_NAMESPACE, NB_NAME, b"")
     torch.cuda.empty_cache()
     part("compare and ready")
     peak_after = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
-    rss += [boot1["rss_bytes"], boot2["rss_bytes"]]
+    rss += [boot1["rss_bytes"], boot2["rss_bytes"], boot3["rss_bytes"]]
     rss_max = max((r for r in rss if r is not None), default=None)
 
-    metrics, store = controller.metrics, controller.store()
-    finals = [s.generation for s in store.snapshots(NB_NAMESPACE, NB_NAME, 0)
-              if s.trigger == "final"]
+    metrics = controller.metrics
     status = controller.status()
     attempts = ((status.get("sliceRecovery") or {}).get("0")
                 or {}).get("attempts", [])
@@ -3574,16 +3966,28 @@ def recovery_drills(controller, setup, pipeline, want, a, state_a_fail,
         "max_sampled_rss_bytes": rss_max, "wall_s": wall,
         "drills_s": sum(wall.values()),
         "drills": {"drain": {**drain, "boot": boot1, "ready": ready1},
-                   "failure": {**dead, "boot": boot2, "ready": ready2}},
+                   "failure": {**dead, "boot": boot2, "ready": ready2},
+                   "preempt": {**evicted, "held": held, "back": back,
+                               "boot": boot3, "ready": ready3}},
         "engine": {stage: controller.cost["stages"][stage] for stage in
-                   ("migrate", "ready_drain", "dead_card", "ready_failure")},
+                   ("migrate", "ready_drain", "dead_card", "ready_failure",
+                    "preempt", "beneficiary", "beneficiary_stop",
+                    "ready_preempt")},
+        "preempt_step": p, "preempt_serialize_s": preempt_serialize_s,
+        "preempt_store_s": evicted["store_s"],
+        "preempt_restore_s": boot3["restore_s"],
+        "preempt_engine_ms": evicted["engine_ms"],
+        "fakeclock_queue_wait_s": back["fakeclock_queue_wait_s"],
         "final_snapshots": finals, "attempts": len(attempts),
         "recovery_exhausted": bool(exhausted), **counted,
         "losses_before_migrate": pre["losses"],
         "losses_after_migrate": mid["losses"],
         "losses_after_dead_card": again["losses"],
+        "losses_after_preemption": after["losses"],
         "restored_state_bit_identical": restored_equal,
         "state_at_fail_step_bit_identical": at_fail_equal,
+        "state_at_preempt_step_bit_identical": at_preempt_equal,
+        "preempt_restored_state_bit_identical": preempt_restored_equal,
         "final_params_bit_identical": final_equal,
         "nvidia_smi": smi,
     }
@@ -3595,7 +3999,13 @@ def recovery_drills(controller, setup, pipeline, want, a, state_a_fail,
               f"{stage} {c['reconciles']} reconciles {c['wall_ms']:.2f} ms"
               for stage, c in out["engine"].items())
           + f"; FakeClock (simulated) recovery "
-          f"{counted['fakeclock_recovery_s']:.1f} s; RSS at most "
+          f"{counted['fakeclock_recovery_s']:.1f} s; preemption at step "
+          f"{p}: serialize {preempt_serialize_s:.3f} s, store "
+          f"{evicted['store_s']:.3f} s, restore {boot3['restore_s']:.3f} "
+          f"s, the scheduler's and engine's own work "
+          f"{evicted['engine_ms']:.2f} ms in {evicted['reconciles']} "
+          f"reconciles, FakeClock (simulated) queue wait "
+          f"{back['fakeclock_queue_wait_s']:.1f} s; RSS at most "
           + (f"{rss_max / 2**30:.2f} GiB" if rss_max is not None
              else "not measured")
           + f" where sampled (after each part and each load), the "
@@ -3608,24 +4018,36 @@ def recovery_drills(controller, setup, pipeline, want, a, state_a_fail,
     bad = []
     runs = {"before the migration": (pre, a["losses"][:k]),
             "after the migration": (mid, a["losses"][k:m]),
-            "after the dead card": (again, a["losses"][k:])}
+            "after the dead card": (again, a["losses"][k:p]),
+            "after the preemption": (after, a["losses"][p:])}
     for what, (run, losses) in runs.items():
         if run["losses"] != losses or not run["same"] or any(
                 n != expected for n in run["launches"]):
             bad.append(f"the run {what}: losses {run['losses']} against "
                        f"run A's {losses}, batches equal {run['same']}, "
                        f"launches {run['launches']}")
-    if not (restored_equal and at_fail_equal and final_equal):
+    if not (restored_equal and at_fail_equal and at_preempt_equal
+            and preempt_restored_equal and final_equal):
         bad.append(f"restored state equal {restored_equal}, at step {m} "
-                   f"{at_fail_equal}, final parameters {final_equal}")
-    for boot, drill in ((boot1, drain), (boot2, dead)):
-        if [str(boot["generation"]), boot["digest"]] != drill["stamp"] or                 boot["bytes"] != size:
+                   f"{at_fail_equal}, at step {p} {at_preempt_equal}, "
+                   f"restored after the preemption "
+                   f"{preempt_restored_equal}, final parameters "
+                   f"{final_equal}")
+    preempted = {"generation": evicted["snapshot"]["generation"],
+                 "stamp": back["stamp"]}
+    for boot, drill, nbytes in ((boot1, drain, size), (boot2, dead, size),
+                                (boot3, preempted,
+                                 evicted["snapshot"]["size"])):
+        if [str(boot["generation"]), boot["digest"]] != drill["stamp"] or \
+                boot["bytes"] != nbytes:
             bad.append(f"restored generation {boot['generation']}, digest "
                        f"{boot['digest']}, {boot['bytes']} bytes against "
-                       f"the pod's stamp {drill['stamp']}, {size} bytes")
+                       f"the pod's stamp {drill['stamp']}, {nbytes} bytes")
     if finals != [drain["generation"]] or \
-            dead["generation"] != drain["generation"]:
-        bad.append(f"final snapshots {finals}, migrations restored "
+            dead["generation"] != drain["generation"] or \
+            controller._finals() != finals + [preempted["generation"]]:
+        bad.append(f"final snapshots {finals} before the preemption, "
+                   f"{controller._finals()} after it, migrations restored "
                    f"{drain['generation']} and {dead['generation']}")
     want_counts = {"drain,migrated": 1.0, "drain,restored": 1.0,
                    "drain,fallback-restart": 0.0, "failure,migrated": 1.0,
@@ -3689,6 +4111,70 @@ def finish_pre_stop(started: dict) -> dict:
             "wall_s": wall_s}
 
 
+def start_examples(rendered: dict, device_name: str) -> dict:
+    """Launch the example side by side as a user runs it: in the pod,
+    torchrun with no flag, its world from the rendered PET_* env; on one
+    card, a bare launch, its group from the example's one-rank fallback.
+    One thread a launch waits for it, so that each one's seconds end at
+    its own exit."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    rendezvous = {k: v for k, v in rendered["env"].items()
+                  if k.startswith(("PET_", "GPU_"))}
+    module = ["-m", "kubeflow_tpu_torch.examples.train_llm"]
+    launches = {
+        "torchrun": ([sys.executable, "-m", "torch.distributed.run"]
+                     + module, {**os.environ, **rendezvous},
+                     "distributed_init under torchrun"),
+        "bare": ([sys.executable] + module, dict(os.environ),
+                 "the one-rank fallback")}
+    t0 = time.perf_counter()
+    procs = {key: subprocess.Popen(command, cwd=ROOT, env=env,
+                                   stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True)
+             for key, (command, env, _) in launches.items()}
+
+    def finish(key):
+        out, err = procs[key].communicate(timeout=NB_EXAMPLE_TIMEOUT_S)
+        return out, err, time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(len(procs))
+    return {"launches": launches, "procs": procs, "pool": pool,
+            "rendezvous": rendezvous, "device_name": device_name,
+            "waits": {key: pool.submit(finish, key) for key in procs}}
+
+
+def finish_examples(started: dict, abort: bool = False) -> dict:
+    """Each launch's return code, seconds from the launch to its exit,
+    output and whether it passed; with `abort`, the launches are killed
+    first.  Every launch is stopped on return."""
+    procs, launches = started["procs"], started["launches"]
+    examples = {}
+    try:
+        if abort:
+            for proc in procs.values():
+                proc.kill()
+        for key, wait in started["waits"].items():
+            out, err, seconds = wait.result()
+            lines = out.splitlines()
+            examples[key] = {
+                "returncode": procs[key].returncode, "s": seconds,
+                "tail": lines[-4:], "stdout": out, "stderr": err,
+                "ok": (procs[key].returncode == 0
+                       and "RESULT: OK" in lines
+                       and f"devices: 1 x {started['device_name']}"
+                       in lines
+                       and any(line.endswith(f"formed by "
+                                             f"{launches[key][2]}")
+                               for line in lines))}
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.wait()
+        started["pool"].shutdown()
+    return examples
+
+
 def notebook_train_phase(device, device_name, smi: str) -> dict:
     """BENCH_CHIP at full width and depth, batch 8, through the in-notebook
     runtime (input_pipeline, TelemetryAgent, checkpoint_on_cull,
@@ -3697,7 +4183,6 @@ def notebook_train_phase(device, device_name, smi: str) -> dict:
     import itertools
     import shutil
     import tempfile
-    from concurrent.futures import ThreadPoolExecutor
 
     import torch
     import torch.distributed as dist
@@ -3736,16 +4221,19 @@ def notebook_train_phase(device, device_name, smi: str) -> dict:
                 for n, p in s.model.named_parameters()}
 
     # run A: 12 steps through the pipeline with a telemetry agent; its
-    # state after step NB_FAIL_STEP is kept for the recovery drills
+    # states after steps NB_FAIL_STEP and NB_PREEMPT_STEP are kept for the
+    # recovery and preemption drills
     run_a = setup(SEED)
     agent = TelemetryAgent(config=cfg, batch=NB_BATCH, seq_len=seq,
                            num_chips=1, accelerator=device_name,
                            worker="chip-smoke")
-    state_a_fail = {}
+    state_a_fail, state_a_preempt = {}, {}
 
     def keep_fail_step(step, state):
         if step == NB_FAIL_STEP:
             state_a_fail.update(_clone_state(state))
+        if step == NB_PREEMPT_STEP:
+            state_a_preempt.update(_clone_state(state))
         return False
 
     pipe = pipeline()
@@ -3853,19 +4341,27 @@ def notebook_train_phase(device, device_name, smi: str) -> dict:
         shutil.rmtree(tmp / "local")
         torch.cuda.empty_cache()
 
-        # the self-healing engine's drills on the same pod: a drain
-        # migration, then a dead card
+        # the self-healing engine's drills on the same pod, a drain
+        # migration and a dead card, then the preemption drill
         recovery = recovery_drills(controller, setup, pipeline, want, a,
-                                   state_a_fail, final_a, expected, device,
-                                   smi)
-        del state_a_fail, final_a
+                                   state_a_fail, state_a_preempt, final_a,
+                                   expected, device, smi)
+        del state_a_fail, state_a_preempt, final_a
         torch.cuda.empty_cache()
+
+        # the example's two launches start here and run beside the dcp
+        # round, which needs neither of them
+        started = start_examples(rendered, device_name)
 
         # dcp: one save and restore of the mesh setup at world size 1 on
         # NCCL; a fresh mesh setup resumes it for 2 steps against the
         # uninterrupted mesh run
-        dist.init_process_group("nccl", init_method=f"tcp://localhost:"
-                                f"{_free_port()}", rank=0, world_size=1)
+        try:
+            dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                                    f"{_free_port()}", rank=0, world_size=1)
+        except BaseException:
+            finish_examples(started, abort=True)
+            raise
         try:
             mesh = make_mesh(MeshConfig(), device="cuda")
             sharded = setup(SEED, mesh)
@@ -3901,51 +4397,14 @@ def notebook_train_phase(device, device_name, smi: str) -> dict:
             dcp_params_equal = all(torch.equal(final_m[n], final_f[n])
                                    for n in final_m)
             del fresh, final_m, final_f, like, dcp_batches
+        except BaseException:
+            finish_examples(started, abort=True)
+            raise
         finally:
             dist.destroy_process_group()
     torch.cuda.empty_cache()
-
-    # the example, side by side as a user runs it: in the pod, torchrun
-    # with no flag, its world from the rendered PET_* env; on one card, a
-    # bare launch, its group from the example's one-rank fallback
-    rendezvous = {k: v for k, v in rendered["env"].items()
-                  if k.startswith(("PET_", "GPU_"))}
-    module = ["-m", "kubeflow_tpu_torch.examples.train_llm"]
-    launches = {
-        "torchrun": ([sys.executable, "-m", "torch.distributed.run"]
-                     + module, {**os.environ, **rendezvous},
-                     "distributed_init under torchrun"),
-        "bare": ([sys.executable] + module, dict(os.environ),
-                 "the one-rank fallback")}
-    t0 = time.perf_counter()
-    procs = {key: subprocess.Popen(command, cwd=ROOT, env=env,
-                                   stdout=subprocess.PIPE,
-                                   stderr=subprocess.PIPE, text=True)
-             for key, (command, env, _) in launches.items()}
-
-    def finish(key):
-        # one thread a launch, so each one's seconds end at its own exit
-        out, err = procs[key].communicate(timeout=NB_EXAMPLE_TIMEOUT_S)
-        return key, out, err, time.perf_counter() - t0
-
-    examples = {}
-    try:
-        with ThreadPoolExecutor(len(procs)) as pool:
-            for key, out, err, seconds in pool.map(finish, procs):
-                lines = out.splitlines()
-                examples[key] = {
-                    "returncode": procs[key].returncode, "s": seconds,
-                    "tail": lines[-4:], "stdout": out, "stderr": err,
-                    "ok": (procs[key].returncode == 0
-                           and "RESULT: OK" in lines
-                           and f"devices: 1 x {device_name}" in lines
-                           and any(line.endswith(f"formed by "
-                                                 f"{launches[key][2]}")
-                                   for line in lines))}
-    finally:
-        for proc in procs.values():
-            proc.kill()
-            proc.wait()
+    examples = finish_examples(started)
+    launches, rendezvous = started["launches"], started["rendezvous"]
 
     gb = ckpt_bytes / 1e9
     b_launches = b["launches"]
@@ -4192,9 +4651,13 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0]})
 
+    # the NCCL probe's two interpreters start while nvcc builds; the
+    # kernel phase waits for their answer, so no probe runs beside it
+    probe = start_nccl_probe()
     t0 = time.perf_counter()
     built = _build.build_all([i4.SOURCE, fa.SOURCE])
     build_s = time.perf_counter() - t0
+    nccl = finish_nccl_probe(probe)
     ptxas = ptxas_by_kernel("\n".join(log for _, log in built))
     hgmma = hgmma_by_kernel([lib for lib, _ in built])
     emit({"phase": "build", "build_s": build_s,
@@ -4257,7 +4720,7 @@ def main() -> int:
     timed("moe_serve", moe_serve_phase, device)
     mesh = timed("mesh_train", mesh_train_phase, device, smi,
                  tr["step_time_s"])
-    pipe = timed("pipeline_train", pipeline_train_phase, device, smi)
+    pipe = timed("pipeline_train", pipeline_train_phase, device, smi, nccl)
     notebook = timed("notebook_train", notebook_train_phase, device,
                      device_name, smi)
     demo = timed("speculative_demo", speculative_demo_phase, device, smi)

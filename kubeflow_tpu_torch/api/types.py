@@ -15,8 +15,10 @@ form (`apiVersion`, `kind`, `metadata`, `spec`, `status`), with the
 accessors of the reference's `Notebook` that the renderer uses, and
 `Notebook.new`, the twin of the reference's constructor.
 `notebook_status` builds the status the notebook controller writes, under
-the reference's field names.  The rest of the API (versions, conversion,
-priority, validation) is not ported.
+the reference's field names.  The priority classes of the tenancy layer
+(`spec.priority`, core/scheduler.py and core/preemption.py) are the
+reference's.  The rest of the API (versions, conversion, validation) is
+not ported.
 """
 
 from __future__ import annotations
@@ -30,6 +32,15 @@ from ..gpu.topology import GpuShape, TopologyError, resolve
 GROUP = "kubeflow.org"
 KIND = "Notebook"
 STORAGE_VERSION = "v1"
+
+# Priority classes (spec.priority): the tenancy layer's admission and
+# preemption ordering (core/scheduler.py, core/preemption.py), the
+# reference's ranks.  A notebook without spec.priority inherits its
+# tenant's default from the TenantQuota object (or PRIORITY_DEFAULT when
+# no quota is configured).
+PRIORITY_RANK = {"low": 0, "standard": 100, "high": 200}
+PRIORITY_CLASSES = tuple(sorted(PRIORITY_RANK, key=PRIORITY_RANK.get))
+PRIORITY_DEFAULT = "standard"
 
 # terminal verdict of the self-healing engine (core/selfheal.py): a gang
 # that spent its restart budget.  The status writer carries it forward
@@ -97,15 +108,18 @@ class Notebook:
         labels: Optional[dict] = None,
         annotations: Optional[dict] = None,
         replication: Optional[ReplicationSpec] = None,
+        priority: Optional[str] = None,
     ) -> "Notebook":
         """A new CR, the twin of the reference's `Notebook.new` with
-        `gpu` in the place of `tpu`."""
+        `gpu` in the place of `tpu`; `priority` sets `spec.priority`."""
         spec: dict = {"template": {"spec": pod_spec
                                    or {"containers": [{"name": name}]}}}
         if gpu is not None:
             spec["gpu"] = gpu.to_dict()
         if replication is not None:
             spec["replication"] = {"replicas": replication.replicas}
+        if priority is not None:
+            spec["priority"] = priority
         return cls({
             "apiVersion": f"{GROUP}/{STORAGE_VERSION}",
             "kind": KIND,
@@ -158,6 +172,12 @@ class Notebook:
     def status(self) -> dict:
         return self.obj.get("status") or {}
 
+    @property
+    def priority(self) -> Optional[str]:
+        """Explicit priority class, or None to defer to the tenant default."""
+        p = self._spec.get("priority")
+        return str(p) if p is not None else None
+
 
 def notebook_status(
     ready_replicas: int,
@@ -193,5 +213,6 @@ def notebook_status(
 
 
 __all__ = ["CONDITION_RECOVERY_EXHAUSTED", "GPUSpec", "GROUP",
-           "InvalidError", "KIND", "Notebook", "ReplicationSpec",
+           "InvalidError", "KIND", "Notebook", "PRIORITY_CLASSES",
+           "PRIORITY_DEFAULT", "PRIORITY_RANK", "ReplicationSpec",
            "STORAGE_VERSION", "notebook_status"]

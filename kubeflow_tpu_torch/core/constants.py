@@ -1,8 +1,8 @@
 """Constants the GPU workload renderer and the controllers need.
 
 The port's copy of the part of kubeflow_tpu/core/constants.py that
-core/{workload,notebook_controller,culling_controller,culler,selfheal}.py,
-kube/cluster.py and odh/network.py read, plus the GPU's resource, the GPU
+core/{workload,notebook_controller,culling_controller,culler,selfheal,
+scheduler,preemption}.py, kube/cluster.py and odh/network.py read, plus the GPU's resource, the GPU
 node's labels, the pod-index label and the checkpoint hook's writable
 signal directory.
 """
@@ -36,6 +36,34 @@ ANNOTATION_RESTORED_DIGEST = "notebooks.kubeflow.org/restored-digest"
 # "slices": {"<gang>": {"pool": ..., "nodes": [...]}}}; the renderer turns
 # each gang's pool assignment into a nodeSelector
 ANNOTATION_PLACEMENT = "notebooks.kubeflow.org/placement"
+# admission-queue membership (core/scheduler.py's tenancy gate), set while
+# a gang is held back by quota or fair share.  Value is JSON
+# {"since": <clock>, "priority": <class>, "reason": "quota"|"fair-share"|
+# "ordered"|"preempted"}: `since` feeds the aged fair-share dequeue score.
+# It contains "notebooks.kubeflow.org", so the renderer never copies it
+# onto pods.
+ANNOTATION_QUEUED = "notebooks.kubeflow.org/queued"
+
+# cluster-scoped tenancy policy and write-ahead preemption bookkeeping
+# object: spec holds the per-namespace GPU quota (`chipQuota`, in
+# accelerator devices), fair-share weight and default priority;
+# status.preemptions holds in-flight preemption records, written before
+# any teardown so that a manager crash resumes, never repeats, an
+# eviction.  Singleton named TENANTQUOTA_NAME.
+TENANTQUOTA_KIND = "TenantQuota"
+TENANTQUOTA_NAME = "default"
+PREEMPTION_PENDING = "Pending"
+PREEMPTION_DONE = "Done"
+
+# warm-pool bookkeeping object (core/scheduler.py): one cluster-scoped
+# GPUWarmPool per accelerator and GPU count; claim and release state lives
+# in its status, so it survives a manager crash and a leader failover
+WARMPOOL_KIND = "GPUWarmPool"
+WARMSLICE_PROVISIONING = "Provisioning"
+WARMSLICE_READY = "Ready"
+WARMSLICE_CLAIMED = "Claimed"
+WARMSLICE_STATES = (WARMSLICE_PROVISIONING, WARMSLICE_READY,
+                    WARMSLICE_CLAIMED)
 
 # checkpoint-sidecar contract: env rendered into every worker when
 # CHECKPOINT_STORE_URI is configured (consumed by runtime/checkpoint.py)

@@ -11,8 +11,9 @@ first idle verdict the culler writes the port's cull-signal request
 `checkpoint_signal_root/<namespace>/<name>`, and holds the cull until the
 training loop's `CullSignalWatcher` acknowledges there (`ACK_FILE`), the
 checkpoint-complete annotation lands, or one idleness period passes.
-The reference's hold while a preemption of the notebook is pending comes
-with the preemption engine (`ROADMAP.md` queue 1 item 13).
+While a write-ahead preemption record names the notebook as its victim
+(core/preemption.py), the cull is held: the eviction owns the gang's
+teardown and claim release.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from . import constants as C
 from . import culler
 from .jupyter import JupyterAPI
 from .metrics import NotebookMetrics
+from .preemption import pending_preemption
 
 logger = logging.getLogger("kubeflow_tpu_torch.culling")
 
@@ -124,6 +126,13 @@ class CullingReconciler:
                 else:
                     if self._should_wait_for_checkpoint(nb, meta):
                         span.add_event("culling.checkpoint_wait")
+                        return
+                    if pending_preemption(self.api, req.namespace,
+                                          req.name):
+                        # a stop landing mid-eviction would race the
+                        # engine for the pool claims; the requeue checks
+                        # again after the record closes
+                        span.add_event("culling.preemption_wait")
                         return
                     logger.info("culling notebook %s/%s", req.namespace, req.name)
                     span.add_event("notebook.culled")

@@ -4,7 +4,9 @@
 Counters for creations, failures, cullings and cull checkpoints, the
 last-cull timestamp, the first-readiness histogram, the self-healing
 engine's restarts, migrations, checkpoint ages and recovery latency
-(core/selfheal.py), and a scraper-style
+(core/selfheal.py), the gang scheduler's attempts, warm-pool claims
+and pool census and the tenancy layer's preemptions and queue wait
+(core/scheduler.py, core/preemption.py), and a scraper-style
 gauge that counts running notebooks from the workload StatefulSets
 carrying the notebook-name label, with the GPUs their running gangs
 request beside it.  The families keep the reference's names and labels,
@@ -12,7 +14,7 @@ on the port's `utils/metrics.py` Registry; the GPU gauge is the twin of
 the reference's `notebook_tpu_chips_requested`.
 
 The reference's other registrations (diagnosis, lifecycle, metering,
-profiler, SLO, data plane, scheduler, shards) wait for the modules that
+profiler, SLO, data plane, shards) wait for the modules that
 write them (`ROADMAP.md` queue 1 item 16), and the promotion families for
 the replicated tier (item 14).
 """
@@ -21,9 +23,23 @@ from __future__ import annotations
 
 from typing import Optional
 
+from ..api.types import GPUSpec, InvalidError
 from ..kube import ApiServer, parse_quantity
 from ..utils.metrics import Registry
 from . import constants as C
+
+
+def placement_gpus(nb) -> float:
+    """GPUs a placed notebook's gang occupies (0.0 for a CPU notebook or
+    an unresolvable shape): the twin of the reference's `placement_chips`,
+    with one gang where the reference has `spec.tpu.slices`."""
+    gpu = nb.spec.get("gpu") or {}
+    if not gpu.get("accelerator"):
+        return 0.0
+    try:
+        return float(GPUSpec.from_dict(gpu).validate().gpus)
+    except (InvalidError, TypeError, ValueError):
+        return 0.0
 
 
 class NotebookMetrics:
@@ -115,6 +131,52 @@ class NotebookMetrics:
             "Checkpoint/migrate recoveries by trigger and outcome",
             labels=("trigger", "result"),
         )
+        # gang scheduler and warm pool (core/scheduler.py): per-reconcile
+        # scheduling outcomes (result is the bounded scheduler.SCHEDULE_*
+        # set), per-claim warm-pool outcomes (hit | miss | bypass), and the
+        # per-shape pool census recomputed at scrape time from the
+        # GPUWarmPool objects (state: Provisioning | Ready | Claimed).
+        # Names, help strings and buckets are the reference's.
+        self.schedule_attempts = self.registry.counter(
+            "notebook_schedule_attempts_total",
+            "Slice-scheduler placement attempts by outcome",
+            labels=("result",),
+        )
+        self.warmpool_hits = self.registry.counter(
+            "notebook_warmpool_hits_total",
+            "Warm-pool claim outcomes (hit=pre-provisioned slice claimed, "
+            "miss=cold provision, bypass=pre-existing capacity)",
+            labels=("result",),
+        )
+        self.warmpool_size = self.registry.gauge(
+            "notebook_warmpool_size",
+            "Warm-pool slices per accelerator-topology shape and state",
+            labels=("shape", "state"),
+        )
+        # tenancy layer (the scheduler's admission gate and
+        # core/preemption.py): preemption outcomes (result is the bounded
+        # preemption.PREEMPT_* set, priority the victim's class, or the
+        # beneficiary's for result="no-victim"), and the quota/fair-share
+        # queue wait from first queuing to placement intent written
+        # (observed as 0 for gangs that never queued, so the distribution
+        # covers every placement)
+        self.preemptions = self.registry.counter(
+            "notebook_preemptions_total",
+            "Checkpoint-then-preempt evictions by outcome and priority "
+            "class",
+            labels=("result", "priority"),
+        )
+        self.queue_wait_seconds = self.registry.histogram(
+            "notebook_queue_wait_seconds",
+            "Time a gang spent queued behind quota/fair share before its "
+            "placement intent was written, by priority class",
+            labels=("priority",),
+            buckets=(0.5, 1.0, 5.0, 15.0, 30.0, 60.0, 120.0, 300.0,
+                     600.0, 1800.0),
+        )
+        # the pool shapes the last scrape saw, so that a deleted pool's
+        # series read 0 rather than freeze at their last census
+        self._warmpool_shapes: set[str] = set()
 
     def attach_manager(self, manager) -> None:
         self.manager = manager
@@ -142,20 +204,67 @@ class NotebookMetrics:
             out[cls._SEP.join(("gpus", sts.namespace))] = gpus
         return out
 
+    @classmethod
+    def _warmpool_census(cls, pool) -> dict:
+        """One GPUWarmPool's contribution: its shape ("h100-80gb-8"), so
+        an empty pool still zero-fills its series, and its entries by
+        state; bypass claims are not pool capacity."""
+        shape = "%s-%s" % (pool.spec.get("accelerator", ""),
+                           pool.spec.get("count", ""))
+        out: dict[str, float] = {cls._SEP.join(("shape", shape)): 1.0}
+        for e in (pool.body.get("status", {}).get("slices") or {}).values():
+            if e.get("external"):
+                continue
+            state = e.get("state", "")
+            if state in C.WARMSLICE_STATES:
+                key = cls._SEP.join(("state", shape, state))
+                out[key] = out.get(key, 0.0) + 1.0
+        return out
+
+    def _set_warmpool_census(self, census: dict) -> None:
+        """Every shape x state series is set each scrape, zeros included,
+        so a drained state reads 0; a pool deleted since the last scrape
+        has its series driven to 0."""
+        seen: set[str] = set()
+        per_state: dict[tuple[str, str], float] = {}
+        for key, v in census.items():
+            parts = key.split(self._SEP)
+            if parts[0] == "shape":
+                seen.add(parts[1])
+            elif parts[0] == "state":
+                per_state[(parts[1], parts[2])] = v
+        for shape in seen:
+            for state in C.WARMSLICE_STATES:
+                self.warmpool_size.labels(shape, state).set(
+                    per_state.get((shape, state), 0.0))
+        for shape in self._warmpool_shapes - seen:
+            for state in C.WARMSLICE_STATES:
+                self.warmpool_size.labels(shape, state).set(0)
+        self._warmpool_shapes = seen
+
     def scrape(self, openmetrics: bool = False) -> str:
         """Recompute the census gauges (off the informer cache's
-        incremental aggregate when a manager is attached, else by listing
-        StatefulSets) and render the exposition."""
+        incremental aggregates when a manager is attached, else by listing
+        StatefulSets and GPUWarmPools) and render the exposition."""
         cache = getattr(self.manager, "cache", None)
         if cache is not None:
             # registered once (idempotent), then kept by the watch stream
             cache.add_aggregate("StatefulSet", "nb-census", self._sts_census)
+            cache.add_aggregate(C.WARMPOOL_KIND, "warmpool-census",
+                                self._warmpool_census)
             census = cache.aggregate("StatefulSet", "nb-census")
+            self._set_warmpool_census(
+                cache.aggregate(C.WARMPOOL_KIND, "warmpool-census"))
         else:
             census = {}
             for sts in self.api.list("StatefulSet"):
                 for key, v in self._sts_census(sts).items():
                     census[key] = census.get(key, 0.0) + v
+            pools: dict[str, float] = {}
+            for pool in self.api.list(C.WARMPOOL_KIND):
+                for key, v in self._warmpool_census(pool).items():
+                    pools[key] = pools.get(key, 0.0) + v
+            self._set_warmpool_census(pools)
         running: dict[str, int] = {}
         for key, v in census.items():
             parts = key.split(self._SEP)
@@ -179,4 +288,4 @@ class NotebookMetrics:
         return text
 
 
-__all__ = ["NotebookMetrics"]
+__all__ = ["NotebookMetrics", "placement_gpus"]

@@ -15,11 +15,17 @@ pass over the gang, with the session-state store opened from
 `CHECKPOINT_STORE_URI` for its migrate verb.  Event re-emission lives in
 its own controller, as in the reference.
 
+With ENABLE_SLICE_SCHEDULER on, the gang scheduler and the tenancy layer
+(core/scheduler.py, core/preemption.py) own placement: a GPU notebook
+renders no StatefulSet until the scheduler's all-or-nothing placement
+intent covers its gang (the gang gate), and until then reads
+`sliceHealth` "Scheduling", or "Queued" while the admission gate parks
+it.
+
 Not ported yet, and refused when turned on rather than skipped
 (`setup_core_controllers` for a config, the Notebook admission hook for
-a CR), each naming the `ROADMAP.md` queue 1 item that ports it: the
-slice scheduler's gang gate and warm pool (item 13), `spec.replication`
-(item 14) and the Istio VirtualService (item 15).
+a CR), each naming the `ROADMAP.md` queue 1 item that ports it:
+`spec.replication` (item 14) and the Istio VirtualService (item 15).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import Optional
 
 from ..api.types import (
     CONDITION_RECOVERY_EXHAUSTED,
+    PRIORITY_RANK,
     InvalidError as SpecError,
     Notebook,
     notebook_status,
@@ -57,6 +64,7 @@ from ..utils.clock import Clock
 from ..utils.config import CoreConfig, NotPortedError, not_ported
 from . import constants as C
 from .metrics import NotebookMetrics
+from .scheduler import placement_covers, setup_scheduler
 from .selfheal import RecoveryEngine, SliceRestartError
 from .sessionstate import SessionStateStore, open_store
 from .workload import (
@@ -77,10 +85,6 @@ API_VERSIONS = ("v1alpha1", "v1beta1", "v1")
 
 def check_config(cfg: CoreConfig) -> None:
     """Refuse a config that turns on a part this port does not run."""
-    if cfg.enable_slice_scheduler:
-        raise NotPortedError(not_ported(
-            "ENABLE_SLICE_SCHEDULER", 13,
-            "kubeflow_tpu/core/{scheduler,preemption}.py"))
     if cfg.use_istio:
         raise NotPortedError(not_ported(
             "USE_ISTIO (the VirtualService)", 15, "kubeflow_tpu/odh/"))
@@ -104,6 +108,10 @@ def _admit_notebook(op: str, old: Optional[KubeObject],
             "spec.tpu: this controller runs GPU gangs (spec.gpu); TPU "
             "slices are served by kubeflow_tpu")
     nb = Notebook(obj.to_dict())
+    if nb.priority is not None and nb.priority not in PRIORITY_RANK:
+        raise AdmissionDenied(
+            f"invalid Notebook: spec.priority must be one of "
+            f"{sorted(PRIORITY_RANK)}, got {nb.priority!r}")
     if nb.gpu is not None:
         try:
             nb.gpu.validate()
@@ -187,6 +195,17 @@ class NotebookReconciler:
         # recreating owned objects would fight the API server (:138)
         if obj.metadata.deletion_timestamp is not None:
             return Result()
+
+        # gang gate (core/scheduler.py): with the scheduler on, a GPU
+        # notebook renders no workload until the all-or-nothing placement
+        # intent covers every gang, so a half-placed gang never exists.
+        # The scheduler's annotation write re-triggers this reconciler.
+        if self.cfg.enable_slice_scheduler and nb.gpu is not None \
+                and C.STOP_ANNOTATION not in nb.annotations:
+            rep = nb.replication
+            if not placement_covers(nb, rep.replicas if rep else 1):
+                self._update_status(nb, obj, [], scheduling=True)
+                return Result()
 
         with _TRACER.start_span("render",
                                 {"phase": "render"}) as render_span:
@@ -370,12 +389,15 @@ class NotebookReconciler:
             self.api.update(live)
 
     def _update_status(self, nb: Notebook, obj: KubeObject,
-                       live_names: list[str]) -> None:
+                       live_names: list[str],
+                       scheduling: bool = False) -> None:
         with _TRACER.start_span("status", {"phase": "status"}) as span:
-            self._compute_and_write_status(nb, obj, live_names, span)
+            self._compute_and_write_status(nb, obj, live_names, span,
+                                           scheduling=scheduling)
 
     def _compute_and_write_status(self, nb: Notebook, obj: KubeObject,
-                                  live_names: list[str], span) -> None:
+                                  live_names: list[str], span,
+                                  scheduling: bool = False) -> None:
         """Mirror pod conditions + container state into the CR
         (createNotebookStatus, notebook_controller.go:299-374); a GPU gang
         additionally gets per-worker states and its health.  Transitions
@@ -468,6 +490,12 @@ class NotebookReconciler:
                 # "Stopped" only once every worker is actually gone — a
                 # partially failed cull reads "Stopping"
                 slice_health = "Stopped" if ready == 0 else "Stopping"
+            elif scheduling and ready == 0:
+                # gang-gated: waiting on the scheduler's placement intent,
+                # which is not a failure; a gang the admission gate parked
+                # behind quota or fair share reads "Queued"
+                slice_health = "Queued" \
+                    if C.ANNOTATION_QUEUED in annotations else "Scheduling"
             elif ready == expected_hosts:
                 slice_health = "Healthy"
             elif ready == 0:
@@ -529,10 +557,14 @@ class NotebookReconciler:
                                               self.clock.now() - first_seen})
         elif ready < expected_hosts and \
                 C.STOP_ANNOTATION not in annotations:
-            pods_found = len(worker_states) if gpu is not None else \
-                (1 if pod0 is not None else 0)
-            waiting_on = "pod_start" if pods_found >= expected_hosts \
-                else "pod_schedule"
+            if scheduling:
+                waiting_on = "quota_wait" \
+                    if C.ANNOTATION_QUEUED in annotations else "scheduling"
+            else:
+                pods_found = len(worker_states) if gpu is not None else \
+                    (1 if pod0 is not None else 0)
+                waiting_on = "pod_start" if pods_found >= expected_hosts \
+                    else "pod_schedule"
             span.add_event("notebook.waiting", {
                 "on": waiting_on, "ready": ready,
                 "expected": expected_hosts})
@@ -622,12 +654,15 @@ def setup_core_controllers(
     cfg: Optional[CoreConfig] = None,
     metrics: Optional[NotebookMetrics] = None,
     session: Optional[SessionStateStore] = None,
+    provisioner=None,
 ) -> NotebookReconciler:
     """Wire the core controllers into a manager (main.go:58-148 analog;
     culling registration is separate, gated on ENABLE_CULLING — see
     core.culling_controller.setup_culling).  `session` overrides the
-    store opened from CHECKPOINT_STORE_URI.  Raises NotPortedError for a
-    config that turns on a part this port does not run."""
+    store opened from CHECKPOINT_STORE_URI; `provisioner` (the
+    FakeCluster standalone) turns warm-pool capacity up and down for the
+    gang scheduler.  Raises NotPortedError for a config that turns on a
+    part this port does not run."""
     cfg = cfg or CoreConfig.from_env()
     check_config(cfg)
     api = mgr.api
@@ -692,6 +727,13 @@ def setup_core_controllers(
         for_kind="Event",
         watches=[],
     )
+    # gang scheduler, warm pool and tenancy layer (ENABLE_SLICE_SCHEDULER),
+    # sharing the reconciler's session store, so that the preemption
+    # engine secures a victim's checkpoint through the chain the restore
+    # path reads
+    if cfg.enable_slice_scheduler:
+        setup_scheduler(mgr, cfg, metrics, provisioner=provisioner,
+                        session=rec.session)
     return rec
 
 

@@ -30,7 +30,8 @@ rendezvous re-forms only when every rank restarts.  So:
   same verb serves voluntary migration, a drain/defrag annotation
   (constants.ANNOTATION_MIGRATE) or a worker on a cordoned node, and a
   healthy session is never torn down without a secured checkpoint.  Verb
-  precedence: cull > migrate > restart.
+  precedence: cull > preempt > migrate > restart: a gang the tenancy
+  layer queued (core/scheduler.py, core/preemption.py) is left alone.
 
 All bookkeeping (attempt stamps, last restart, backoff deadline,
 disruption stamp, exhaustion, the restore intent) lives in
@@ -40,9 +41,8 @@ migration in flight.  It is written before any pod delete.  A GPU
 notebook has one gang, gang 0, where the reference has `spec.tpu.slices`
 slices; the status keys, metric names and event reasons are the
 reference's.  The promote verb (`spec.replication`, `ROADMAP.md` queue 1
-item 14) and the preemption hold (item 13) are not ported: admission
-refuses `spec.replication`, so the engine never sees a replicated
-notebook.
+item 14) is not ported: admission refuses `spec.replication`, so the
+engine never sees a replicated notebook.
 """
 
 from __future__ import annotations
@@ -243,6 +243,14 @@ class RecoveryEngine:
                 status.get("sliceHealth") in ("Stopping", "Stopped"):
             if recovery and status.get("sliceHealth") == "Stopped":
                 self._write_bookkeeping(nb, {})
+            return 0.0
+
+        # cull > preempt > migrate > restart: a queued gang, a preemption
+        # victim mid-teardown or re-queued among them, holds no placed
+        # capacity, and "recovering" it would fight the preemption engine.
+        # Its sessionState (the restore intent) survives untouched and
+        # rides the restore path once the gang re-places.
+        if C.ANNOTATION_QUEUED in live.metadata.annotations:
             return 0.0
 
         # voluntary migration request: the drain/defrag annotation

@@ -18,7 +18,8 @@ GC'd on the next scan.
 
 Copied: `SnapshotInfo`, `SessionStateStore.put` / `latest` / `info` /
 `payload`, the final-snapshot handler, `InMemorySessionStore`,
-`DirSessionStore` and `open_store`.  The replicated tier (delta chains,
+`DirSessionStore` and `open_store`; `put` hashes the payload beside its
+write, where the reference hashes it first.  The replicated tier (delta chains,
 write fences, compaction, follower replicas) waits for `ROADMAP.md`
 queue 1 item 14.
 """
@@ -29,6 +30,7 @@ import hashlib
 import json
 import os
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, Optional
@@ -90,18 +92,25 @@ class SessionStateStore:
         with self._lock:
             latest = self.latest(namespace, notebook, slice_id)
             generation = (latest.generation + 1) if latest else 1
-            info = SnapshotInfo(
-                namespace=namespace,
-                notebook=notebook,
-                slice_id=slice_id,
-                generation=generation,
-                saved_at=self.clock.now(),
-                digest=payload_digest(payload),
-                trigger=trigger,
-                uri=self.snapshot_uri(namespace, notebook, slice_id,
-                                      generation),
-                size=len(payload),
-            )
+            # the digest is computed beside the payload's write (hashlib
+            # and file writes release the GIL), so a large snapshot pays
+            # for one pass over its bytes, not two in a row
+            with ThreadPoolExecutor(1) as pool:
+                digest = pool.submit(payload_digest, payload)
+                self._write_payload(namespace, notebook, slice_id,
+                                    generation, payload)
+                info = SnapshotInfo(
+                    namespace=namespace,
+                    notebook=notebook,
+                    slice_id=slice_id,
+                    generation=generation,
+                    saved_at=self.clock.now(),
+                    digest=digest.result(),
+                    trigger=trigger,
+                    uri=self.snapshot_uri(namespace, notebook, slice_id,
+                                          generation),
+                    size=len(payload),
+                )
             self._store(info, payload)
             self._prune(namespace, notebook, slice_id)
             return info
@@ -144,6 +153,11 @@ class SessionStateStore:
             return handler(namespace, notebook, slice_id)
         except Exception:  # noqa: BLE001 — an unreachable gang is a
             return None    # normal outcome, not an engine error
+
+    def _write_payload(self, namespace: str, notebook: str, slice_id: int,
+                       generation: int, payload: bytes) -> None:
+        """Write the payload ahead of its commit, where the backend keeps
+        it apart from the metadata; `_store` then commits."""
 
     def _store(self, info: SnapshotInfo, payload: bytes) -> None:
         raise NotImplementedError
@@ -269,10 +283,14 @@ class DirSessionStore(SessionStateStore):
             except OSError:
                 return None
 
+    def _write_payload(self, namespace: str, notebook: str, slice_id: int,
+                       generation: int, payload: bytes) -> None:
+        d = self._slice_dir(namespace, notebook, slice_id)
+        d.mkdir(parents=True, exist_ok=True)
+        _atomic_write(d / f"gen-{generation}.bin", payload)
+
     def _store(self, info: SnapshotInfo, payload: bytes) -> None:
         d = self._slice_dir(info.namespace, info.notebook, info.slice_id)
-        d.mkdir(parents=True, exist_ok=True)
-        _atomic_write(d / f"gen-{info.generation}.bin", payload)
         meta = {
             "namespace": info.namespace,
             "notebook": info.notebook,

@@ -22,10 +22,14 @@ until `release_restores`.  A gang is slice 0.  Its drills are the
 reference's: a failed pod, a crash loop, a node deleted or cordoned, and
 a poisoned StatefulSet whose pods always come up Failed.
 
+It is also the gang scheduler's cloud provider (core/scheduler.py's
+WarmPoolController): `provision_slice` turns up one warm gang's GPU
+nodes under a nodepool label, and `deprovision_slice` tears an idle one
+back down, under the reference's method names.
+
 Left out until the modules that use them are ported (`ROADMAP.md` queue
 1): the delta-stream and follower hooks for the replicated tier (item
-14), the warm-pool provisioner hooks for the slice scheduler (item 13),
-the telemetry stamping for the data-plane rollup (item 16), the
+14), the telemetry stamping for the data-plane rollup (item 16), the
 ServiceAccount pull-secret controller for the ODH controller (item 15),
 and the fault-plan exemption for fault plans (item 17).
 """
@@ -156,6 +160,43 @@ class FakeCluster:
             nodes.append(label_gpu_node(self.api, name, gpus=gpus_per_host,
                                         accelerator=accelerator))
         return nodes
+
+    # -- cloud provider (warm-pool provisioner hook) ---------------------------
+    def provision_slice(self, shape, pool: str) -> list[str]:
+        """Turn up one gang's node set for the warm pool: `shape.num_hosts`
+        nodes (a gpu/topology.py `GpuShape`) labelled with the nodepool
+        `pool`, each made a GPU node of `shape.gpus_per_host`
+        `nvidia.com/gpu` by `label_gpu_node`.  Idempotent: a
+        conflict-retried or crash-resumed provisioning pass skips nodes
+        that already exist."""
+        names = []
+        for i in range(shape.num_hosts):
+            name = f"{pool}-{i}"
+            names.append(name)
+            if self.api.try_get("Node", "", name) is not None:
+                continue
+            self.add_node(name, labels={C.GKE_NODEPOOL_LABEL: pool},
+                          allocatable={"cpu": "208", "memory": "1872Gi"})
+            label_gpu_node(self.api, name, gpus=shape.gpus_per_host,
+                           accelerator=shape.accelerator.name)
+        return names
+
+    def deprovision_slice(self, pool: str) -> None:
+        """Tear a warm gang's node set back down (the autoscaler's
+        shrink).  A node that still carries bound pods is left standing:
+        a shared or user-made pool label must never pull a node out from
+        under running pods (and their GPU accounting)."""
+        with self._mutex:
+            doomed = [
+                n.name for n in self.api.list("Node")
+                if n.metadata.labels.get(C.GKE_NODEPOOL_LABEL) == pool
+                and not self._node_used.get(n.name)
+            ]
+            for name in doomed:
+                try:
+                    self.api.delete("Node", "", name)
+                except NotFoundError:
+                    pass
 
     # -- failure injection -----------------------------------------------------
     def fail_pod(self, namespace: str, name: str,

@@ -161,7 +161,11 @@ def build_manager(
     cluster = FakeCluster(api)
     mgr = Manager(api, clock=clock)
     metrics = NotebookMetrics(api, manager=mgr)
-    rec = setup_core_controllers(mgr, core_cfg, metrics)
+    # the fake cluster doubles as the warm pool's provisioner: with
+    # ENABLE_SLICE_SCHEDULER the scheduler turns capacity up and down
+    # through it
+    rec = setup_core_controllers(mgr, core_cfg, metrics,
+                                 provisioner=cluster)
     # the cluster plays the pods' checkpoint sidecars against the store
     # the reconciler opened: it answers final-snapshot requests and stamps
     # what a restored pod restored

@@ -5,8 +5,9 @@ The reference's de-facto config system is environment variables fed by
 kustomize params ConfigMaps; the same variable names bind into an
 injectable Config object so tests don't mutate process env.  The port
 keeps the fields its controllers read, under the reference's env names,
-defaults and parses, and the switches of two tiers it does not run yet
-(the slice scheduler, the Istio VirtualService), which
+defaults and parses: among them the slice scheduler's gang gate, warm
+pool and tenancy layer (core/scheduler.py, core/preemption.py), and the
+switch of the Istio VirtualService, a tier it does not run yet, which
 `setup_core_controllers` refuses when on.  `from_env` refuses the env
 switch of any other tier that is not ported (`NOT_PORTED_SWITCHES`); a
 tier's tuning knobs are not read, as the reference reads none while the
@@ -103,10 +104,6 @@ def _above(floor: float):
 # (env name, whether a value turns the tier on, ROADMAP.md queue 1 item,
 # the reference's module).  An SLO knob above 0 declares an objective.
 NOT_PORTED_SWITCHES = (
-    ("ENABLE_PREEMPTION", _true, 13, "kubeflow_tpu/core/preemption.py"),
-    ("WARMPOOL_SIZE", _above(0), 13, "kubeflow_tpu/core/scheduler.py"),
-    ("WARMPOOL_SHAPES", lambda v: bool(v.strip()), 13,
-     "kubeflow_tpu/core/scheduler.py"),
     ("SLO_PROMOTION_P99_S", _above(0), 14, "the replicated-kernel tier"),
     ("ENABLE_CONTINUOUS_PROFILER", _true, 16,
      "kubeflow_tpu/utils/profiler.py"),
@@ -183,9 +180,33 @@ class CoreConfig:
     checkpoint_interval_s: float = 300.0      # CHECKPOINT_INTERVAL_S
     checkpoint_max_age_s: float = 600.0       # CHECKPOINT_MAX_AGE_S
     checkpoint_signal_root: str = ""          # CHECKPOINT_SIGNAL_ROOT
-    # topology-aware slice scheduler and warm pool: refused (ROADMAP.md
-    # queue 1 item 13)
+    # topology-aware gang scheduler (core/scheduler.py): with it on, a GPU
+    # notebook renders no StatefulSet until an all-or-nothing placement
+    # intent covers its gang, and a warm pool of pre-provisioned gangs per
+    # shape (WARMPOOL_SHAPES, e.g. "h100-80gb:8,h100-80gb:16") turns a
+    # notebook start into a claim instead of a cold provision
+    # (warmpool_provision_s of fake or real time).  The autoscaler grows
+    # the per-shape target on misses (bounded by warmpool_max_size) and
+    # decays it back toward warmpool_size while the observed hit rate
+    # holds above warmpool_target_hit_rate.
     enable_slice_scheduler: bool = False      # ENABLE_SLICE_SCHEDULER
+    warmpool_size: int = 0                    # WARMPOOL_SIZE
+    warmpool_shapes: str = ""                 # WARMPOOL_SHAPES
+    warmpool_provision_s: float = 120.0       # WARMPOOL_PROVISION_S
+    warmpool_max_size: int = 64               # WARMPOOL_MAX_SIZE
+    warmpool_target_hit_rate: float = 0.9     # WARMPOOL_TARGET_HIT_RATE
+    warmpool_decay_s: float = 600.0           # WARMPOOL_DECAY_S
+    # tenancy layer (core/scheduler.py's admission gate and
+    # core/preemption.py's checkpoint-then-preempt).  A gang over its
+    # tenant's GPU quota or weighted fair share queues
+    # (sliceHealth "Queued") and is re-examined every queue_requeue_s;
+    # the dequeue order is the aged weighted fair-share score
+    # priority_rank + weight * age / queue_aging_s, so no queued gang
+    # starves.  enable_preemption gates checkpoint-then-preempt and is on
+    # by default, as in the reference.
+    enable_preemption: bool = True            # ENABLE_PREEMPTION
+    queue_requeue_s: float = 15.0             # QUEUE_REQUEUE_S
+    queue_aging_s: float = 60.0               # QUEUE_AGING_S
 
     @classmethod
     def from_env(cls, env: Optional[Mapping[str, str]] = None) -> "CoreConfig":
@@ -225,6 +246,16 @@ class CoreConfig:
             checkpoint_signal_root=env.get("CHECKPOINT_SIGNAL_ROOT", ""),
             enable_slice_scheduler=_bool(
                 env, "ENABLE_SLICE_SCHEDULER", False),
+            warmpool_size=max(0, _int(env, "WARMPOOL_SIZE", 0)),
+            warmpool_shapes=env.get("WARMPOOL_SHAPES", ""),
+            warmpool_provision_s=_float(env, "WARMPOOL_PROVISION_S", 120.0),
+            warmpool_max_size=max(1, _int(env, "WARMPOOL_MAX_SIZE", 64)),
+            warmpool_target_hit_rate=_float(
+                env, "WARMPOOL_TARGET_HIT_RATE", 0.9),
+            warmpool_decay_s=_float(env, "WARMPOOL_DECAY_S", 600.0),
+            enable_preemption=_bool(env, "ENABLE_PREEMPTION", True),
+            queue_requeue_s=_float(env, "QUEUE_REQUEUE_S", 15.0),
+            queue_aging_s=_float(env, "QUEUE_AGING_S", 60.0),
         )
 
 

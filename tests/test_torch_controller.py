@@ -436,6 +436,17 @@ def test_parts_not_ported_are_refused(knob, item):
         assert rec.recovery.cfg.enable_self_healing
         assert CoreConfig().enable_self_healing
         return
+    if knob == "enable_slice_scheduler":
+        # item 13 is ported: the switch is taken, and the gang scheduler,
+        # the warm pool and the preemption engine are registered, off by
+        # default as in the reference
+        rec = setup_core_controllers(mgr, CoreConfig(**{knob: True}))
+        assert rec.cfg.enable_slice_scheduler
+        assert {r.name for r in mgr._registrations} >= {
+            "notebook", "slice-scheduler", "warm-pool", "preemption"}
+        assert mgr.preemption_engine.cfg.enable_preemption
+        assert not CoreConfig().enable_slice_scheduler
+        return
     if knob.startswith("spec."):
         setup_core_controllers(mgr, CoreConfig(), NotebookMetrics(mgr.api))
         nb = Notebook.new("nb", NS, gpu=GPUSpec("h100-80gb", 8),
@@ -453,6 +464,11 @@ def test_parts_not_ported_are_refused(knob, item):
 
 _SWITCH_ON = {"ENABLE_PREEMPTION": "true", "ENABLE_CONTINUOUS_PROFILER": "true",
               "WARMPOOL_SHAPES": "h100-80gb:8", "SHARD_COUNT": "4"}
+# the env switches of the slice scheduler's tier (queue 1 item 13), taken
+# since it was ported: each parses into its field
+_TIER_SWITCHES = {"ENABLE_PREEMPTION": ("enable_preemption", True),
+                  "WARMPOOL_SIZE": ("warmpool_size", 1),
+                  "WARMPOOL_SHAPES": ("warmpool_shapes", "h100-80gb:8")}
 _SWITCH_OFF = {"ENABLE_PREEMPTION": "false",
                "ENABLE_CONTINUOUS_PROFILER": "false", "WARMPOOL_SHAPES": "",
                "SHARD_COUNT": "1"}
@@ -469,6 +485,23 @@ def test_env_switches_not_ported_are_refused(name, item):
         CoreConfig.from_env({name: _SWITCH_ON.get(name, "1")})
     assert CoreConfig.from_env({name: _SWITCH_OFF.get(name, "0")}) \
         == CoreConfig()
+
+
+@pytest.mark.parametrize("name", sorted(_TIER_SWITCHES))
+def test_env_switches_of_the_tier_are_taken(name):
+    """The tier's env switches, with the on values that were refused
+    before it was ported and their off values, parse into their fields as
+    the reference's do, and move no other field."""
+    field, want = _TIER_SWITCHES[name]
+    for value in (_SWITCH_ON.get(name, "1"), _SWITCH_OFF.get(name, "0")):
+        ours = CoreConfig.from_env({name: value})
+        assert getattr(ours, field) == \
+            getattr(RefConfig.from_env({name: value}), field)
+        # nothing but the switch's own field moves
+        assert dataclasses.replace(
+            ours, **{field: getattr(CoreConfig(), field)}) == CoreConfig()
+    assert getattr(CoreConfig.from_env(
+        {name: _SWITCH_ON.get(name, "1")}), field) == want
 
 
 @pytest.mark.parametrize("env", [{}, {

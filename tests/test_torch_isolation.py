@@ -25,7 +25,8 @@ EXPECTED = {"bench", "entry", "examples.llama13b_decode",
             "api.types", "core.constants", "core.workload", "odh.network",
             "main", "kube.cluster", "kube.controller",
             "core.notebook_controller", "core.culling_controller",
-            "core.selfheal", "core.sessionstate", "gpu.device_plugin"}
+            "core.selfheal", "core.sessionstate", "gpu.device_plugin",
+            "core.scheduler", "core.preemption"}
 
 
 def _port_sources() -> list:
@@ -80,7 +81,8 @@ def test_importing_every_port_module_loads_no_reference():
 CONTROL_PLANE = ("main", "kube", "common.reconcilehelper",
                  "core.notebook_controller", "core.culling_controller",
                  "core.metrics", "core.selfheal", "core.sessionstate",
-                 "gpu.device_plugin", "utils.config")
+                 "core.scheduler", "core.preemption", "gpu.device_plugin",
+                 "utils.config")
 
 
 def test_control_plane_imports_no_torch():

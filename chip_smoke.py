@@ -168,7 +168,10 @@ non-zero without its result line):
    drops other choices, where single-token steps drop nothing), and
    against each other.  The same weights at capacity factor E / k = 2,
    where no pass drops a choice, are served too: there the one pass
-   over the emitted tokens must pick >= 0.8 of them;
+   over the emitted tokens must pick >= 0.8 of them.  The int8 model
+   also decodes through `generate(mesh=)` on a world-1 NCCL mesh (the
+   tree converted on the mesh, the step captured with its collectives),
+   TP_NEW new tokens, bit-equal to its single-device `generate`;
 9. mesh_train: the sharded training step (models/train.py on a mesh:
    FSDP2 over data and fsdp, the tensor and expert blocks, the mesh train
    step) on a world-1 NCCL process group and `make_mesh(MeshConfig())`,
@@ -291,7 +294,29 @@ non-zero without its result line):
    {failure,migrated}, {failure,restored} and {preempt,restored} 1
    each, no fallback;
    notebook_slice_restarts_total{migrate} 1 after drill 1 and 2 after
-   drill 2; two attempts charged and no RecoveryExhausted;
+   drill 2; two attempts charged and no RecoveryExhausted.  Drill 4, the
+   promotion (`promotion_drill`): the phase's CR stops, a second GPU
+   node joins in its own pool, and a CR of two replicas of the same
+   one-card gang (spec.replication {2, antiAffine}) is placed, replica 0
+   on the card's node in card-pool and replica 1, by the anti-affinity,
+   on the second node.  The base is drill 3's bytes, put with writer
+   epoch 1 beside the rest of drill 3; two delta records (steps 11 and
+   12: the step, the batch's index, the bits of run A's loss) follow
+   with epoch 1 and the expected sequence, before the failure.  The
+   fake cluster stamps the followers at the chain head; replica 1's
+   runtime (this process) replays the chain through a FollowerReplica,
+   its digest the chain head's.  Replica 0's card dies: the engine
+   records the promotion (promoting) before the flip, raises the
+   store's fence to 2 and names replica 1 (epoch 2, primary 1,
+   promoted); a zombie write at epoch 1 raises StaleWriterError;
+   notebook_promotions_total{promoted} and
+   notebook_replication_fenced_writes_total read 1; no restart,
+   migration or attempt is charged.  The promoted runtime restores the
+   base part of its verified state into a setup from a fourth seed and
+   replays the records on the card: each loss bit-equal to its record's,
+   20/10/10 flash launches a step, the final parameters bit-equal to
+   run A's.  Put, catch-up, restore and replay seconds and the engine's
+   reconciles and wall ms are printed;
    notebook_disruption_recovery_seconds observed once (its FakeClock
    seconds, simulated, printed); the migrate annotation cleared.  The
    cull before it charges no attempt, and the unstopped pod carries no
@@ -486,6 +511,9 @@ PIPE_TIMED_STEPS = 3
 PIPE_TIMEOUT_S = 420
 # tp_decode: tensor 2 as two processes on the one card, TP_NEW new tokens
 TP_RANKS, TP_NEW, TP_TIMEOUT_S = 2, 8, 300
+# the tensor-2 ranks decode the 7B's first TP2_DEPTH layers (every shard
+# shape is a layer's, so each is met at any depth)
+TP2_DEPTH = 8
 # notebook_train: BENCH_CHIP at batch 8 through the runtime, 12 steps, the
 # cull request before step 6's hook; the corpus is NB_RUNS seeded runs
 NB_BATCH, NB_STEPS, NB_CULL_STEP, NB_RUNS = 8, 12, 6, 16384
@@ -506,6 +534,10 @@ NB_MIGRATE_STEP, NB_FAIL_STEP = 4, 8
 NB_POOL = "card-pool"
 NB_BENEFICIARY = "chip-smoke-high"
 NB_PREEMPT_STEP, NB_BEN_HOLD_S = 10, 60.0
+# the promotion drill: a CR of two replicas of the same one-card gang,
+# anti-affine, replica 1 on a second GPU node in its own node pool; the
+# promoted replica restores into a setup from a fourth seed
+NB_REP, NB_STANDBY_POOL = "chip-smoke-rep", "standby-pool"
 FLASH_REPLACES = {
     "flash_fwd": "kubeflow_tpu/ops/attention.py:173 -> jax/experimental/"
                  "pallas/ops/tpu/flash_attention.py:758",
@@ -1289,10 +1321,11 @@ def tp_decode_phase(model, device, smi: str) -> dict:
     for bit to single-device graphed `generate` on the same weights, 128
     new tokens, 129 int4 launches a step credited per replay.  (b)
     Tensor 2 as two processes on the one card over gloo (eager), 8 new
-    tokens, each rank on its blocks of the same weights: both ranks' tokens
-    equal, 129 int4 launches a step a rank at the shard shapes
-    (TP2_LAYERS), and the single-device model's teacher-forced gate of
-    the speculative phase over them."""
+    tokens, each rank on its blocks of the same weights cut to their
+    first TP2_DEPTH layers (`shared_draft`): both ranks' tokens equal,
+    4 x TP2_DEPTH + 1 int4 launches a step a rank at the shard shapes
+    (TP2_LAYERS), and the cut single-device model's teacher-forced gate
+    of the speculative phase over them."""
     import tempfile
 
     import torch
@@ -1331,19 +1364,21 @@ def tp_decode_phase(model, device, smi: str) -> dict:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
 
+    cut = shared_draft(model, TP2_DEPTH)
+    cut_step = 4 * TP2_DEPTH + 1
     with tempfile.TemporaryDirectory() as tmp:
         path = str(Path(tmp) / "llama7b_int4.pt")
-        torch.save(_cpu_tree(flax_tree(model)), path)
+        torch.save(_cpu_tree(flax_tree(cut)), path)
         t0 = time.perf_counter()
         reports = dryrun.launch(TP_RANKS, _tp_decode_rank,
-                                (path, cfg, prompt.cpu(), TP_NEW),
+                                (path, cut.cfg, prompt.cpu(), TP_NEW),
                                 timeout=TP_TIMEOUT_S)
         tp2_s = time.perf_counter() - t0
     tokens = reports[0]["tokens"].to(device)
     ranks_equal = all(torch.equal(r["tokens"], reports[0]["tokens"])
                       for r in reports)
-    forced = teacher_forced_gaps(model, tokens, prompt_len)
-    tp2_single = generate(cfg, model, prompt, TP_NEW)
+    forced = teacher_forced_gaps(cut, tokens, prompt_len)
+    tp2_single = generate(cut.cfg, cut, prompt, TP_NEW)
     want_shapes = sorted(TP2_LAYERS.values())
     res = {
         "phase": "tp_decode", "model": "llama2-7b int4", "batch": batch,
@@ -1356,10 +1391,11 @@ def tp_decode_phase(model, device, smi: str) -> dict:
                    "tok_s": batch * new / world1_ms * 1e3,
                    "single_device_tok_s": batch * new / single_ms * 1e3},
         "tensor2": {"ranks": TP_RANKS, "backend": reports[0]["backend"],
+                    "layers": TP2_DEPTH,
                     "new_tokens": TP_NEW, "ranks_equal": ranks_equal,
                     "int4_launches_per_rank": [r["int4_launches"]
                                                for r in reports],
-                    "expected_launches_per_rank": per_step * TP_NEW,
+                    "expected_launches_per_rank": cut_step * TP_NEW,
                     "int4_shapes": reports[0]["int4_shapes"],
                     "expected_shapes": want_shapes,
                     "teacher_forced_argmax_share": forced["argmax_share"],
@@ -1385,11 +1421,11 @@ def tp_decode_phase(model, device, smi: str) -> dict:
     if not ranks_equal:
         bad.append("the tensor-2 ranks hold different tokens")
     for r in reports:
-        if r["int4_launches"] != per_step * TP_NEW or \
+        if r["int4_launches"] != cut_step * TP_NEW or \
                 r["int4_shapes"] != want_shapes:
             bad.append(f"tensor-2 rank {r['rank']} launched int4 "
                        f"{r['int4_launches']} times (expected "
-                       f"{per_step * TP_NEW}) at {r['int4_shapes']} "
+                       f"{cut_step * TP_NEW}) at {r['int4_shapes']} "
                        f"(expected {want_shapes})")
     if (forced["argmax_share"] < SPEC_MIN_FORCED
             or forced["max_gap_rel"] > SPEC_GAP_TOL):
@@ -2197,10 +2233,41 @@ def moe_train_phase(device, device_name) -> dict:
     return res
 
 
+def moe_mesh_decode(cfg, tree, model, prompt, device) -> dict:
+    """The int8 MoE model through `generate(mesh=)` on a world-1 NCCL
+    mesh (built from `tree` on the mesh, the step captured with its
+    collectives), TP_NEW new tokens, against single-device `generate` of
+    `model`: the tokens must be equal bit for bit."""
+    import torch
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.models.convert import params_from_flax
+    from kubeflow_tpu_torch.models.generate import generate
+    from kubeflow_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    t0 = time.perf_counter()
+    single = generate(cfg, model, prompt, TP_NEW)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh(MeshConfig(), device="cuda")
+        mesh_model = params_from_flax(tree, cfg, device, mesh)
+        backend = dist.get_backend(mesh.get_group("tensor"))
+        tokens = generate(cfg, mesh_model, prompt, TP_NEW, mesh=mesh)
+        equal = torch.equal(tokens, single)
+        del mesh_model, tokens
+    finally:
+        dist.destroy_process_group()
+    return {"backend": backend, "new_tokens": TP_NEW,
+            "tokens_equal_single_device": equal,
+            "s": time.perf_counter() - t0}
+
+
 def moe_serve_phase(device) -> dict:
     """BENCH_MOE quantized to int8 (experts per expert and output
     channel, the router kept fp32) served by `generate` at batch 16,
-    prompt 128, 64 new tokens."""
+    prompt 128, 64 new tokens; and the same model through
+    `generate(mesh=)` on a world-1 NCCL mesh (`moe_mesh_decode`)."""
     import torch
 
     from kubeflow_tpu_torch.models.configs import BENCH_MOE
@@ -2223,9 +2290,10 @@ def moe_serve_phase(device) -> dict:
     no_drop_cfg = int8_cfg.with_(
         moe_capacity_factor=cfg.moe_experts / cfg.moe_top_k)
     no_drop = params_from_flax(tree, no_drop_cfg, device)
-    del tree
     prompt = torch.randint(0, vocab, (batch, prompt_len), generator=gen,
                            device=device)
+    on_mesh = moe_mesh_decode(int8_cfg, tree, model, prompt, device)
+    del tree
     generate(int8_cfg, model, prompt, 2)                  # warm-up
     out, ms = event_timed(lambda: generate(int8_cfg, model, prompt, new))
     nd_out = generate(no_drop_cfg, no_drop, prompt, new)
@@ -2259,10 +2327,17 @@ def moe_serve_phase(device) -> dict:
             (int8_forced == bf16_forced).float().mean().item(),
         "no_drop_capacity_factor": no_drop_cfg.moe_capacity_factor,
         "no_drop_teacher_forced_agreement": nd_agreement,
+        "world1_mesh": on_mesh,
     }
     emit(res)
     del full, model, no_drop
     torch.cuda.empty_cache()
+    if on_mesh["backend"] != "nccl" or \
+            not on_mesh["tokens_equal_single_device"]:
+        raise RuntimeError(
+            f"int8 MoE generate(mesh=) on a world-1 {on_mesh['backend']} "
+            f"mesh: tokens equal to single-device generate "
+            f"{on_mesh['tokens_equal_single_device']}")
     if not (shape_ok and finite):
         raise RuntimeError("int8 MoE generate gave malformed tokens or "
                            "non-finite logits")
@@ -3108,6 +3183,12 @@ class NotebookController:
         obj = ev.obj
         if obj.kind == "Notebook":
             ann = obj.metadata.annotations
+            if obj.name == NB_REP:
+                rep = (obj.body.get("status") or {}).get("replication") \
+                    or {}
+                self.stream.append((
+                    "replication", rep.get("epoch"), rep.get("primary"),
+                    (rep.get("promotion") or {}).get("phase")))
             if obj.name == NB_NAME:
                 entry = (obj.body.get("status", {}).get("sessionState")
                          or {}).get("0") or {}
@@ -3726,6 +3807,189 @@ class NotebookController:
         return out
 
 
+    def replicate(self) -> dict:
+        """The promotion drill's CR.  The phase's CR stops (its run is
+        done) and frees the card; a second GPU node joins in its own pool
+        (the fake device plugin's `add_gpu_nodes`); the CR NB_REP
+        arrives with spec.replication {replicas: 2, antiAffine: true} and
+        the same one-card gang, and both pods' containers run.  Replica
+        0 must be placed on the card's node in NB_POOL and replica 1, by
+        the anti-affinity, on the second node."""
+        from kubeflow_tpu_torch.api.types import (
+            GPUSpec,
+            Notebook,
+            ReplicationSpec,
+        )
+        from kubeflow_tpu_torch.core import constants as K
+        from kubeflow_tpu_torch.kube import KubeObject
+
+        with self.stage("replicate"):
+            nb = self.api.get("Notebook", NB_NAMESPACE, NB_NAME)
+            nb.metadata.annotations[K.STOP_ANNOTATION] = "true"
+            self.api.update(nb)
+            self.run()
+            (standby,) = self.cluster.add_gpu_nodes(
+                self.accelerator, 1, 1, name_prefix="standby",
+                pool=NB_STANDBY_POOL)
+            self.jupyter.set_kernels(NB_NAMESPACE, NB_REP, [{
+                "id": "k2", "name": "python3", "execution_state": "busy",
+                "last_activity": "2023-01-01T00:00:00Z", "connections": 1}])
+            self.api.create(KubeObject.from_dict(Notebook.new(
+                NB_REP, NB_NAMESPACE, gpu=GPUSpec(self.accelerator, 1),
+                replication=ReplicationSpec(2, anti_affine=True)).obj))
+            self.run()
+            for pod in (f"{NB_REP}-0", f"{NB_REP}-r1-0"):
+                self.cluster.mark_running(NB_NAMESPACE, pod)
+            self.run()
+        nb = self.api.get("Notebook", NB_NAMESPACE, NB_REP)
+        placement = json.loads(nb.metadata.annotations.get(
+            K.ANNOTATION_PLACEMENT, "{}"))
+        nodes = {}
+        for pod in (f"{NB_REP}-0", f"{NB_REP}-r1-0"):
+            obj = self.api.try_get("Pod", NB_NAMESPACE, pod)
+            nodes[pod] = obj.spec.get("nodeName") if obj else None
+        out = {"placement": placement.get("slices"), "nodes": nodes,
+               "health": nb.status.get("sliceHealth"),
+               "replication": nb.status.get("replication"),
+               "standby_node": standby.name,
+               "stopped": self.status().get("sliceHealth")}
+        want = {"placement": {
+                    "0": {"pool": NB_POOL, "nodes": [NB_NODE]},
+                    "1": {"pool": NB_STANDBY_POOL, "nodes": [standby.name]}},
+                "nodes": {f"{NB_REP}-0": NB_NODE,
+                          f"{NB_REP}-r1-0": standby.name},
+                "health": "Healthy", "stopped": "Stopped"}
+        if {k: out[k] for k in want} != want or \
+                (out["replication"] or {}).get("epoch") != 1 or \
+                (out["replication"] or {}).get("primary") != 0:
+            raise RuntimeError(f"controller: the replicated CR {out}")
+        return out
+
+    def catch_up(self) -> dict:
+        """The follower runtimes' catch-up: the fake cluster stamps the
+        replica-labelled pods with the chain head (lag 0), and the engine
+        records the follower's freshness in status.replication."""
+        with self.stage("catch_up"):
+            stamped = self.cluster.sync_followers(NB_NAMESPACE, NB_REP,
+                                                  lag=0)
+            self.mgr.enqueue_all("notebook")
+            self.run()
+        rep = self.api.get("Notebook", NB_NAMESPACE, NB_REP).status.get(
+            "replication") or {}
+        return {"stamped": stamped,
+                "follower": (rep.get("followers") or {}).get("1")}
+
+    def promote(self) -> dict:
+        """Replica 0's card dies (`fail_pod`, GPUUnhealthy, as the dead
+        card drill's): the engine elects replica 1, commits the
+        write-ahead record, raises the store's fence and flips the
+        primary.  Then a zombie write from replica 0 at epoch 1 must be
+        refused."""
+        from kubeflow_tpu_torch.core.sessionstate import StaleWriterError
+
+        store = self.cluster.session_store
+        restarts = dict(self.metrics.slice_restarts.collect())
+        migrations = dict(self.metrics.migrations.collect())
+        start = len(self.stream)
+        with self.stage("promote"):
+            self.cluster.fail_pod(NB_NAMESPACE, f"{NB_REP}-0",
+                                  "GPUUnhealthy")
+            self.run()
+        try:
+            store.append_delta(NB_NAMESPACE, NB_REP, 0, b"zombie",
+                               writer_epoch=1)
+            zombie = "accepted"
+        except StaleWriterError as err:
+            zombie = f"refused: {err}"
+        nb = self.api.get("Notebook", NB_NAMESPACE, NB_REP)
+        rep = nb.status.get("replication") or {}
+        stream = [e for e in self.stream[start:] if e[0] == "replication"]
+        order = [next((i for i, e in enumerate(stream)
+                       if e == ("replication", 2, 0, "promoting")), None),
+                 next((i for i, e in enumerate(stream)
+                       if e == ("replication", 2, 1, "promoted")), None)]
+        recovery = nb.status.get("sliceRecovery") or {}
+        ns = NB_NAMESPACE
+        out = {
+            "epoch": rep.get("epoch"), "primary": rep.get("primary"),
+            "promotion": rep.get("promotion"),
+            "promoting_then_promoted_at": order,
+            "fence": store.fence_epoch(ns, NB_REP),
+            "zombie": zombie,
+            "promoted": self.metrics.promotions.value(ns, "promoted"),
+            "no_candidate": self.metrics.promotions.value(
+                ns, "no-candidate"),
+            "fenced_writes": self.metrics.replication_fenced_writes.value(
+                ns),
+            # FakeClock seconds: simulated, not measured
+            "fakeclock_promotion_s":
+                self.metrics.promotion_duration_seconds.sum_value(ns),
+            "attempts": {g: len(st.get("attempts") or [])
+                         for g, st in recovery.items()},
+            "restarts_unchanged":
+                dict(self.metrics.slice_restarts.collect()) == restarts,
+            "migrations_unchanged":
+                dict(self.metrics.migrations.collect()) == migrations,
+            "follower_deleted": [o.name for o in self.deleted
+                                 if o.name.startswith(f"{NB_REP}-r1")],
+        }
+        bad = []
+        if (out["epoch"], out["primary"],
+                (out["promotion"] or {}).get("phase"),
+                (out["promotion"] or {}).get("to")) != (2, 1, "promoted", 1):
+            bad.append(f"status.replication {rep}")
+        if None in order or not order[0] < order[1]:
+            bad.append(f"the record promoting and the flip at {order} of "
+                       f"the event stream")
+        if out["fence"] != 2 or not zombie.startswith("refused"):
+            bad.append(f"fence {out['fence']}, zombie write {zombie}")
+        if (out["promoted"], out["no_candidate"], out["fenced_writes"]) \
+                != (1.0, 0.0, 1.0):
+            bad.append(f"promotions {out['promoted']} (no candidate "
+                       f"{out['no_candidate']}), fenced writes "
+                       f"{out['fenced_writes']}")
+        if any(out["attempts"].values()) or not out["restarts_unchanged"] \
+                or not out["migrations_unchanged"] \
+                or out["follower_deleted"]:
+            bad.append(f"attempts {out['attempts']}, restarts unchanged "
+                       f"{out['restarts_unchanged']}, migrations unchanged "
+                       f"{out['migrations_unchanged']}, follower pods "
+                       f"deleted {out['follower_deleted']}")
+        if bad:
+            raise RuntimeError("controller: the promotion: "
+                               + "; ".join(bad))
+        return out
+
+
+class _BytesView(io.RawIOBase):
+    """The first `end` bytes of a bytes object as a read-only file, with
+    no copy of them: what torch.load reads a payload's prefix through."""
+
+    def __init__(self, data: bytes, end: int):
+        self._view, self._pos = memoryview(data)[:end], 0
+
+    def readable(self) -> bool:
+        return True
+
+    def seekable(self) -> bool:
+        return True
+
+    def readinto(self, buf) -> int:
+        n = max(min(len(buf), len(self._view) - self._pos), 0)
+        buf[:n] = self._view[self._pos:self._pos + n]
+        self._pos += n
+        return n
+
+    def seek(self, offset: int, whence: int = io.SEEK_SET) -> int:
+        base = {io.SEEK_SET: 0, io.SEEK_CUR: self._pos,
+                io.SEEK_END: len(self._view)}[whence]
+        self._pos = base + offset
+        return self._pos
+
+    def tell(self) -> int:
+        return self._pos
+
+
 def _state_bytes(state) -> bytes:
     """The train state serialized as one payload (torch.save of
     `train_state_dict`), what the gang's session snapshot holds."""
@@ -3805,6 +4069,167 @@ def boot_restore(controller, target, device) -> dict:
     return {"generation": instruction.generation, "bytes": len(payload),
             "digest": digest, "fetch_s": fetch_s, "restore_s": restore_s,
             "rss_bytes": _rss()}
+
+
+def start_chain(controller, payload: bytes, a: dict) -> dict:
+    """The promotion drill's host work, on a thread beside the rest of
+    drill 3 (file writes and hashing release the GIL): the primary of
+    NB_REP puts `payload`, run A's state after step NB_PREEMPT_STEP, as
+    the base with writer epoch 1 and appends one record a step for the
+    steps after it (the step, the batch's index into the phase's batches
+    and the bits of run A's loss) with epoch 1 and the expected
+    sequence, through the CR's store; then replica 1's runtime replays
+    the chain through a FollowerReplica of the store its pod opens,
+    verifying each digest.  Each part's seconds are kept."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kubeflow_tpu_torch.core.sessionstate import FollowerReplica
+
+    store, ns = controller.cluster.session_store, NB_NAMESPACE
+
+    def chain():
+        t0 = time.perf_counter()
+        base = store.put(ns, NB_REP, 0, payload, writer_epoch=1)
+        t1 = time.perf_counter()
+        records = [json.dumps({"step": i + 1, "batch": i,
+                               "loss": a["losses"][i].hex()}).encode()
+                   for i in range(NB_PREEMPT_STEP, NB_STEPS)]
+        deltas = [store.append_delta(ns, NB_REP, 0, rec, expected_seq=n + 1,
+                                     writer_epoch=1)
+                  for n, rec in enumerate(records)]
+        t2 = time.perf_counter()
+        head = store.chain_head(ns, NB_REP, 0)
+        follower = FollowerReplica(controller.store(), ns, NB_REP, 0)
+        steps = follower.catch_up()
+        t3 = time.perf_counter()
+        return {"base": base, "records": records, "deltas": deltas,
+                "head": head, "follower": follower, "steps": steps,
+                "put_s": t1 - t0, "append_s": t2 - t1,
+                "catch_up_s": t3 - t2}
+
+    pool = ThreadPoolExecutor(1)
+    return {"pool": pool, "future": pool.submit(chain)}
+
+
+def promotion_drill(controller, setup, pipeline, want, final_a, expected,
+                    device, chain) -> dict:
+    """The replicated tier on the phase's card.  The CR NB_REP's two
+    replicas are placed anti-affine (`NotebookController.replicate`).
+    `start_chain`'s thread wrote the chain (the base, run A's state after
+    step NB_PREEMPT_STEP from drill 3's bytes, and a record a step after
+    it) and replayed it as replica 1's runtime; the fake cluster stamps
+    the replicas' pods at the chain head.  Replica 0's card dies and the
+    engine promotes replica 1; the promoted runtime restores the base
+    part of its verified state into a setup from a fourth seed and
+    replays the records on the card, each loss bit-equal to the
+    record's and the final parameters to run A's."""
+    import itertools
+
+    import torch
+
+    from kubeflow_tpu_torch.models import train
+
+    ns, store = NB_NAMESPACE, controller.cluster.session_store
+    placed = controller.replicate()
+    # the promoted runtime's setup, from a fourth seed, while the chain's
+    # thread finishes
+    target = setup(SEED + 4)
+    t0 = time.perf_counter()
+    written = chain["future"].result()
+    chain["pool"].shutdown()
+    wait_s = time.perf_counter() - t0
+    base, records, deltas = (written["base"], written["records"],
+                             written["deltas"])
+    head, follower, steps = (written["head"], written["follower"],
+                             written["steps"])
+    caught = controller.catch_up()
+    promoted = controller.promote()
+
+    # the promoted runtime: the base part of its verified state into a
+    # setup from a fourth seed, then the records replayed on the card
+    state = follower.state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train.load_train_state(target.state, torch.load(
+        _BytesView(state, base.size), map_location=device,
+        weights_only=True))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    offset, replayed = base.size, []
+    for d in store.deltas(ns, NB_REP, 0):
+        replayed.append(json.loads(state[offset:offset + d.size]))
+        offset += d.size
+    del state
+    first = replayed[0]["batch"]
+    t0 = time.perf_counter()
+    pipe = pipeline()
+    run = _nb_steps(target, itertools.islice(pipe, first, None),
+                    [want[r["batch"]] for r in replayed])
+    pipe.close()
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    final_equal = all(torch.equal(final_a[n], train.local_tensor(t))
+                      for n, t in target.model.named_parameters())
+    del target
+    torch.cuda.empty_cache()
+    out = {
+        "placed": placed, "base": {"generation": base.generation,
+                                   "size": base.size, "digest": base.digest},
+        "records": [json.loads(r) for r in records],
+        "deltas": [{"seq": d.seq, "size": d.size, "digest": d.digest}
+                   for d in deltas],
+        "head_before_failure": list(head),
+        "head_after": list(store.chain_head(ns, NB_REP, 0)),
+        "catch_up": caught, "follower_steps": steps,
+        "follower": {"generation": follower.base_generation,
+                     "seq": follower.seq, "digest": follower.digest},
+        "promote": promoted, "replayed": replayed,
+        "replayed_losses": [x.hex() for x in run["losses"]],
+        "replayed_launches": run["launches"], "batches_equal": run["same"],
+        "final_params_bit_identical": final_equal,
+        "put_s": written["put_s"], "append_s": written["append_s"],
+        "catch_up_s": written["catch_up_s"], "chain_wait_s": wait_s,
+        "restore_s": restore_s, "replay_s": replay_s,
+        "engine": {stage: controller.cost["stages"][stage] for stage in
+                   ("replicate", "catch_up", "promote")},
+    }
+    print(f"notebook_train promotion: base {base.size} bytes put in "
+          f"{written['put_s']:.3f} s, {len(records)} records appended in "
+          f"{written['append_s'] * 1e3:.2f} ms, the follower's catch-up "
+          f"(read and hash) {written['catch_up_s']:.3f} s, on a thread "
+          f"beside drill 3 ({wait_s:.3f} s waited for); restore "
+          f"{restore_s:.3f} s, replay of {len(replayed)} steps "
+          f"{replay_s:.3f} s; engine " + "; ".join(
+              f"{stage} {c['reconciles']} reconciles {c['wall_ms']:.2f} ms"
+              for stage, c in out["engine"].items())
+          + f"; FakeClock (simulated) promotion "
+          f"{promoted['fakeclock_promotion_s']:.1f} s", flush=True)
+    bad = []
+    want_head = [base.generation, len(records), deltas[-1].digest]
+    stamp = {"generation": base.generation, "seq": len(records),
+             "digest": deltas[-1].digest}
+    if out["head_before_failure"] != want_head or \
+            out["head_after"] != want_head or \
+            (caught["follower"] or {}).get("slices", {}).get("0") != stamp \
+            or not (caught["follower"] or {}).get("ready"):
+        bad.append(f"chain head {out['head_before_failure']} before the "
+                   f"failure and {out['head_after']} after, the "
+                   f"follower's record {caught['follower']}")
+    if out["follower"] != stamp or steps != 1 + len(records):
+        bad.append(f"the follower replayed to {out['follower']} in {steps} "
+                   f"steps, the head is {stamp}")
+    if [r["loss"] for r in replayed] != [r["loss"] for r in out["records"]] \
+            or out["replayed_losses"] != [r["loss"] for r in replayed] \
+            or not run["same"] or any(n != expected
+                                      for n in run["launches"]):
+        bad.append(f"replayed losses {out['replayed_losses']} against the "
+                   f"records' {[r['loss'] for r in replayed]}, batches "
+                   f"equal {run['same']}, launches {run['launches']}")
+    if not final_equal:
+        bad.append("the replayed run's final parameters differ from run A's")
+    if bad:
+        raise RuntimeError("notebook_train promotion: " + "; ".join(bad))
+    return out
 
 
 def recovery_drills(controller, setup, pipeline, want, a, state_a_fail,
@@ -3905,10 +4330,14 @@ def recovery_drills(controller, setup, pipeline, want, a, state_a_fail,
     del target
     torch.cuda.empty_cache()
     evicted = controller.preempt(payload)
-    del payload
     part("preempt")
     held = controller.hold_beneficiary()
     back = controller.stop_beneficiary()
+    # the promotion drill's base is these bytes: its chain is written and
+    # replayed beside the rest of drill 3, which no longer reads the
+    # engine's store
+    chain = start_chain(controller, payload, a)
+    del payload
     part("compare and ready")
     # the returned gang's pod restores into a setup from a third seed
     resumed = setup(SEED + 3)
@@ -3929,9 +4358,6 @@ def recovery_drills(controller, setup, pipeline, want, a, state_a_fail,
     controller.cluster.set_session_payload(NB_NAMESPACE, NB_NAME, b"")
     torch.cuda.empty_cache()
     part("compare and ready")
-    peak_after = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
-    rss += [boot1["rss_bytes"], boot2["rss_bytes"], boot3["rss_bytes"]]
-    rss_max = max((r for r in rss if r is not None), default=None)
 
     metrics = controller.metrics
     status = controller.status()
@@ -3953,6 +4379,14 @@ def recovery_drills(controller, setup, pipeline, want, a, state_a_fail,
         "fakeclock_recovery_s":
             metrics.disruption_recovery_seconds.sum_value(NB_NAMESPACE),
     }
+    # drill 4, the promotion, on a replicated CR (the phase's CR stops
+    # first, so the counts above are read before it)
+    promotion = promotion_drill(controller, setup, pipeline, want, final_a,
+                                expected, device, chain)
+    part("promote")
+    peak_after = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    rss += [boot1["rss_bytes"], boot2["rss_bytes"], boot3["rss_bytes"]]
+    rss_max = max((r for r in rss if r is not None), default=None)
     gb = size / 1e9
     out = {
         "migrate_step": k, "fail_step": m, "snapshot_bytes": size,
@@ -3968,11 +4402,12 @@ def recovery_drills(controller, setup, pipeline, want, a, state_a_fail,
         "drills": {"drain": {**drain, "boot": boot1, "ready": ready1},
                    "failure": {**dead, "boot": boot2, "ready": ready2},
                    "preempt": {**evicted, "held": held, "back": back,
-                               "boot": boot3, "ready": ready3}},
+                               "boot": boot3, "ready": ready3},
+                   "promote": promotion},
         "engine": {stage: controller.cost["stages"][stage] for stage in
                    ("migrate", "ready_drain", "dead_card", "ready_failure",
                     "preempt", "beneficiary", "beneficiary_stop",
-                    "ready_preempt")},
+                    "ready_preempt", "replicate", "catch_up", "promote")},
         "preempt_step": p, "preempt_serialize_s": preempt_serialize_s,
         "preempt_store_s": evicted["store_s"],
         "preempt_restore_s": boot3["restore_s"],

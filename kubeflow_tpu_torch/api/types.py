@@ -78,16 +78,31 @@ class GPUSpec:
 class ReplicationSpec:
     """Optional `spec.replication` block: run `replicas` copies of the
     kernel gang — one primary plus replicas-1 followers continuously
-    restored from the primary's checkpoint-delta stream — so a gang
-    failure promotes a caught-up follower instead of paying a snapshot
-    -> reschedule -> restore cycle.  The reference's `antiAffine` is
-    not read: the renderer does not use it."""
+    restored from the primary's checkpoint-delta stream
+    (core/sessionstate.py) — so a gang failure promotes a caught-up
+    follower (core/selfheal.py) instead of paying a snapshot ->
+    reschedule -> restore cycle.  `anti_affine` keeps replica gangs on
+    disjoint node pools so one pool failure cannot take both copies
+    (core/scheduler.py enforces it at placement time)."""
 
     replicas: int = 2
+    anti_affine: bool = True
 
     @classmethod
     def from_dict(cls, d: dict) -> "ReplicationSpec":
-        return cls(replicas=int(d.get("replicas", 2)))
+        return cls(
+            replicas=int(d.get("replicas", 2)),
+            anti_affine=bool(d.get("antiAffine", True)),
+        )
+
+    def to_dict(self) -> dict:
+        return {"replicas": self.replicas, "antiAffine": self.anti_affine}
+
+    def validate(self) -> None:
+        if self.replicas < 2:
+            raise InvalidError("spec.replication.replicas must be >= 2")
+        if self.replicas > 8:
+            raise InvalidError("spec.replication.replicas must be <= 8")
 
 
 class Notebook:
@@ -117,7 +132,7 @@ class Notebook:
         if gpu is not None:
             spec["gpu"] = gpu.to_dict()
         if replication is not None:
-            spec["replication"] = {"replicas": replication.replicas}
+            spec["replication"] = replication.to_dict()
         if priority is not None:
             spec["priority"] = priority
         return cls({

@@ -32,6 +32,13 @@ ANNOTATION_MIGRATE = "notebooks.kubeflow.org/migrate"
 # the session checkpoint its CHECKPOINT_RESTORE_* env names
 ANNOTATION_RESTORED_GENERATION = "notebooks.kubeflow.org/restored-generation"
 ANNOTATION_RESTORED_DIGEST = "notebooks.kubeflow.org/restored-digest"
+# replicated-kernel tier (spec.replication, core/selfheal.py's promote
+# verb): each follower pod's runtime stamps how far it has replayed the
+# checkpoint-delta stream, and the promote verb elects the freshest
+# caught-up follower off these stamps
+ANNOTATION_REPLICA_GENERATION = "notebooks.kubeflow.org/replica-generation"
+ANNOTATION_REPLICA_SEQ = "notebooks.kubeflow.org/replica-seq"
+ANNOTATION_REPLICA_DIGEST = "notebooks.kubeflow.org/replica-digest"
 # the scheduler's all-or-nothing placement intent: JSON {"v": 1,
 # "slices": {"<gang>": {"pool": ..., "nodes": [...]}}}; the renderer turns
 # each gang's pool assignment into a nodeSelector

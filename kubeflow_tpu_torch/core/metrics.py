@@ -4,7 +4,8 @@
 Counters for creations, failures, cullings and cull checkpoints, the
 last-cull timestamp, the first-readiness histogram, the self-healing
 engine's restarts, migrations, checkpoint ages and recovery latency
-(core/selfheal.py), the gang scheduler's attempts, warm-pool claims
+(core/selfheal.py), the replicated tier's promotions, promotion latency
+and fenced writes, the gang scheduler's attempts, warm-pool claims
 and pool census and the tenancy layer's preemptions and queue wait
 (core/scheduler.py, core/preemption.py), and a scraper-style
 gauge that counts running notebooks from the workload StatefulSets
@@ -15,8 +16,7 @@ the reference's `notebook_tpu_chips_requested`.
 
 The reference's other registrations (diagnosis, lifecycle, metering,
 profiler, SLO, data plane, shards) wait for the modules that
-write them (`ROADMAP.md` queue 1 item 16), and the promotion families for
-the replicated tier (item 14).
+write them (`ROADMAP.md` queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -130,6 +130,31 @@ class NotebookMetrics:
             "notebook_migrations_total",
             "Checkpoint/migrate recoveries by trigger and outcome",
             labels=("trigger", "result"),
+        )
+        # replicated-kernel tier (spec.replication and the promote verb):
+        # promotion outcomes (result is the bounded selfheal
+        # PROMOTE_RESULT_* set), the primary-failure -> follower-promoted
+        # latency, and session-store writes the epoch fence rejected (a
+        # demoted primary tried to write after its demotion).  Names,
+        # help strings, labels and buckets are the reference's.
+        self.promotions = self.registry.counter(
+            "notebook_promotions_total",
+            "Primary promotions attempted by the self-healing engine, by "
+            "outcome",
+            labels=("namespace", "result"),
+        )
+        self.promotion_duration_seconds = self.registry.histogram(
+            "notebook_promotion_duration_seconds",
+            "Latency from primary disruption detection to a follower "
+            "promoted (epoch fenced, primary pointer flipped)",
+            labels=("namespace",),
+            buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 15.0, 60.0),
+        )
+        self.replication_fenced_writes = self.registry.counter(
+            "notebook_replication_fenced_writes_total",
+            "Session-store writes rejected by the replication epoch fence "
+            "(zombie primary writing under lost authority)",
+            labels=("namespace",),
         )
         # gang scheduler and warm pool (core/scheduler.py): per-reconcile
         # scheduling outcomes (result is the bounded scheduler.SCHEDULE_*

@@ -22,10 +22,16 @@ intent covers its gang (the gang gate), and until then reads
 `sliceHealth` "Scheduling", or "Queued" while the admission gate parks
 it.
 
+A replicated notebook (`spec.replication`) renders one gang per replica;
+readiness and `sliceHealth` speak for the primary replica's gang only
+(a follower is redundancy, not capacity), `status.replication` is seeded
+`{"epoch": 1, "primary": 0}` and survives every status rewrite, and the
+session store's fenced writes are counted into
+`notebook_replication_fenced_writes_total`.
+
 Not ported yet, and refused when turned on rather than skipped
-(`setup_core_controllers` for a config, the Notebook admission hook for
-a CR), each naming the `ROADMAP.md` queue 1 item that ports it:
-`spec.replication` (item 14) and the Istio VirtualService (item 15).
+(`setup_core_controllers`), naming the `ROADMAP.md` queue 1 item that
+ports it: the Istio VirtualService (item 15).
 """
 
 from __future__ import annotations
@@ -93,16 +99,13 @@ def check_config(cfg: CoreConfig) -> None:
 def _admit_notebook(op: str, old: Optional[KubeObject],
                     obj: KubeObject) -> None:
     """The Notebook's validating admission: a served apiVersion, a valid
-    `spec.gpu`, and no part this port does not run (`spec.replication`)
-    or serve (`spec.tpu`, a TPU slice)."""
+    `spec.gpu` and `spec.replication`, and no part this port does not
+    serve (`spec.tpu`, a TPU slice)."""
     group, _, version = obj.api_version.partition("/")
     if group != "kubeflow.org" or version not in API_VERSIONS:
         raise AdmissionDenied(
             f"Notebook apiVersion {obj.api_version!r} not served")
     spec = obj.body.get("spec") or {}
-    if spec.get("replication"):
-        raise AdmissionDenied(not_ported(
-            "spec.replication", 14, "the replicated-kernel tier"))
     if spec.get("tpu"):
         raise AdmissionDenied(
             "spec.tpu: this controller runs GPU gangs (spec.gpu); TPU "
@@ -112,11 +115,17 @@ def _admit_notebook(op: str, old: Optional[KubeObject],
         raise AdmissionDenied(
             f"invalid Notebook: spec.priority must be one of "
             f"{sorted(PRIORITY_RANK)}, got {nb.priority!r}")
-    if nb.gpu is not None:
-        try:
+    try:
+        if nb.gpu is not None:
             nb.gpu.validate()
-        except SpecError as e:
-            raise AdmissionDenied(f"invalid Notebook: {e}") from None
+        if nb.replication is not None:
+            if nb.gpu is None:
+                raise SpecError(
+                    "spec.replication requires spec.gpu (replicated CPU "
+                    "notebooks are not supported)")
+            nb.replication.validate()
+    except SpecError as e:
+        raise AdmissionDenied(f"invalid Notebook: {e}") from None
 
 
 def workload_config(cfg: CoreConfig) -> WorkloadConfig:
@@ -154,6 +163,12 @@ class NotebookReconciler:
         if session is None and cfg.checkpoint_store_uri:
             session = open_store(cfg.checkpoint_store_uri, clock=self.clock)
         self.session = session
+        # every fence rejection (a demoted primary still trying to write)
+        # is counted: the zombie was stopped, not merely absent
+        if session is not None:
+            session.on_fenced_write = (
+                lambda ns, _name: metrics.replication_fenced_writes
+                .labels(ns).inc())
         # gang-atomic self-healing, its bookkeeping persisted on the CR
         self.recovery = RecoveryEngine(api, cfg, metrics, self.recorder,
                                        clock=self.clock, cache=cache,
@@ -412,13 +427,22 @@ class NotebookReconciler:
         expected_hosts = gpu.validate().num_hosts if gpu else 1
         annotations = obj.metadata.annotations
 
-        first_sts_name = live_names[0] if live_names else nb.name
-        for live_name in live_names:
+        # replication: readiness and health speak for the primary replica
+        # only (a degraded follower must never flip a healthy primary's
+        # notebook to Degraded); every replica's pods still land in
+        # workerStates.  live_names is replica-major, one gang a replica.
+        rep_spec = nb.replication
+        primary = int((nb.status.get("replication") or {}).get(
+            "primary", 0)) if rep_spec is not None else 0
+        first_sts_name = live_names[primary] \
+            if primary < len(live_names) else (
+                live_names[0] if live_names else nb.name)
+        for idx, live_name in enumerate(live_names):
             if self.cache is not None:
                 sts = self.cache.get("StatefulSet", nb.namespace, live_name)
             else:
                 sts = self.api.try_get("StatefulSet", nb.namespace, live_name)
-            if sts is not None:
+            if sts is not None and (rep_spec is None or idx == primary):
                 ready += int(sts.status.get("readyReplicas", 0) or 0)
             if gpu is not None:
                 for pod in sorted(self._pods_of(nb, live_name),
@@ -484,6 +508,14 @@ class NotebookReconciler:
             if cond.get("type") == CONDITION_RECOVERY_EXHAUSTED:
                 conditions.append(copy.deepcopy(cond))
 
+        # the replication authority record (epoch, primary, the
+        # write-ahead promotion record) survives every status rewrite:
+        # dropping it would reset the epoch and unfence a demoted primary.
+        # It is seeded here, so it exists before a promotion compares on it
+        replication = copy.deepcopy(nb.status.get("replication"))
+        if rep_spec is not None and replication is None:
+            replication = {"epoch": 1, "primary": 0}
+
         slice_health = None
         if gpu is not None:
             if C.STOP_ANNOTATION in annotations:
@@ -512,7 +544,7 @@ class NotebookReconciler:
             slice_health=slice_health,
             slice_recovery=nb.status.get("sliceRecovery"),
             session_state=nb.status.get("sessionState"),
-            replication=nb.status.get("replication"),
+            replication=replication,
         )
 
         prev_status = nb.status or {}
@@ -582,9 +614,20 @@ class NotebookReconciler:
 
         def write() -> None:
             live = self.api.get("Notebook", nb.namespace, nb.name)
-            if live.body.get("status") == status:
+            new_status = status
+            # the epoch-regression guard: a promotion may have advanced
+            # status.replication since this pass read it, and writing the
+            # stale copy would roll the epoch back and unfence a demoted
+            # primary; the newest record by epoch wins (ties to the live
+            # object, which is at least as new)
+            live_rep = (live.body.get("status") or {}).get("replication")
+            if replication is not None and live_rep is not None and \
+                    live_rep.get("epoch", 0) >= replication.get("epoch", 0):
+                new_status = dict(status)
+                new_status["replication"] = copy.deepcopy(live_rep)
+            if live.body.get("status") == new_status:
                 return
-            live.status = status
+            live.status = new_status
             self.api.update_status(live)
 
         retry_on_conflict(write)

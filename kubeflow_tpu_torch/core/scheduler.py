@@ -45,9 +45,12 @@ Where the reference counts TPU chips, this module counts GPUs
 one gang (index 0) per replica where the reference has `spec.tpu.slices`
 slices; the status keys, metric names, event reasons and the
 slice-named constants are the reference's, and messages read "gang".
-Replication's anti-affinity comes with `spec.replication` (`ROADMAP.md`
-queue 1 item 14), which admission refuses today.  Everything is timed
-off the injected Clock, so the subsystem is FakeClock-exact.
+A replicated notebook (`spec.replication`) places one gang per replica;
+under `antiAffine` replica R's gang lands on a node pool that no other
+replica's gang uses, so one pool failure cannot take the primary and its
+follower together, and the verdict is rebuilt from the claims already
+held, so it survives crash recovery.  Everything is timed off the
+injected Clock, so the subsystem is FakeClock-exact.
 """
 
 from __future__ import annotations
@@ -368,7 +371,8 @@ class SliceScheduler:
                 return self._release(nb, shape, span)
             rep = nb.replication
             return self._place(nb, shape, span,
-                               replicas=rep.replicas if rep else 1)
+                               replicas=rep.replicas if rep else 1,
+                               anti_affine=bool(rep and rep.anti_affine))
 
     def _event(self, nb: Notebook, etype: str, reason: str,
                message: str) -> None:
@@ -377,9 +381,11 @@ class SliceScheduler:
 
     # -- placement -------------------------------------------------------------
     def _place(self, nb: Notebook, shape: GpuShape, span,
-               replicas: int = 1) -> Result:
+               replicas: int = 1, anti_affine: bool = False) -> Result:
         """Place every gang of the notebook, one per replica (flat gang
-        index = replica index, the renderer's)."""
+        index = replica index, the renderer's).  With `anti_affine`
+        (replicated notebooks) each replica's gang lands on a node pool
+        that no other replica's gang occupies."""
         key = f"{nb.namespace}/{nb.name}"
         total_gangs = max(replicas, 1)
         # tenancy admission gate: before any claim is written, a gang over
@@ -427,13 +433,40 @@ class SliceScheduler:
                 else:
                     self._release_entry(slices, sid)  # stale (scale-in)
 
-            def ready_unclaimed() -> Optional[str]:
+            # the pools each replica's gang already occupies (adopted
+            # claims count: the anti-affinity verdict survives crash
+            # recovery); a replica's gang index is the replica's
+            pools_by_replica: dict[int, set[str]] = {}
+            for idx, sid in assignments.items():
+                pool = slices[sid].get("pool", "")
+                if pool:
+                    pools_by_replica.setdefault(idx, set()).add(pool)
+
+            def foreign_pools(gang: int) -> set[str]:
+                if not anti_affine:
+                    return set()
+                return {p for r, ps in pools_by_replica.items()
+                        if r != gang for p in ps}
+
+            def claim(idx: int, sid: str) -> None:
+                assignments[idx] = sid
+                pools_by_replica.setdefault(idx, set()).add(
+                    slices[sid].get("pool", ""))
+
+            def ready_unclaimed(idx: int) -> Optional[str]:
+                excluded = foreign_pools(idx)
                 return next(
                     (s for s in sorted(slices)
                      if slices[s].get("state") == C.WARMSLICE_READY
                      and not slices[s].get("claimedBy")
-                     and not slices[s].get("external")),
+                     and not slices[s].get("external")
+                     and slices[s].get("pool", "") not in excluded),
                     None)
+
+            def inventory(idx: int) -> list[NodeCapacity]:
+                excluded = foreign_pools(idx)
+                return [n for n in self._inventory(shape, st)
+                        if n.pool not in excluded]
 
             def external_claim(idx: int, gp: GangPlacement) -> str:
                 st["seq"] += 1
@@ -457,7 +490,7 @@ class SliceScheduler:
                         # was written (a release, or a preemption for this
                         # very gang) serves it now; no hit/miss accounting,
                         # the miss was counted with the reservation
-                        swap = ready_unclaimed()
+                        swap = ready_unclaimed(idx)
                         if swap is not None:
                             del slices[sid]
                             slices[swap].update({
@@ -465,44 +498,46 @@ class SliceScheduler:
                                 "claimedBy": key,
                                 "claimedSlice": idx,
                             })
-                            assignments[idx] = swap
+                            claim(idx, swap)
                             continue
                         # no Ready gang, but unmanaged capacity may have
                         # freed (a bypass-placed victim's external claim
                         # vanishes on release): retry bypass, so that a
                         # preemption hands the GPUs over now
-                        gp = self.policy.place(shape,
-                                               self._inventory(shape, st))
+                        gp = self.policy.place(shape, inventory(idx))
                         if gp is not None:
                             del slices[sid]
-                            assignments[idx] = external_claim(idx, gp)
+                            claim(idx, external_claim(idx, gp))
                         else:
                             waiting = True
                     elif e.get("state") == C.WARMSLICE_READY:
                         e["state"] = C.WARMSLICE_CLAIMED
                     continue
-                # warm claim: the lowest-id Ready unclaimed pool gang
-                cand = ready_unclaimed()
+                # warm claim: the lowest-id Ready unclaimed pool gang on
+                # a pool no other replica occupies
+                cand = ready_unclaimed(idx)
                 if cand is not None:
                     slices[cand].update({
                         "state": C.WARMSLICE_CLAIMED,
                         "claimedBy": key,
                         "claimedSlice": idx,
                     })
-                    assignments[idx] = cand
+                    claim(idx, cand)
                     st["hits"] += 1
                     claims[CLAIM_HIT] += 1
                     continue
                 # bypass: cost-function placement on pre-existing capacity
-                # outside any warm pool
-                gp = self.policy.place(shape, self._inventory(shape, st))
+                # outside any warm pool (and outside other replicas' pools)
+                gp = self.policy.place(shape, inventory(idx))
                 if gp is not None:
-                    assignments[idx] = external_claim(idx, gp)
+                    claim(idx, external_claim(idx, gp))
                     st["bypass"] += 1
                     claims[CLAIM_BYPASS] += 1
                     continue
                 # cold path: reserve a dedicated gang, provisioned by the
-                # WarmPoolController once readyAt passes
+                # WarmPoolController once readyAt passes (the generated
+                # pool name is unique per reservation, so cold replicas
+                # are anti-affine by construction)
                 st["seq"] += 1
                 sid = f"ws-{st['seq']:04d}"
                 slices[sid] = {
@@ -514,7 +549,7 @@ class SliceScheduler:
                     "claimedBy": key,
                     "claimedSlice": idx,
                 }
-                assignments[idx] = sid
+                claim(idx, sid)
                 st["misses"] += 1
                 claims[CLAIM_MISS] += 1
                 waiting = True

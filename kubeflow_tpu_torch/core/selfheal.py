@@ -33,16 +33,34 @@ rendezvous re-forms only when every rank restarts.  So:
   precedence: cull > preempt > migrate > restart: a gang the tenancy
   layer queued (core/scheduler.py, core/preemption.py) is left alone.
 
+- For a replicated notebook (`spec.replication`: one primary gang and
+  follower gangs replaying the checkpoint-delta stream of
+  core/sessionstate.py) the engine prefers the `promote` verb over both:
+  a failure of the primary's gang elects the freshest caught-up follower
+  (follower pods stamp how far they have replayed,
+  ANNOTATION_REPLICA_GENERATION/SEQ) and flips the primary pointer in
+  `status.replication` under epoch fencing.  The order is the
+  guarantee: the write-ahead promotion record (phase "promoting") lands
+  with the bumped epoch in one status commit, then the session store's
+  write fence rises to the new epoch, and only then is the new primary
+  named (phase "promoted").  The fence raise is the linearization
+  point: a demoted primary's write either landed before it, and the
+  promoted follower replayed it, or raises StaleWriterError and was
+  never acked.  A crash between any two steps resumes from the record
+  (the fence is a monotonic max).  The demoted gang heals as a follower
+  through the ordinary restart budget; migrate is never used for a
+  replicated notebook (the delta stream is the migration).
+
 All bookkeeping (attempt stamps, last restart, backoff deadline,
-disruption stamp, exhaustion, the restore intent) lives in
-`status.sliceRecovery` / `status.sessionState` on the CR, under the
-reference's names, so a manager failover resumes the budget and any
-migration in flight.  It is written before any pod delete.  A GPU
-notebook has one gang, gang 0, where the reference has `spec.tpu.slices`
-slices; the status keys, metric names and event reasons are the
-reference's.  The promote verb (`spec.replication`, `ROADMAP.md` queue 1
-item 14) is not ported: admission refuses `spec.replication`, so the
-engine never sees a replicated notebook.
+disruption stamp, exhaustion, the restore intent, the promotion record)
+lives in `status.sliceRecovery` / `status.sessionState` /
+`status.replication` on the CR, under the reference's names, so a
+manager failover resumes the budget and any migration or promotion in
+flight.  It is written before any pod delete.  A GPU notebook has one
+gang per replica (gang r is replica r's; its session state is slice 0)
+where the reference has `spec.tpu.slices` slices per replica; the status
+keys, metric names and event reasons are the reference's, and messages
+read "gang".
 """
 
 from __future__ import annotations
@@ -96,6 +114,13 @@ MIGRATE_RESULT_RESTORED = "restored"          # gang Healthy after restore
 MIGRATE_RESULT_FALLBACK = "fallback-restart"  # stale/absent ckpt -> bare
 MIGRATE_RESULT_SKIPPED = "skipped"            # voluntary without a ckpt
 
+# the promote verb (replicated notebooks): the internal verb tag and the
+# bounded result set labelling notebook_promotions_total{result}
+VERB_PROMOTE = "promote"
+PROMOTE_RESULT_PROMOTED = "promoted"        # follower elected and flipped
+PROMOTE_RESULT_LOST_RACE = "lost-race"      # another promoter committed first
+PROMOTE_RESULT_NO_CANDIDATE = "no-candidate"  # no caught-up follower
+
 # event reasons (kubectl describe notebook), the reference's
 EVENT_SLICE_RECOVERY = "SliceRecovery"
 EVENT_RECOVERY_EXHAUSTED = "RecoveryExhausted"
@@ -103,6 +128,7 @@ EVENT_RECOVERY_RESTORED = "RecoveryRestored"
 EVENT_SLICE_MIGRATION = "SliceMigration"
 EVENT_MIGRATION_COMPLETE = "MigrationComplete"
 EVENT_MIGRATION_SKIPPED = "MigrationSkipped"
+EVENT_PRIMARY_PROMOTED = "PrimaryPromoted"
 
 
 class SliceRestartError(Exception):
@@ -170,6 +196,30 @@ def node_drained(pod: KubeObject, api: ApiServer,
     return bool(node is not None and node.spec.get("unschedulable"))
 
 
+def _replica_freshness(pods: list[KubeObject]) -> Optional[tuple[int, int,
+                                                                 str]]:
+    """How far one replica gang has replayed the checkpoint-delta stream,
+    from the ANNOTATION_REPLICA_* stamps its runtime writes: its slowest
+    worker's (generation, seq), since a gang is only as caught up as its
+    laggard; one unstamped worker makes the gang unknown (None), because
+    an election needs positive evidence."""
+    worst: Optional[tuple[int, int, str]] = None
+    for pod in pods:
+        ann = pod.metadata.annotations
+        gen_raw = ann.get(C.ANNOTATION_REPLICA_GENERATION)
+        seq_raw = ann.get(C.ANNOTATION_REPLICA_SEQ)
+        if gen_raw is None or seq_raw is None:
+            return None
+        try:
+            cur = (int(gen_raw), int(seq_raw),
+                   ann.get(C.ANNOTATION_REPLICA_DIGEST, ""))
+        except ValueError:
+            return None
+        if worst is None or cur[:2] < worst[:2]:
+            worst = cur
+    return worst
+
+
 class RecoveryEngine:
     """Budgeted gang-atomic recovery, driven from the notebook reconcile.
 
@@ -216,7 +266,8 @@ class RecoveryEngine:
     ) -> float:
         """One recovery pass; returns the requeue-after hint in seconds
         (0.0 = nothing scheduled).  `live_names` holds the gang's live
-        StatefulSet; `restart_slice` deletes every pod of the named
+        StatefulSet, or for a replicated notebook every replica's, in
+        replica order; `restart_slice` deletes every pod of the named
         StatefulSet, aggregating errors; `stamp_restore(live_name, idx)`
         syncs the live StatefulSet template with the restore intent just
         written, so the recreated pods boot with the CHECKPOINT_RESTORE_*
@@ -224,6 +275,9 @@ class RecoveryEngine:
         gpu = nb.gpu
         if gpu is None or not self.cfg.enable_self_healing:
             return 0.0
+        rep_spec = nb.replication
+        # one gang per replica: the reference's slices per replica
+        num_slices = 1
         reader = self.cache if self.cache is not None else self.api
         live = reader.try_get("Notebook", nb.namespace, nb.name)
         if live is None or live.metadata.deletion_timestamp is not None:
@@ -266,8 +320,11 @@ class RecoveryEngine:
         num_hosts = gpu.validate().num_hosts
         node_cache: dict[str, Optional[KubeObject]] = {}
         detections: list[tuple] = []
+        gang_fresh: dict[int, Optional[tuple[int, int, str]]] = {}
         for idx, live_name in enumerate(live_names):
             pods = sorted(pods_of(live_name), key=lambda p: p.name)
+            if rep_spec is not None:
+                gang_fresh[idx] = _replica_freshness(pods)
             reasons: list[tuple[str, str]] = []
             pending = False
             ready = 0
@@ -305,12 +362,34 @@ class RecoveryEngine:
             detections.append((idx, live_name, reasons, pending, healthy,
                                trigger, stale_session))
 
+        # -- replicated tier: the followers' record and the promotion ---------
+        replication = None
+        prev_replication = None
+        promote_entry = None
+        no_candidate = False
+        skip_gangs: set[int] = set()
+        primary_replica = 0
+        if rep_spec is not None:
+            replication = copy.deepcopy(status.get("replication") or {})
+            prev_replication = copy.deepcopy(replication)
+            replication.setdefault("epoch", 1)
+            replication.setdefault("primary", 0)
+            primary_replica = replication["primary"]
+            self._record_followers(rep_spec, num_slices, detections,
+                                   gang_fresh, replication)
+            promote_entry, skip_gangs, no_candidate = \
+                self._promotion_decision(nb, rep_spec, num_slices,
+                                         detections, gang_fresh,
+                                         replication, recovery)
+
         migrating_inflight = any(
             s.get("phase") == "migrating" for s in session_state.values())
         if not recovery and not migrating_inflight and not any(
                 reasons or pending or trigger
                 for _, _, reasons, pending, _, trigger, _ in detections):
-            return 0.0
+            if promote_entry is None and \
+                    (replication is None or replication == prev_replication):
+                return 0.0
 
         # -- pass 2: decisions, under the `recover` phase span ----------------
         now = self.clock.now()
@@ -322,12 +401,32 @@ class RecoveryEngine:
             "recover", {"phase": "recover", "namespace": nb.namespace,
                         "notebook": nb.name}
         ) as span:
+            if promote_entry is not None:
+                # first in the verb queue: the promotion record must land,
+                # and the fence rise, before any gang of this pass dies
+                restarts.append(promote_entry)
+                requeue = _merge_requeue(
+                    requeue, self.cfg.recovery_backoff_base_s)
+            if no_candidate:
+                # the primary is disrupted but no caught-up follower can
+                # be elected: the ordinary restart verbs below take over
+                self.metrics.promotions.labels(
+                    nb.namespace, PROMOTE_RESULT_NO_CANDIDATE).inc()
+                span.add_event("promote.no_candidate", {
+                    "primary": primary_replica})
             for idx, live_name, reasons, pending, healthy, trigger, \
                     stale_session in detections:
+                if idx in skip_gangs:
+                    # the gang demoted this pass: the promotion replaces
+                    # its restart; it heals as a follower from the next
+                    continue
                 requeue = _merge_requeue(requeue, self._slice_pass(
                     nb, idx, live_name, reasons, pending, healthy, trigger,
                     stale_session, recovery, session_state, restarts,
-                    events, notes, span, now))
+                    events, notes, span, now,
+                    allow_migrate=rep_spec is None,
+                    observe_recovery=rep_spec is None or
+                    idx // num_slices == primary_replica))
 
             # drop entries that emptied out, so the persisted bookkeeping
             # stays minimal and the no-op check stays meaningful
@@ -342,13 +441,17 @@ class RecoveryEngine:
             # unconditional (the unchanged check lives inside), so it
             # comes before every restart.
             self._write_bookkeeping(nb, recovery, exhausted, session_state,
+                                    replication=replication,
                                     skip_if_unchanged=(prev_recovery,
-                                                       prev_session))
+                                                       prev_session,
+                                                       prev_replication))
             for etype, reason, message in events:
                 self._event(nb, etype, reason, message)
 
             for entry in restarts:
-                if entry["verb"] == REASON_MIGRATE:
+                if entry["verb"] == VERB_PROMOTE:
+                    self._execute_promote(nb, entry)
+                elif entry["verb"] == REASON_MIGRATE:
                     self._execute_migrate(nb, entry, stamp_restore,
                                           restart_slice)
                 else:
@@ -361,6 +464,243 @@ class RecoveryEngine:
             if ann_trigger and not notes["deferred"]:
                 self._clear_migrate_annotation(nb)
         return requeue
+
+    # -- replicated tier ------------------------------------------------------
+    def _record_followers(self, rep_spec, num_slices, detections,
+                          gang_fresh, replication) -> None:
+        """Mirror each follower's readiness and catch-up freshness into
+        status.replication.followers: the operator's view of how hot each
+        standby is."""
+        p = replication["primary"]
+        followers: dict = {}
+        for r in range(rep_spec.replicas):
+            if r == p:
+                continue
+            rec: dict = {"ready": True, "slices": {}}
+            for s in range(num_slices):
+                g = r * num_slices + s
+                if g >= len(detections) or not detections[g][4]:
+                    rec["ready"] = False
+                if g < len(detections):
+                    fresh = gang_fresh.get(g)
+                    if fresh is not None:
+                        rec["slices"][str(s)] = {
+                            "generation": fresh[0], "seq": fresh[1],
+                            "digest": fresh[2]}
+            followers[str(r)] = rec
+        replication["followers"] = followers
+
+    def _promotion_decision(self, nb, rep_spec, num_slices, detections,
+                            gang_fresh, replication,
+                            recovery) -> tuple[Optional[dict], set[int],
+                                               bool]:
+        """The promote verb's decision for this pass: (promote entry or
+        None, the gangs whose restart the promotion replaces this pass,
+        the no-candidate flag).  A promotion record in flight (phase
+        "promoting": a crash between the record and the flip) resumes
+        ahead of any new election."""
+        p = replication["primary"]
+        promo = replication.get("promotion") or {}
+        if promo.get("phase") == "promoting":
+            started = promo.get("startedAt")
+            entry = {
+                "verb": VERB_PROMOTE, "resume": True,
+                "epoch": promo["epoch"], "from": promo["from"],
+                "to": promo["to"], "reason": promo.get("reason", ""),
+                "disrupted_at": parse_iso(started) if started else None,
+            }
+            skip = set(range(promo["from"] * num_slices,
+                             (promo["from"] + 1) * num_slices))
+            return entry, skip, False
+        primary_gangs = range(p * num_slices, (p + 1) * num_slices)
+        primary_reasons = [
+            det[2] for det in detections
+            if det[0] in primary_gangs and det[2]]
+        if not primary_reasons:
+            return None, set(), False
+        if self.session is None:
+            # no delta stream to check the catch-up against: a promotion
+            # would be a guess, so the ordinary verbs take over
+            return None, set(), True
+        best: Optional[tuple[tuple, int]] = None
+        for r in range(rep_spec.replicas):
+            if r == p:
+                continue
+            score = self._candidate_score(nb, r, num_slices, detections,
+                                          gang_fresh)
+            if score is None:
+                continue
+            if best is None or score > best[0]:
+                best = (score, r)
+        if best is None:
+            return None, set(), True
+        # the duration's anchor: the earliest disruption stamp among the
+        # primary's gangs (a pass delayed by backoff keeps charging the
+        # same incident), else this detection
+        disrupted_at = None
+        for g in primary_gangs:
+            st = recovery.get(str(g)) or {}
+            if st.get("disruptedAt"):
+                t = parse_iso(st["disruptedAt"])
+                disrupted_at = t if disrupted_at is None \
+                    else min(disrupted_at, t)
+        entry = {
+            "verb": VERB_PROMOTE, "resume": False,
+            "epoch": replication["epoch"] + 1,
+            "from": p, "to": best[1],
+            "reason": primary_reasons[0][0][1],
+            "disrupted_at": disrupted_at if disrupted_at is not None
+            else self.clock.now(),
+        }
+        return entry, set(primary_gangs), False
+
+    def _candidate_score(self, nb, r, num_slices, detections,
+                         gang_fresh) -> Optional[tuple]:
+        """Follower replica r's election score, its per-gang (generation,
+        seq) freshness, or None when a gang is unhealthy, unstamped, or
+        trails the chain head by more than REPLICATION_MAX_LAG (a missing
+        stamp never reads as caught up)."""
+        score = []
+        for s in range(num_slices):
+            g = r * num_slices + s
+            if g >= len(detections) or not detections[g][4]:
+                return None
+            fresh = gang_fresh.get(g)
+            if fresh is None:
+                return None
+            head = self.session.chain_head(nb.namespace, nb.name, s)
+            if head is None:
+                return None
+            gen, seq, _digest = fresh
+            head_gen, head_seq, _head_digest = head
+            lag = (1 + head_seq) if gen != head_gen \
+                else max(head_seq - seq, 0)
+            if lag > self.cfg.replication_max_lag:
+                return None
+            score.append((gen, seq))
+        return tuple(score)
+
+    def _execute_promote(self, nb, entry) -> None:
+        """The promote verb, under its own `replication.promote` phase
+        span.  The order is the guarantee:
+
+        1. commit the write-ahead promotion record, with the epoch bumped
+           in the same status write (a compare on the old epoch: a
+           racing promoter loses cleanly);
+        2. raise the session store's write fence to the new epoch, after
+           which the demoted primary cannot ack a write;
+        3. commit the flip: the new primary named, phase "promoted".
+
+        A crash between any two steps resumes from the record
+        (entry["resume"]): step 2 is a monotonic max and step 3 checks
+        the record before it flips."""
+        with _TRACER.start_span("replication.promote", {
+            "phase": "promote", "namespace": nb.namespace,
+            "notebook": nb.name, "epoch": entry["epoch"],
+            "from": entry["from"], "to": entry["to"],
+        }) as span:
+            if not entry.get("resume"):
+                if not self._commit_promotion_record(nb, entry):
+                    span.add_event("promote.lost_race", {
+                        "epoch": entry["epoch"]})
+                    self.metrics.promotions.labels(
+                        nb.namespace, PROMOTE_RESULT_LOST_RACE).inc()
+                    return
+            if self.session is not None:
+                self.session.fence(nb.namespace, nb.name, entry["epoch"])
+                span.add_event("promote.fenced", {
+                    "epoch": entry["epoch"]})
+            if not self._commit_promotion_flip(nb, entry):
+                self.metrics.promotions.labels(
+                    nb.namespace, PROMOTE_RESULT_LOST_RACE).inc()
+                return
+            duration = 0.0
+            if entry.get("disrupted_at") is not None:
+                duration = max(
+                    self.clock.now() - entry["disrupted_at"], 0.0)
+            tid = span.trace_id
+            exemplar = {"trace_id": tid} if tid else None
+            self.metrics.disruption_recovery_seconds.labels(
+                nb.namespace).observe(duration, exemplar=exemplar)
+            self.metrics.promotion_duration_seconds.labels(
+                nb.namespace).observe(duration, exemplar=exemplar)
+            self.metrics.promotions.labels(
+                nb.namespace, PROMOTE_RESULT_PROMOTED).inc()
+            span.add_event("promote.complete", {
+                "epoch": entry["epoch"], "to": entry["to"],
+                "seconds": duration})
+            self._event(
+                nb, "Normal", EVENT_PRIMARY_PROMOTED,
+                "promoted replica %d to primary (epoch %d) after %s on "
+                "replica %d; demoted gang rejoins as follower" % (
+                    entry["to"], entry["epoch"],
+                    entry["reason"] or "disruption", entry["from"]))
+
+    def _commit_promotion_record(self, nb, entry) -> bool:
+        """The write-ahead half: the epoch bump and the promotion record
+        in one status commit, guarded on the epoch and primary the
+        election read, so one promoter per epoch wins."""
+        committed = {"ok": False}
+
+        def write() -> None:
+            committed["ok"] = False
+            try:
+                live = self.api.get("Notebook", nb.namespace, nb.name)
+            except NotFoundError:
+                return
+            st = live.body.setdefault("status", {})
+            rep = copy.deepcopy(st.get("replication") or {})
+            if rep.get("epoch", 1) != entry["epoch"] - 1 or \
+                    rep.get("primary", 0) != entry["from"]:
+                return  # another promoter moved the authority first
+            rep["epoch"] = entry["epoch"]
+            rep["promotion"] = {
+                "epoch": entry["epoch"],
+                "from": entry["from"],
+                "to": entry["to"],
+                "phase": "promoting",
+                "reason": entry["reason"],
+                "startedAt": self.clock.now_iso(),
+            }
+            st["replication"] = rep
+            self.api.update_status(live)
+            committed["ok"] = True
+
+        retry_on_conflict(write)
+        return committed["ok"]
+
+    def _commit_promotion_flip(self, nb, entry) -> bool:
+        """The completion half: name the new primary and close the record,
+        after checking that the committed record is still this one (epoch
+        and target)."""
+        done = {"ok": False}
+
+        def write() -> None:
+            done["ok"] = False
+            try:
+                live = self.api.get("Notebook", nb.namespace, nb.name)
+            except NotFoundError:
+                return
+            st = live.body.setdefault("status", {})
+            rep = copy.deepcopy(st.get("replication") or {})
+            promo = rep.get("promotion") or {}
+            if rep.get("epoch") != entry["epoch"] or \
+                    promo.get("to") != entry["to"]:
+                return  # superseded by a later promotion
+            if promo.get("phase") == "promoted" and \
+                    rep.get("primary") == entry["to"]:
+                done["ok"] = True  # the resume found it complete
+                return
+            rep["primary"] = entry["to"]
+            promo["phase"] = "promoted"
+            promo["completedAt"] = self.clock.now_iso()
+            rep["promotion"] = promo
+            st["replication"] = rep
+            self.api.update_status(live)
+            done["ok"] = True
+
+        retry_on_conflict(write)
+        return done["ok"]
 
     # -- verb execution -------------------------------------------------------
     def _execute_restart(self, nb, entry, span, stamp_restore,
@@ -435,7 +775,16 @@ class RecoveryEngine:
     # -- per-gang decision ----------------------------------------------------
     def _slice_pass(self, nb, idx, live_name, reasons, pending, healthy,
                     trigger, stale_session, recovery, session_state,
-                    restarts, events, notes, span, now) -> float:
+                    restarts, events, notes, span, now, *,
+                    allow_migrate: bool = True,
+                    observe_recovery: bool = True) -> float:
+        # `allow_migrate=False` (replicated notebooks) forces the bare
+        # restart: the delta stream is the migration, and a failed or
+        # demoted follower gang restarts and catches up.
+        # `observe_recovery=False` keeps a follower gang's repair out of
+        # notebook_disruption_recovery_seconds: for a replicated notebook
+        # only the primary's recoveries (and promotions) are disruptions
+        # a user sees.
         key = str(idx)
         state = recovery.get(key, {})
         session = session_state.get(key, {})
@@ -472,7 +821,8 @@ class RecoveryEngine:
                 self._migration_restored(idx, session, events, span)
                 session_state[key] = session
             if healthy and state:
-                self._slice_recovered(nb, idx, state, events, span, now)
+                self._slice_recovered(nb, idx, state, events, span, now,
+                                      observe_recovery=observe_recovery)
                 if state:
                     recovery[key] = state
                 else:
@@ -540,7 +890,7 @@ class RecoveryEngine:
             return 0.0
 
         # verb decision: migrate when a usable checkpoint can be secured
-        use_session = self.session is not None
+        use_session = self.session is not None and allow_migrate
         snap = None
         ckpt_age = 0.0
         if use_session:
@@ -654,13 +1004,16 @@ class RecoveryEngine:
             "gang %d restored session checkpoint generation %s after "
             "migration" % (idx, session.get("restoreGeneration"))))
 
-    def _slice_recovered(self, nb, idx, state, events, span, now) -> None:
+    def _slice_recovered(self, nb, idx, state, events, span, now, *,
+                         observe_recovery: bool = True) -> None:
         """The disruption is over: observe the detection -> Healthy latency
         once and drop the transient fields.  Attempt stamps stay and age
         out of the window (the flap guard), except after exhaustion,
         where a Healthy gang means an operator fixed it and earns a fresh
-        budget."""
-        if state.get("disruptedAt"):
+        budget.  `observe_recovery=False` (a replicated notebook's
+        follower gang) heals the bookkeeping without charging the
+        disruption histogram."""
+        if observe_recovery and state.get("disruptedAt"):
             duration = max(now - parse_iso(state["disruptedAt"]), 0.0)
             tid = span.trace_id
             self.metrics.disruption_recovery_seconds.labels(
@@ -689,17 +1042,21 @@ class RecoveryEngine:
     def _write_bookkeeping(self, nb: Notebook, recovery: dict,
                            exhausted: Optional[list[str]] = None,
                            session_state: Optional[dict] = None,
+                           replication: Optional[dict] = None,
                            skip_if_unchanged: Optional[tuple] = None) -> None:
-        """Persist status.sliceRecovery and status.sessionState (and the
+        """Persist status.sliceRecovery and status.sessionState (the
+        followers' half of status.replication too, and the
         RecoveryExhausted condition) with conflict retry, before any pod
         delete of the same pass.  `session_state` None leaves
         status.sessionState as it is (the Stopped cleanup drops only the
-        budget: the pre-cull checkpoint record survives).
-        `skip_if_unchanged=(prev_recovery, prev_session)` makes an
-        unchanged write a no-op."""
+        budget: the pre-cull checkpoint record survives); `replication`
+        None likewise.  `skip_if_unchanged=(prev_recovery, prev_session[,
+        prev_replication])` makes an unchanged write a no-op."""
         if skip_if_unchanged is not None and \
                 recovery == skip_if_unchanged[0] and \
-                session_state == skip_if_unchanged[1]:
+                session_state == skip_if_unchanged[1] and \
+                (len(skip_if_unchanged) < 3 or
+                 replication == skip_if_unchanged[2]):
             return
         exhausted = exhausted or []
 
@@ -718,6 +1075,16 @@ class RecoveryEngine:
                     st["sessionState"] = copy.deepcopy(session_state)
                 else:
                     st.pop("sessionState", None)
+            if replication is not None:
+                # the epoch-regression guard: a promoter may have bumped
+                # the authority between this pass's read and this write,
+                # and the followers' record must never roll back the
+                # epoch, the primary or the promotion record
+                live_rep = st.get("replication") or {}
+                if live_rep.get("epoch", 0) <= replication.get("epoch", 1):
+                    merged = copy.deepcopy(live_rep)
+                    merged.update(copy.deepcopy(replication))
+                    st["replication"] = merged
             conds = list(st.get("conditions") or [])
             existing = next(
                 (c for c in conds
@@ -775,6 +1142,7 @@ def _iso_at(t: float) -> str:
 __all__ = [
     "EVENT_MIGRATION_COMPLETE",
     "EVENT_MIGRATION_SKIPPED",
+    "EVENT_PRIMARY_PROMOTED",
     "EVENT_RECOVERY_EXHAUSTED",
     "EVENT_RECOVERY_RESTORED",
     "EVENT_SLICE_MIGRATION",
@@ -788,6 +1156,9 @@ __all__ = [
     "MIGRATE_TRIGGER_FAILURE",
     "MIGRATE_TRIGGER_NODE_DRAIN",
     "PENDING",
+    "PROMOTE_RESULT_LOST_RACE",
+    "PROMOTE_RESULT_NO_CANDIDATE",
+    "PROMOTE_RESULT_PROMOTED",
     "REASON_CRASH_LOOP",
     "REASON_MIGRATE",
     "REASON_NODE_GONE",
@@ -795,6 +1166,7 @@ __all__ = [
     "REASON_POD_FAILED",
     "RecoveryEngine",
     "SliceRestartError",
+    "VERB_PROMOTE",
     "classify_worker",
     "node_drained",
 ]

@@ -25,8 +25,8 @@ microbatch counts (`microbatches`).  It prints one `ok` line per mesh.
 The per-rank workers live here, so spawned processes import this package
 and nothing else.  `sharded_step` is also what the tests run on their
 own meshes, from this proxy's weights or from converted ones, and
-`tensor_decode` runs tensor-parallel greedy decode (`generate(mesh=)`)
-on a tensor mesh of the launch's ranks.
+`mesh_decode` runs greedy or sampled decode (`generate(mesh=)`) on a
+list of meshes of the launch's ranks, any axis populated.
 """
 
 from __future__ import annotations
@@ -234,36 +234,48 @@ def run_meshes(cfg: TransformerConfig, meshes: list, batch: dict,
             for m, schedule in meshes]
 
 
-def tensor_decode(cases: list, prompt: torch.Tensor, new_tokens: int
-                  ) -> list:
-    """One rank of tensor-parallel greedy decode on the CPU, at a tensor
-    degree of the world size: for each (cfg, tree) of `cases` (a
-    training config and a reference-layout tree), the decode model
-    converted into this rank's blocks, its prefill logits of `prompt`
-    gathered over "tensor" and `generate(mesh=)`'s tokens.  Returns, per
-    case, {"logits": [B, P, V], "tokens": every rank's tokens}."""
+def mesh_decode(cases: list, new_tokens: int) -> list:
+    """One rank of decode on the CPU: for each (cfg, tree, MeshConfig,
+    prompt, seed) of `cases` (a training config, a reference-layout
+    tree, a mesh of the world's ranks, a [B, P] prompt, and None for
+    greedy decode or the seed of a generator that samples at temperature
+    1), the decode model converted into this rank's blocks, its prefill
+    logits of the prompt gathered over "tensor" and over the batch, and
+    `generate(mesh=)`'s tokens.  Returns, per case, {"logits": [B, P, V],
+    "tokens": every rank's tokens}."""
     import torch.distributed as dist
 
     from .models.convert import params_from_flax
     from .models.generate import (
+        batch_groups,
         full_logits,
+        gather_batch,
         generate,
         prepare_decode,
+        split_batch,
         vocab_group,
     )
     from .parallel.mesh import make_mesh
 
     world = dist.get_world_size()
-    mesh = make_mesh(MeshConfig(tensor=world), device="cpu")
-    results = []
-    for cfg, tree in cases:
+    meshes, results = {}, []
+    for cfg, tree, mesh_config, prompt, seed in cases:
+        if mesh_config not in meshes:
+            meshes[mesh_config] = make_mesh(mesh_config, device="cpu")
+        mesh = meshes[mesh_config]
         cfg, tree = prepare_decode(cfg, tree)
         model = params_from_flax(tree, cfg, "cpu", mesh)
+        groups = batch_groups(model, prompt.shape[0])
+        rows = split_batch(prompt, groups)
         with torch.inference_mode():
-            logits = full_logits(model(prompt, cache=model.new_cache(
-                prompt.shape[0])), vocab_group(model))
+            logits = gather_batch(full_logits(model(
+                rows, cache=model.new_cache(rows.shape[0])),
+                vocab_group(model)), groups)
+        sampling = {} if seed is None else {
+            "temperature": 1.0,
+            "generator": torch.Generator().manual_seed(seed)}
         tokens = generate(cfg, model, prompt, new_tokens, mesh=mesh,
-                          device="cpu")
+                          device="cpu", **sampling)
         every = [None] * world
         dist.all_gather_object(every, tokens)
         results.append({"logits": logits, "tokens": every})

@@ -27,9 +27,16 @@ WarmPoolController): `provision_slice` turns up one warm gang's GPU
 nodes under a nodepool label, and `deprovision_slice` tears an idle one
 back down, under the reference's method names.
 
+For the replicated tier (`spec.replication`) it plays the primary's and
+the followers' runtimes: `stream_session_delta` appends one increment of
+the primary's session state to the delta chain under its writer epoch,
+and `sync_followers` replays the chain for every replica-labelled pod
+and stamps the freshness the promote verb elects by
+(ANNOTATION_REPLICA_GENERATION/SEQ/DIGEST).  A gang is slice 0 here
+too, so every replica's pods read the one chain.
+
 Left out until the modules that use them are ported (`ROADMAP.md` queue
-1): the delta-stream and follower hooks for the replicated tier (item
-14), the telemetry stamping for the data-plane rollup (item 16), the
+1): the telemetry stamping for the data-plane rollup (item 16), the
 ServiceAccount pull-secret controller for the ODH controller (item 15),
 and the fault-plan exemption for fault plans (item 17).
 """
@@ -353,6 +360,72 @@ class FakeCluster:
                     self.session_payload(namespace, notebook),
                     trigger=trigger)
                 for slice_id in sorted(self._slice_ids(namespace, notebook))]
+
+    def stream_session_delta(self, namespace: str, notebook: str,
+                             delta: bytes,
+                             writer_epoch: Optional[int] = None) -> list:
+        """The primary's runtime appends one increment of its session
+        state: the gang's delta chain grows by `delta` (a base snapshot of
+        the current payload is written first when the chain has no
+        anchor), and the in-memory payload advances.  `writer_epoch` is
+        the primary's fencing token: once a promotion raised the fence, a
+        demoted primary gets StaleWriterError from the store and its
+        payload does not advance."""
+        assert self._session_store is not None, "attach_session_store first"
+        store = self._session_store
+        payload = self.session_payload(namespace, notebook)
+        infos = []
+        for slice_id in sorted(self._slice_ids(namespace, notebook)):
+            if store.latest(namespace, notebook, slice_id) is None:
+                store.put(namespace, notebook, slice_id, payload,
+                          writer_epoch=writer_epoch)
+            infos.append(store.append_delta(
+                namespace, notebook, slice_id, bytes(delta),
+                writer_epoch=writer_epoch))
+        self._session_payload[(namespace, notebook)] = \
+            payload + bytes(delta)
+        return infos
+
+    def sync_followers(self, namespace: str, notebook: str,
+                       lag: int = 0) -> int:
+        """The follower runtimes' catch-up: every replica-labelled worker
+        pod of `notebook` replays its gang's delta chain (through the head
+        less `lag` steps) and is stamped with the replica-freshness
+        annotations that the election in core/selfheal.py reads as
+        positive evidence.  Returns the number of pods stamped."""
+        assert self._session_store is not None, "attach_session_store first"
+        from ..core.sessionstate import payload_digest
+
+        store = self._session_store
+        stamped = 0
+        for pod in self.api.list("Pod", namespace=namespace):
+            labels = pod.metadata.labels
+            if labels.get(C.NOTEBOOK_NAME_LABEL) != notebook or \
+                    C.REPLICA_LABEL not in labels:
+                continue
+            head = store.chain_head(namespace, notebook, 0)
+            if head is None:
+                continue
+            gen, head_seq, head_digest = head
+            seq = max(head_seq - max(lag, 0), 0)
+            if seq == head_seq:
+                digest = head_digest
+            else:
+                state = store.materialize(namespace, notebook, 0,
+                                          upto_seq=seq)
+                digest = payload_digest(state or b"")
+            live = self.api.get("Pod", namespace, pod.name).deepcopy()
+            ann = live.metadata.annotations
+            if ann.get(C.ANNOTATION_REPLICA_GENERATION) == str(gen) \
+                    and ann.get(C.ANNOTATION_REPLICA_SEQ) == str(seq) \
+                    and ann.get(C.ANNOTATION_REPLICA_DIGEST) == digest:
+                continue
+            ann[C.ANNOTATION_REPLICA_GENERATION] = str(gen)
+            ann[C.ANNOTATION_REPLICA_SEQ] = str(seq)
+            ann[C.ANNOTATION_REPLICA_DIGEST] = digest
+            self.api.update(live)
+            stamped += 1
+        return stamped
 
     def _gang_pods(self, namespace: str, notebook: str) -> list[KubeObject]:
         return [p for p in self.api.list("Pod", namespace=namespace)

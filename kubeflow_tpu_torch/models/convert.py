@@ -17,11 +17,14 @@ port's names (the ViT's, `vit_params_from_flax`, and the MNIST MLP's).
 carries the reference's AdamW state across beside the parameters, so a
 reference run can be continued in the port.
 
-On a tensor mesh (`params_from_flax(..., mesh=)`, tensor-parallel
-decode) the full tree goes to every rank, which keeps its block of each
-leaf: the fused projections are first regrouped so that a contiguous cut
-over "tensor" is one rank's (`regroup_fused`), then the rule table cuts
-every leaf (models/train.py `shard_parameters`).
+On a mesh (`params_from_flax(..., mesh=)`, decode on any axis) the full
+tree goes to every rank, which keeps its block of each leaf: the fused
+projections are first regrouped so that a contiguous cut over "tensor"
+is one rank's (`regroup_fused`), then the rule table cuts every leaf
+(models/train.py `shard_parameters`): a MoE expert stack over "expert",
+each expert's hidden dim, the heads, the MLP and the vocabulary over
+"tensor", and a whole copy on every axis that decode replicates (data,
+fsdp, sequence, pipeline).
 """
 
 from __future__ import annotations
@@ -114,9 +117,9 @@ def params_from_flax(params: Mapping, cfg: TransformerConfig,
     """Build the port's Transformer for `cfg` and load the flax tree into
     it.  The tree's layout must be the one `cfg` builds (fused or not,
     bf16/int8/int4): a missing, extra or misshapen leaf raises.  With a
-    tensor `mesh` (a decode config; models/transformer.py
-    `check_decode_mesh`) the model is built on it and keeps this rank's
-    block of every leaf of the full tree."""
+    `mesh` (a decode config; models/transformer.py `check_decode_mesh`)
+    the model is built on it and keeps this rank's block of every leaf
+    of the full tree."""
     model = Transformer(cfg, device, mesh)
     state = state_dict_from_flax(params)
     if mesh is not None:

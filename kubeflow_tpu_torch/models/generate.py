@@ -23,16 +23,28 @@ Sampling is greedy (temperature 0) or temperature + top-k from a
 jax.random's, so the two packages agree exactly only under greedy
 decoding.
 
-With a `mesh` (the reference's argument) whose only populated axis is
-"tensor", every rank builds the decoder on it and decodes its block:
-heads, kv heads (its own KV cache), MLP and vocabulary split over
-"tensor" (models/transformer.py `check_decode_mesh`, models/convert.py
-`params_from_flax(..., mesh=)`).  The head gives each rank its slice of
-the vocabulary; the step all-gathers the logits over "tensor" and
-samples on the whole row, so every rank, drawing from an identically
-seeded generator, holds the same tokens.  The step is captured per rank
-only where the tensor group's backend is NCCL: a gloo collective cannot
-be captured, so on gloo the loop is eager.
+With a `mesh` (the reference's argument) every rank builds the decoder
+on it and decodes its block, each axis as the reference's rules shard a
+decode model (models/transformer.py `check_decode_mesh`,
+models/convert.py `params_from_flax(..., mesh=)`):
+- "tensor" splits heads, kv heads (its own KV cache), the MLP and the
+  vocabulary.  The head gives each rank its slice of the vocabulary; the
+  step all-gathers the logits over "tensor" and samples on the whole
+  row, so every rank of the group, drawing from an identically seeded
+  generator, holds the same tokens;
+- "expert" splits a MoE config's expert stack (models/moe.py);
+- "data" and "fsdp" split the batch: each rank decodes its rows (fsdp
+  blocks inside data blocks, the reference's ("data", "fsdp") batch
+  axis) with every weight whole, and the tokens are all-gathered before
+  the return, so every rank returns [B, P + new].  A sampling rank draws
+  the race's noise for the whole batch and keeps its rows' block, so a
+  row gets the noise it gets on one device.  A batch that does not
+  divide over them, or a MoE config whose "sort" dispatch counts
+  capacity over the whole batch, is decoded whole on every rank
+  (`batch_groups`);
+- "sequence" and "pipeline" replicate.
+The step is captured per rank only where the mesh's backend is NCCL: a
+gloo collective cannot be captured, so on gloo the loop is eager.
 """
 
 from __future__ import annotations
@@ -44,7 +56,8 @@ import torch
 import torch.distributed as dist
 
 from ..ops import int4_matmul, launch_counts
-from ..parallel.collectives import gather_from
+from ..parallel.collectives import gather_from, take_block
+from ..parallel.mesh import axis_group
 from .configs import TransformerConfig
 from .transformer import KVCache, Transformer
 
@@ -144,25 +157,35 @@ def prepare_decode(cfg: TransformerConfig, params: Mapping,
 
 
 def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
-                 temperature: float, top_k: int = 0) -> torch.Tensor:
+                 temperature: float, top_k: int = 0,
+                 rows: list = ()) -> torch.Tensor:
     """[B, V] logits -> [B] token ids: argmax under temperature 0 (or no
     generator), else a draw from softmax(logits / temperature) restricted
-    to the top_k largest logits when top_k > 0."""
+    to the top_k largest logits when top_k > 0.  `rows` are the
+    `batch_groups` that cut these B rows out of the whole batch."""
     if temperature <= 0.0 or generator is None:
         return torch.argmax(logits, dim=-1)
     logits = logits.to(torch.float32) / temperature
     if top_k > 0:
         kth = torch.sort(logits, dim=-1).values[:, -top_k][:, None]
         logits = torch.where(logits < kth, float("-inf"), logits)
-    return race(torch.softmax(logits, dim=-1), generator)
+    return race(torch.softmax(logits, dim=-1), generator, rows)
 
 
-def race(probs: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+def race(probs: torch.Tensor, generator: torch.Generator,
+         rows: list = ()) -> torch.Tensor:
     """One draw from each row of `probs` [B, V]: torch.multinomial's draw
     of one sample (an exponential race, the argmax of p / E with E ~
     Exp(1)), less its host-side check of the probabilities, which a
-    captured step cannot make."""
-    e = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    captured step cannot make.  Where `rows` (`batch_groups`) cut the B
+    rows out of a larger batch, the noise is drawn for the whole batch
+    and this block kept, so each row's draw is the one it gets on one
+    device from the same generator."""
+    ways = 1
+    for group in rows:
+        ways *= dist.get_world_size(group)
+    e = probs.new_empty((probs.shape[0] * ways,) + probs.shape[1:])
+    e = split_batch(e.exponential_(1.0, generator=generator), rows)
     return torch.argmax(probs / e, dim=-1)
 
 
@@ -171,6 +194,40 @@ def vocab_group(model: Transformer):
     mesh: the mesh's "tensor" group, of one rank too, so that a world-1
     mesh gathers its logits through its backend as a wider one does."""
     return None if model.mesh is None else model.mesh.get_group("tensor")
+
+
+def batch_groups(model: Transformer, batch: int) -> list:
+    """The groups over which a decode model splits a batch of `batch`
+    rows, innermost first: "fsdp" blocks inside "data" blocks (the
+    reference's ("data", "fsdp") batch axis), axes of one rank left out.
+    None when the batch does not divide over data x fsdp, or when the
+    config's MoE dispatch is "sort", whose capacity counts over the whole
+    batch: every rank then decodes every row."""
+    groups = [g for g in (axis_group(model.mesh, a) for a in ("fsdp", "data"))
+              if g is not None]
+    ways = 1
+    for group in groups:
+        ways *= dist.get_world_size(group)
+    cfg = model.cfg
+    if batch % ways or (cfg.moe_experts > 0 and cfg.moe_dispatch == "sort"):
+        return []
+    return groups
+
+
+def split_batch(x: torch.Tensor, groups: list) -> torch.Tensor:
+    """This rank's rows of a [B, ...] tensor every rank holds alike, cut
+    over `batch_groups`."""
+    for group in reversed(groups):
+        x = take_block(x, group, dim=0)
+    return x
+
+
+def gather_batch(x: torch.Tensor, groups: list) -> torch.Tensor:
+    """Every rank's rows of a tensor cut by `split_batch`, in batch
+    order."""
+    for group in groups:
+        x = gather_from(x, group, dim=0)
+    return x
 
 
 def full_logits(logits: torch.Tensor, group) -> torch.Tensor:
@@ -195,15 +252,17 @@ class DecodeStep:
     samples the next token, writes it into `tokens` at the advanced fill
     index and into `last`.  Every position and index is read from the
     device (`cache.pos`), so a captured call replays as the next step.
-    On a mesh the logits are gathered over "tensor" before sampling."""
+    On a mesh the logits are gathered over "tensor" before sampling, and
+    `rows` are the `batch_groups` that cut `tokens` out of the batch."""
 
     def __init__(self, model: Transformer, cache: KVCache,
                  tokens: torch.Tensor, temperature: float = 0.0,
                  top_k: int = 0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 rows: list = ()):
         self.model, self.cache, self.tokens = model, cache, tokens
         self.temperature, self.top_k = temperature, top_k
-        self.generator = generator
+        self.generator, self.rows = generator, rows
         self.group = vocab_group(model)
         self.last = tokens[:, cache.index].clone()
 
@@ -213,7 +272,8 @@ class DecodeStep:
                             positions=cache.pos.expand(batch, 1),
                             cache=cache)
         tok = sample_token(full_logits(logits[:, -1, :], self.group),
-                           self.generator, self.temperature, self.top_k)
+                           self.generator, self.temperature, self.top_k,
+                           self.rows)
         self.tokens.index_copy_(1, cache.pos.view(1), tok[:, None])
         self.last.copy_(tok)
 
@@ -297,11 +357,11 @@ def generate(cfg: TransformerConfig, params: Union[Mapping, Transformer],
     port Transformer built for `cfg` itself (a decode config).  Prompts
     are unpadded and of equal length, and P + max_new_tokens must fit
     cfg.max_seq_len.  `generator` takes the reference's `rng`.  `mesh`
-    decodes tensor-parallel (a tree is converted into this rank's blocks;
-    a Transformer must have been built on `mesh`); every rank returns the
-    whole sequence.  On a CUDA device the single-token steps replay one
+    decodes sharded (a tree is converted into this rank's blocks; a
+    Transformer must have been built on `mesh`), and every rank returns
+    the whole batch's sequences.  On a CUDA device the single-token steps replay one
     captured graph unless `cuda_graph=False`, the config is not
-    `capturable` or the mesh's tensor group is not on NCCL."""
+    `capturable` or the mesh's backend is not NCCL."""
     if isinstance(params, Transformer):
         model = params
         if cfg != model.cfg:
@@ -317,6 +377,8 @@ def generate(cfg: TransformerConfig, params: Union[Mapping, Transformer],
         cfg, tree = prepare_decode(cfg, params, unroll_layers=unroll_layers)
         model = params_from_flax(tree, cfg, device, mesh)
     prompt = torch.as_tensor(prompt, device=device).to(torch.int64)
+    rows = batch_groups(model, prompt.shape[0])
+    prompt = split_batch(prompt, rows)
     batch, prompt_len = prompt.shape
     total = prompt_len + max_new_tokens
     if total > model.cfg.max_seq_len:
@@ -337,20 +399,21 @@ def generate(cfg: TransformerConfig, params: Union[Mapping, Transformer],
         logits = model(prompt, cache=cache)
         tokens[:, prompt_len] = sample_token(
             full_logits(logits[:, -1, :], group), generator, temperature,
-            top_k)
+            top_k, rows)
         del logits
         step = DecodeStep(model, cache, tokens, temperature, top_k,
-                          generator)
+                          generator, rows)
         steps = max_new_tokens - 1
         if graphed and steps > 1:
             GraphedStep(step).replay(steps - 1)   # the first step warms up
         else:
             for _ in range(steps):
                 step()
-        return tokens
+        return gather_batch(tokens, rows)
 
 
-__all__ = ["CapturedCall", "DecodeStep", "GraphedStep", "capturable",
-           "decode_config", "full_logits", "fuse_decode_params", "generate",
-           "prepare_decode", "race", "sample_token", "unroll_params",
-           "vocab_group", "warm_up"]
+__all__ = ["CapturedCall", "DecodeStep", "GraphedStep", "batch_groups",
+           "capturable", "decode_config", "full_logits", "fuse_decode_params",
+           "gather_batch", "generate", "prepare_decode", "race",
+           "sample_token", "split_batch", "unroll_params", "vocab_group",
+           "warm_up"]

@@ -40,7 +40,11 @@ the same tokens):
 - on a sequence-sharded mesh the layer all-gathers the sequence first,
   since capacity counts over each batch row's full sequence, and keeps
   its own block of the output; "sort", whose capacity counts over the
-  whole batch, all-gathers the rows over data and fsdp as well.
+  whole batch, all-gathers the rows over data and fsdp as well;
+- a decode config (models/generate.py) runs the same layer on its rank's
+  rows of the batch (all of them under "sort"): the expert stack split
+  over "expert", each expert's hidden dim over "tensor", and the
+  sequence, which decode replicates, taken whole.
 """
 
 from __future__ import annotations
@@ -157,12 +161,14 @@ class MoEMLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         cfg, mesh = self.cfg, self.mesh
-        sp = axis_group(mesh, "sequence")
+        # decode replicates the sequence: every rank holds all of it
+        sp = None if cfg.decode else axis_group(mesh, "sequence")
         x = gather_seq(x, sp, dim=1)
-        # "sort" counts capacity over the whole batch: it gathers the rows
-        # too (fsdp blocks inside data blocks)
+        # "sort" counts capacity over the whole batch: in training it
+        # gathers the rows too (fsdp blocks inside data blocks); decode
+        # holds the whole batch on every rank for it (models/generate.py)
         rows = [axis_group(mesh, a) for a in ("fsdp", "data")] \
-            if cfg.moe_dispatch == "sort" else []
+            if cfg.moe_dispatch == "sort" and not cfg.decode else []
         for group in rows:
             x = gather_seq(x, group, dim=0)
         with record_function("moe.router"):

@@ -29,12 +29,18 @@ transformer.py for the serving and training paths.
   head returns this rank's slice of the vocabulary.  Attention is ring
   attention over "sequence" when that axis is populated.  Layers read
   their local sizes from their parameters' shapes.
-- A decode config (`cfg.decode`) on a mesh whose only populated axis is
-  "tensor" decodes tensor-parallel (`check_decode_mesh`): int4/int8
-  weights and fused projections are allowed there, the fused qkv block
-  of a rank holds its q, k and v heads (models/convert.py regroups
-  them), and `new_cache` holds the rank's kv heads.
-- On a mesh with a populated "pipeline" axis each rank builds only its
+- A decode config (`cfg.decode`) decodes on a mesh with any axis
+  populated (`check_decode_mesh`), each axis as the reference's rules
+  shard a decode model: "tensor" splits heads, kv heads, the MLP (each
+  expert's too) and the vocabulary, and `new_cache` holds the rank's kv
+  heads; "expert" splits the expert stack; "data" and "fsdp" split the
+  batch (models/generate.py), with every weight whole on each rank;
+  "sequence" and "pipeline" replicate (a decode step has one position,
+  and decode unrolls its layers, so every rank holds all of them).
+  int4/int8 weights and fused projections are allowed there, and the
+  fused qkv block of a rank holds its q, k and v heads (models/convert.py
+  regroups them).
+- On a training mesh with a populated "pipeline" axis each rank builds only its
   stage's decoder layers (parallel/pipeline.py:stage_layers), named by
   their global indices (`layers.4.attn.q.kernel` on the second of two
   stages of 8 layers), beside the embedding, final norm and head, which
@@ -59,7 +65,7 @@ from torch.utils.checkpoint import (
 
 from ..ops.attention import attention, decode_attention
 from ..parallel.collectives import copy_to, reduce_from
-from ..parallel.mesh import axis_group, axis_rank, axis_size, mesh_sizes
+from ..parallel.mesh import axis_group, axis_rank, axis_size
 from ..parallel.pipeline import stage_layers
 from .configs import TransformerConfig
 from .quant import Int4Linear, Int8Linear, StackedInt8Linear, _as_tuple
@@ -384,9 +390,11 @@ class Transformer(nn.Module):
         dtype, pdtype = torch_dtype(cfg.dtype), torch_dtype(cfg.param_dtype)
         self.embed = Embed(cfg.vocab_size, cfg.embed_dim, dtype, pdtype,
                            device, mesh)
-        stages = axis_size(mesh, "pipeline")
-        self.layer_ids = stage_layers(cfg.num_layers, stages,
-                                      axis_rank(mesh, "pipeline"))
+        # decode replicates the pipeline axis: every rank holds all layers
+        stages = 1 if cfg.decode else axis_size(mesh, "pipeline")
+        self.layer_ids = stage_layers(
+            cfg.num_layers, stages,
+            axis_rank(mesh, "pipeline") if stages > 1 else 0)
         layers = {i: DecoderLayer(cfg, device, mesh) for i in self.layer_ids}
         self.layers = (StageLayers(layers) if stages > 1
                        else nn.ModuleList(layers.values()))
@@ -402,10 +410,11 @@ class Transformer(nn.Module):
         return None if tp is None else (tp, self.embed.vocab_start())
 
     def new_cache(self, batch: int) -> KVCache:
-        """The decode cache; on a tensor mesh, of this rank's kv heads."""
+        """The decode cache: on a tensor mesh, of this rank's kv heads; on
+        a batch-split mesh the caller passes this rank's rows."""
         if self.mesh is not None and not self.cfg.decode:
             raise ValueError("the KV-cache decode path runs on one device "
-                             "or on a decode config's tensor mesh")
+                             "or on a decode config's mesh")
         ways = axis_size(self.mesh, "tensor")
         cfg = self.cfg.with_(num_kv_heads=self.cfg.num_kv_heads // ways)
         return KVCache(cfg, batch, torch_dtype(cfg.dtype), self.device)
@@ -474,7 +483,7 @@ class Transformer(nn.Module):
         load-balance loss.  On a mesh, tokens are this rank's block and
         positions their global positions; the logits are this rank's
         slice of the vocabulary (`vocab_shard`)."""
-        if axis_size(self.mesh, "pipeline") > 1:
+        if axis_size(self.mesh, "pipeline") > 1 and not self.cfg.decode:
             raise ValueError(f"this pipeline stage holds layers "
                              f"{list(self.layer_ids)} of "
                              f"{self.cfg.num_layers}: it trains through "
@@ -516,24 +525,23 @@ def check_mesh(cfg: TransformerConfig, mesh) -> None:
 
 def check_decode_mesh(cfg: TransformerConfig, mesh) -> None:
     """Raise ValueError unless decode config `cfg` can decode on `mesh`:
-    "tensor" the only populated axis, a dense config, heads, kv heads,
-    MLP and vocabulary divisible by the tensor degree, and with int4
-    weights every shard within the kernel's contract
-    (ops/int4_matmul.py): K / tp a multiple of 64 for the row-parallel
-    layers (out: heads x head_dim, down: the MLP) and N / tp a multiple
-    of 16 for the column-parallel ones (q/k/v or qkv, gate/up or gate_up,
-    the head)."""
-    for axis, size in mesh_sizes(mesh).items():
-        if axis != "tensor" and size > 1:
-            raise ValueError(f"decode runs tensor-parallel only: the mesh's "
-                             f"{axis!r} axis has {size} ranks")
-    if cfg.moe_experts > 0:
-        raise ValueError("tensor-parallel decode takes dense configs, not "
-                         "MoE (moe_experts > 0)")
+    heads, kv heads, MLP (a MoE config's expert hidden dim) and
+    vocabulary divisible by the tensor degree, experts by the expert
+    degree, and with int4 weights every shard within the kernel's
+    contract (ops/int4_matmul.py): K / tp a multiple of 64 for the
+    row-parallel layers (out: heads x head_dim, down: the MLP) and N / tp
+    a multiple of 16 for the column-parallel ones (q/k/v or qkv, gate/up
+    or gate_up, the head).  Every axis may be populated: data, fsdp,
+    sequence and pipeline take nothing from the weights' shapes."""
+    ep = axis_size(mesh, "expert")
+    if cfg.moe_experts % ep:
+        raise ValueError(f"moe_experts={cfg.moe_experts} not divisible by "
+                         f"the expert degree {ep}")
     tp = axis_size(mesh, "tensor")
     h, kvh, hd, m = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                      cfg.mlp_dim)
-    dims = {"num_heads": h, "num_kv_heads": kvh, "mlp_dim": m,
+    dims = {"num_heads": h, "num_kv_heads": kvh,
+            "mlp_dim": (cfg.moe_mlp_dim or m) if cfg.moe_experts else m,
             "vocab_size": cfg.vocab_size}
     bad = {k: v for k, v in dims.items() if v % tp}
     if bad:

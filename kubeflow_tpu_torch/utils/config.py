@@ -104,7 +104,7 @@ def _above(floor: float):
 # (env name, whether a value turns the tier on, ROADMAP.md queue 1 item,
 # the reference's module).  An SLO knob above 0 declares an objective.
 NOT_PORTED_SWITCHES = (
-    ("SLO_PROMOTION_P99_S", _above(0), 14, "the replicated-kernel tier"),
+    ("SLO_PROMOTION_P99_S", _above(0), 16, "kubeflow_tpu/utils/slo.py"),
     ("ENABLE_CONTINUOUS_PROFILER", _true, 16,
      "kubeflow_tpu/utils/profiler.py"),
     *((name, _above(0), 16, "kubeflow_tpu/utils/slo.py") for name in (
@@ -180,6 +180,13 @@ class CoreConfig:
     checkpoint_interval_s: float = 300.0      # CHECKPOINT_INTERVAL_S
     checkpoint_max_age_s: float = 600.0       # CHECKPOINT_MAX_AGE_S
     checkpoint_signal_root: str = ""          # CHECKPOINT_SIGNAL_ROOT
+    # replicated-kernel tier (spec.replication, core/selfheal.py's promote
+    # verb): a follower counts as caught up, and may be promoted, when it
+    # has applied the latest base snapshot and trails the delta chain
+    # head by at most replication_max_lag deltas.  Its latency objective
+    # (SLO_PROMOTION_P99_S) belongs to the SLO tier (ROADMAP.md queue 1
+    # item 16) and is refused above 0.
+    replication_max_lag: int = 2              # REPLICATION_MAX_LAG
     # topology-aware gang scheduler (core/scheduler.py): with it on, a GPU
     # notebook renders no StatefulSet until an all-or-nothing placement
     # intent covers its gang, and a warm pool of pre-provisioned gangs per
@@ -244,6 +251,8 @@ class CoreConfig:
             checkpoint_max_age_s=_float(
                 env, "CHECKPOINT_MAX_AGE_S", 600.0),
             checkpoint_signal_root=env.get("CHECKPOINT_SIGNAL_ROOT", ""),
+            replication_max_lag=max(0, _int(
+                env, "REPLICATION_MAX_LAG", 2)),
             enable_slice_scheduler=_bool(
                 env, "ENABLE_SLICE_SCHEDULER", False),
             warmpool_size=max(0, _int(env, "WARMPOOL_SIZE", 0)),

@@ -15,10 +15,12 @@ under `CoreConfig(enable_self_healing=False)`:
 - the fake cluster places a gang only where its `nvidia.com/gpu` fit,
   and frees them when it stops;
 - `python -m kubeflow_tpu_torch.main --demo` runs in-process and serves
-  /healthz and /metrics; a config, env or CR that turns on a part the
-  port does not run is refused with its ROADMAP item named, and the env
-  names the port reads parse as the reference's.  The self-healing
-  engine is held to the reference's in tests/test_torch_selfheal.py.
+  /healthz and /metrics; a config or env that turns on a part the port
+  does not run is refused with its ROADMAP item named, a replicated CR
+  is admitted, and the env names the port reads parse as the
+  reference's.  The self-healing engine is held to the reference's in
+  tests/test_torch_selfheal.py, the replicated tier in
+  tests/test_torch_replication.py.
 
 Only the reference's control plane is imported."""
 
@@ -448,13 +450,25 @@ def test_parts_not_ported_are_refused(knob, item):
         assert not CoreConfig().enable_slice_scheduler
         return
     if knob.startswith("spec."):
+        # item 14 is ported: the admission hook admits a replicated CR and
+        # the reconciler seeds status.replication; an invalid replica
+        # count is refused with the reference's message
         setup_core_controllers(mgr, CoreConfig(), NotebookMetrics(mgr.api))
+        bad = Notebook.new("bad", NS, gpu=GPUSpec("h100-80gb", 8),
+                           replication=ReplicationSpec(1))
+        with pytest.raises(kube.AdmissionDenied,
+                           match="spec.replication.replicas must be >= 2"):
+            mgr.api.create(kube.KubeObject.from_dict(bad.obj))
         nb = Notebook.new("nb", NS, gpu=GPUSpec("h100-80gb", 8),
                           replication=ReplicationSpec(2))
-        with pytest.raises(kube.AdmissionDenied,
-                           match=f"ROADMAP.md queue 1 item {item} "):
-            mgr.api.create(kube.KubeObject.from_dict(nb.obj))
-        assert mgr.api.list("Notebook") == []
+        mgr.api.create(kube.KubeObject.from_dict(nb.obj))
+        mgr.run_until_idle()
+        live = mgr.api.get("Notebook", NS, "nb")
+        assert live.body["spec"]["replication"] == {
+            "replicas": 2, "antiAffine": True}
+        rep = live.body["status"]["replication"]
+        assert (rep["epoch"], rep["primary"]) == (1, 0)
+        assert [n.name for n in mgr.api.list("Notebook")] == ["nb"]
         return
     with pytest.raises(NotPortedError,
                        match=f"ROADMAP.md queue 1 item {item} "):
@@ -468,7 +482,8 @@ _SWITCH_ON = {"ENABLE_PREEMPTION": "true", "ENABLE_CONTINUOUS_PROFILER": "true",
 # since it was ported: each parses into its field
 _TIER_SWITCHES = {"ENABLE_PREEMPTION": ("enable_preemption", True),
                   "WARMPOOL_SIZE": ("warmpool_size", 1),
-                  "WARMPOOL_SHAPES": ("warmpool_shapes", "h100-80gb:8")}
+                  "WARMPOOL_SHAPES": ("warmpool_shapes", "h100-80gb:8"),
+                  "REPLICATION_MAX_LAG": ("replication_max_lag", 1)}
 _SWITCH_OFF = {"ENABLE_PREEMPTION": "false",
                "ENABLE_CONTINUOUS_PROFILER": "false", "WARMPOOL_SHAPES": "",
                "SHARD_COUNT": "1"}

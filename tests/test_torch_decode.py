@@ -10,10 +10,15 @@ eagerly, gives the reference `generate`'s greedy tokens with
 `unroll_layers` True and False; a rewind moves both copies of the fill
 index.  The decode bench's, the 13B example's and the speculative
 demo's configs and roofline bytes match the reference scripts'
-arithmetic.  Tensor-parallel decode (`generate(mesh=)`) runs on two gloo
-processes at tensor 2 for the fused full-precision and int4 trees: the
-reference `generate`'s greedy tokens exactly, the gathered prefill
-logits within 1e-5, the same tokens on both ranks."""
+arithmetic.  Decode on a mesh (`generate(mesh=)`) runs in one launch of
+two gloo processes: at tensor 2 for the fused full-precision and int4
+trees, the reference `generate`'s greedy tokens exactly, the gathered
+prefill logits within 1e-5, the same tokens on both ranks; and at 2
+ranks of each of the six axes, dense and MoE fp32, plus int4 dense at
+data 2, exactly the greedy tokens of the reference's `generate` on a
+mesh of 2 host devices with the same axis populated, on both ranks; at
+data 2 also a batch of 3 (which does not split) and a MoE tree under the
+"sort" dispatch, both decoded whole on every rank."""
 
 from __future__ import annotations
 
@@ -34,6 +39,9 @@ from kubeflow_tpu.models.generate import prepare_decode as jprepare_decode
 from kubeflow_tpu.models.generate import sample_token as jsample_token
 from kubeflow_tpu.models.transformer import Transformer as JTransformer
 from kubeflow_tpu.ops import attention as jattention
+from kubeflow_tpu.parallel.mesh import MeshConfig as JMeshConfig
+from kubeflow_tpu.parallel.mesh import make_mesh as jmake_mesh
+from kubeflow_tpu.parallel.sharding import rules_for_mesh as jrules_for_mesh
 from kubeflow_tpu.runtime import roofline as jroofline
 from kubeflow_tpu_torch import dryrun
 from kubeflow_tpu_torch.models import quant
@@ -49,6 +57,7 @@ from kubeflow_tpu_torch.models.generate import (
 )
 from kubeflow_tpu_torch.models.speculative import rewind
 from kubeflow_tpu_torch.ops import attention
+from kubeflow_tpu_torch.parallel.mesh import MeshConfig
 from kubeflow_tpu_torch.runtime import roofline
 
 
@@ -265,20 +274,73 @@ def test_greedy_generate_tokens_equal(name, trees):
 
 TP_TREES = ["full", "int4"]
 TP_NEW = 8
+MESH_AXES = ["data", "fsdp", "sequence", "tensor", "expert", "pipeline"]
+MOE = {"moe_experts": 4, "moe_top_k": 2}
+# (axis, kind): "dense" and "moe" are fp32 trees, "int4" the quantized
+# dense tree; at data 2, "dense-b3" decodes a batch of 3, which does not
+# split over the two ranks, and "moe-sort" the MoE tree under the "sort"
+# dispatch, whose capacity counts over the whole batch: both decode the
+# whole batch on every rank
+MESH_CASES = [(a, k) for k in ("dense", "moe") for a in MESH_AXES] + \
+    [("data", "int4"), ("data", "dense-b3"), ("data", "moe-sort")]
+PROMPT = np.random.RandomState(21).randint(0, 256, (3, 6))
+# at data or fsdp 2, a sampled decode of 4 rows, rows 0 and 2 alike, in
+# the two ranks' halves of the batch
+SAMPLED_AXES = ["data", "fsdp"]
+SAMPLED_PROMPT = PROMPT[[0, 1, 0, 1]]
+SAMPLED_SEED = 5
 
 
 @pytest.fixture(scope="module")
-def tensor_parallel(trees):
-    """One launch of two gloo processes (tensor 2) decoding both fused
-    trees: the prompt and, per tree, the gathered prefill logits and
-    every rank's tokens."""
-    prompt = np.random.RandomState(21).randint(0, 256, (2, 6))
-    cases = [(_cfg(True, weight_dtype=trees[n][0]),
-              jax.tree.map(to_tensor, trees[n][1])) for n in TP_TREES]
-    results = dryrun.launch(2, dryrun.tensor_decode,
-                            (cases, torch.from_numpy(prompt), TP_NEW),
+def moe_tree():
+    """A scan_layers=True MoE training tree (4 experts, top 2)."""
+    return _random_tree(_cfg(False, **MOE), seed=6)
+
+
+def _mesh_case(kind, trees, moe_tree, port: bool):
+    """(config, tree, prompt) of one MESH_CASES kind."""
+    if kind.startswith("moe"):
+        sort = {"moe_dispatch": "sort"} if kind == "moe-sort" else {}
+        return _cfg(port, **MOE, **sort), moe_tree, PROMPT[:2]
+    wd, tree = trees["int4" if kind == "int4" else "full"]
+    return (_cfg(port, weight_dtype=wd), tree,
+            PROMPT if kind == "dense-b3" else PROMPT[:2])
+
+
+def _mesh_config(axis: str, config):
+    """`axis` at 2 ranks, every other axis at 1."""
+    return config(**{"data": 1, axis: 2})
+
+
+@pytest.fixture(scope="module")
+def tensor_parallel(trees, moe_tree):
+    """One launch of two gloo processes decoding every mesh case: the
+    prompt, per TP_TREES tree at tensor 2, per MESH_CASES case and per
+    SAMPLED_AXES axis the gathered prefill logits and every rank's
+    tokens.  Each tree is converted once, so the launch's arguments
+    carry one copy of it."""
+    prompt = PROMPT[:2]
+    tensors = {}
+
+    def tensor_tree(tree):
+        if id(tree) not in tensors:
+            tensors[id(tree)] = jax.tree.map(to_tensor, tree)
+        return tensors[id(tree)]
+
+    cases = [(_cfg(True, weight_dtype=trees[n][0]), tensor_tree(trees[n][1]),
+              MeshConfig(tensor=2), torch.from_numpy(prompt), None)
+             for n in TP_TREES]
+    for axis, kind in MESH_CASES:
+        cfg, tree, rows = _mesh_case(kind, trees, moe_tree, port=True)
+        cases.append((cfg, tensor_tree(tree), _mesh_config(axis, MeshConfig),
+                      torch.from_numpy(rows), None))
+    for axis in SAMPLED_AXES:
+        cases.append((_cfg(True), tensor_tree(trees["full"][1]),
+                      _mesh_config(axis, MeshConfig),
+                      torch.from_numpy(SAMPLED_PROMPT), SAMPLED_SEED))
+    results = dryrun.launch(2, dryrun.mesh_decode, (cases, TP_NEW),
                             timeout=300)
-    return prompt, dict(zip(TP_TREES, results))
+    return prompt, dict(zip(TP_TREES + MESH_CASES + SAMPLED_AXES, results))
 
 
 @pytest.mark.parametrize("name", TP_TREES)
@@ -291,8 +353,9 @@ def test_tensor_parallel_generate_matches_reference(name, trees,
     prompt, results = tensor_parallel
     wd, tree = trees[name]
     jcfg, _, _ = _decode_cfgs(name, trees)
-    want = jgenerate(_cfg(False, weight_dtype=wd), tree, jnp.asarray(prompt),
-                     max_new_tokens=TP_NEW)
+    want = jax.jit(lambda p, x: jgenerate(
+        _cfg(False, weight_dtype=wd), p, x, max_new_tokens=TP_NEW))(
+            tree, jnp.asarray(prompt))
     (want_logits, _), _ = JTransformer(jcfg).apply(
         {"params": tree}, jnp.asarray(prompt), return_aux=True, decode=True,
         mutable=["cache"])
@@ -303,6 +366,51 @@ def test_tensor_parallel_generate_matches_reference(name, trees,
     np.testing.assert_array_equal(first.numpy(), np.asarray(want))
     np.testing.assert_allclose(got["logits"].numpy(), np.asarray(want_logits),
                                atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("axis,kind", MESH_CASES,
+                         ids=[f"{k}-{a}" for a, k in MESH_CASES])
+def test_mesh_generate_matches_reference(axis, kind, trees, moe_tree,
+                                         tensor_parallel):
+    """With `axis` at 2 ranks (data and fsdp split the batch, tensor the
+    heads, MLP and vocabulary, expert the expert stack; sequence and
+    pipeline replicate), both ranks return exactly the greedy tokens of
+    the reference's `generate` on 2 host devices with the same axis,
+    under the reference's rules for that mesh."""
+    import flax.linen as nn
+
+    _, results = tensor_parallel
+    cfg, tree, prompt = _mesh_case(kind, trees, moe_tree, port=False)
+    mesh = jmake_mesh(_mesh_config(axis, JMeshConfig), jax.devices()[:2])
+    with nn.logical_axis_rules(jrules_for_mesh(mesh)):
+        # one compiled program: the same tokens as the eager call, in
+        # about half its time
+        want = jax.jit(lambda p, x: jgenerate(
+            cfg, p, x, max_new_tokens=TP_NEW, mesh=mesh))(
+                tree, jnp.asarray(prompt))
+    first, second = results[(axis, kind)]["tokens"]
+    assert first.shape == (prompt.shape[0], 6 + TP_NEW)
+    assert torch.equal(first, second)
+    np.testing.assert_array_equal(first.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("axis", SAMPLED_AXES)
+def test_mesh_sampling_matches_one_device(axis, trees, tensor_parallel):
+    """Sampled at temperature 1 with `axis` at 2 ranks splitting the
+    batch, both ranks return exactly the tokens of one device's
+    `generate` from a generator of the same seed: each rank draws the
+    race's noise for the whole batch and keeps its rows', so the alike
+    rows 0 and 2, one in each rank's half, draw apart as they do on one
+    device."""
+    _, results = tensor_parallel
+    want = generate(_cfg(True), trees["full"][1], SAMPLED_PROMPT,
+                    max_new_tokens=TP_NEW, temperature=1.0,
+                    generator=torch.Generator().manual_seed(SAMPLED_SEED),
+                    device="cpu")
+    first, second = results[axis]["tokens"]
+    assert torch.equal(first, second)
+    np.testing.assert_array_equal(first.numpy(), want.numpy())
+    assert not torch.equal(want[0], want[2])
 
 
 def test_prepare_decode_matches_reference(stacked_tree):

@@ -21,11 +21,11 @@ exactly on:
   pool census, preemptions, queue wait), and their HELP and TYPE lines;
 - the pods: name, node and phase, and which were deleted, in order.
 
-Not run here: the replica anti-affinity (`spec.replication`, `ROADMAP.md`
-queue 1 item 14), and the two scenarios that need a notebook of several
-gangs, which a `spec.gpu` notebook has only with replication (a
+The replica anti-affinity and the two scenarios that need a notebook of
+several gangs, which a `spec.gpu` notebook has only with replication (a
 multi-slice bypass that must not double-book nodes; a beneficiary whose
-two slices one victim cannot cover).  The fake cluster's cordon and
+two slices one victim cannot cover), run on this harness in
+tests/test_torch_replication.py.  The fake cluster's cordon and
 used-map satellites are the cluster's, not the scheduler's.
 
 Two more scenarios hold the dequeue score at its boundary, where a

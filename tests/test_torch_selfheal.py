@@ -1,7 +1,7 @@
 """The port's self-healing engine against the reference's.
 
-The same drills (tests/test_selfheal.py's, without the replicated tier)
-go through the reference's stack on a `spec.tpu` notebook and the port's
+The same drills (tests/test_selfheal.py's; its replicated tier is held
+by tests/test_torch_replication.py) go through the reference's stack on a `spec.tpu` notebook and the port's
 on a `spec.gpu` gang of the same host count (1 and 2 hosts), each on its
 own FakeClock from the same epoch.  After every step of a drill the two
 sides must agree exactly:
@@ -64,6 +64,11 @@ FAMILIES = ("notebook_slice_restarts_total",
             "notebook_migrations_total",
             "notebook_checkpoint_snapshots_total",
             "notebook_checkpoint_age_seconds")
+# the replicated tier's families (the promote verb, the write fence),
+# held to the reference by tests/test_torch_replication.py
+REPLICATION_FAMILIES = ("notebook_promotions_total",
+                        "notebook_promotion_duration_seconds",
+                        "notebook_replication_fenced_writes_total")
 RESTORE_ENV = (C.ENV_CHECKPOINT_RESTORE_URI,
                C.ENV_CHECKPOINT_RESTORE_GENERATION)
 
@@ -601,6 +606,5 @@ def test_recovery_knobs_parse_as_the_reference(env):
 def test_metric_families_registered_as_the_reference():
     ours = dict(NotebookMetrics(kube.ApiServer()).registry.families())
     ref = dict(RefMetrics(ref_kube.ApiServer()).registry.families())
-    for name in FAMILIES:
+    for name in FAMILIES + REPLICATION_FAMILIES:
         assert ours[name] == ref[name], name
-    assert "notebook_promotions_total" not in ours

@@ -158,18 +158,27 @@ def test_generate_on_cpu_takes_the_eager_loop():
     assert torch.equal(a, b) and tuple(a.shape) == (2, 16)
 
 
+@pytest.mark.parametrize("moe", [False, True], ids=["dense", "moe"])
 @pytest.mark.parametrize("axis", ["data", "fsdp", "sequence", "pipeline",
                                   "expert"])
-def test_decode_mesh_refuses_other_axes(axis):
-    """Decode runs tensor-parallel only: a decode model on a mesh with any
-    other populated axis raises, naming it."""
+def test_decode_mesh_builds_on_every_axis(axis, moe):
+    """A decode model builds on a mesh with any axis populated beside
+    "tensor", dense and MoE: `check_decode_mesh` takes the mesh, and on a
+    pipeline mesh the model holds every layer (decode replicates that
+    axis)."""
     from kubeflow_tpu_torch.models.generate import decode_config
-    from kubeflow_tpu_torch.models.transformer import Transformer
+    from kubeflow_tpu_torch.models.transformer import (
+        Transformer,
+        check_decode_mesh,
+    )
     from kubeflow_tpu_torch.parallel.mesh import MeshConfig
 
+    cfg = decode_config(TINY.with_(moe_experts=4, moe_top_k=2) if moe
+                        else TINY)
     mesh = MeshConfig(**{"data": 1, "tensor": 2, axis: 2}).resolved(4)
-    with pytest.raises(ValueError, match=repr(axis)):
-        Transformer(decode_config(TINY), device="cpu", mesh=mesh)
+    check_decode_mesh(cfg, mesh)
+    model = Transformer(cfg, device="meta", mesh=mesh)
+    assert list(model.layer_ids) == list(range(cfg.num_layers))
 
 
 def test_decode_mesh_refuses_int4_shards_outside_the_kernel():

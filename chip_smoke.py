@@ -215,11 +215,30 @@ non-zero without its result line):
    over the in-memory cluster, one node in node pool card-pool labelled
    by gpu/device_plugin.py's label_gpu_node with this card's accelerator
    (gpu/topology.py) and torch.cuda.device_count() nvidia.com/gpu, and
-   a Notebook CR with spec.gpu {that accelerator, 1}, spec.priority low
-   and a checkpoint store.  The scheduler places the gang on the card's
-   pool as a bypass claim (unmanaged capacity) before any StatefulSet
-   exists.  Gates: the Notebook update carrying the placement intent
-   before the first StatefulSet event on the apiserver's stream, the
+   a Notebook CR with spec.gpu {that accelerator, 1}, spec.priority low,
+   notebooks.opendatahub.io/inject-auth "true" and a checkpoint store.
+   The manager runs the ODH plane too (odh/: the mutating and validating
+   webhooks in the apiserver's admission chain, the ODH reconciler, the
+   TLS profile watcher), with its controller namespace set here, and the
+   CR's namespace holds an odh-trusted-ca-bundle ConfigMap of one PEM.
+   The webhook stamps the reconciliation lock on create; the ODH
+   reconciler makes the notebook's HTTPRoute in the controller namespace
+   (to the kube-rbac-proxy Service on :8443), the ReferenceGrant, the
+   ServiceAccount (whose pull secret the fake cluster mints), the
+   ClusterRoleBinding, the proxy's Service and ConfigMap, the three
+   NetworkPolicies (the notebook's, the proxy's, the GPU workers') and
+   the workbench-trusted-ca-bundle from the PEM, and lifts the lock.
+   Gates: the lock stamped, then lifted before the StatefulSet asks for
+   a pod; each object there and owned as the reference owns it (the
+   namespaced ones by the CR; the route, the grant, the binding and the
+   bundle by none); the pod's kube-rbac-proxy sidecar and
+   ServiceAccount; and, the bundle being built in the reconcile that
+   lifted the lock, the webhook's restart blocking holding it back from
+   the first pod (update-pending names its env).  The scheduler places
+   the gang on the card's pool as a bypass claim (unmanaged capacity)
+   before its StatefulSet asks for a pod.  Gates: the Notebook update
+   carrying the placement intent before the first StatefulSet event of
+   1 replica on the apiserver's stream, the
    StatefulSet's nodeSelector naming the pool,
    notebook_warmpool_hits_total{bypass} 1, one StatefulSet of 1
    replica, one pod bound to the node, nvidia.com/gpu 1 used of the
@@ -242,11 +261,20 @@ non-zero without its result line):
    runs it, and writes its request into the signal directory; the hook
    saves through the local backend and acknowledges, the loop exits and
    the pipeline closes, and the preStop command must exit 0 on the ack
-   (its wait from request to ack printed).  Removing the stop annotation
-   makes the controller recreate the pod, with the same resolved env,
-   preStop command and node (a gate), Healthy once running; the
+   (its wait from request to ack printed).  The cull's stop let the
+   pending update through: removing the stop annotation makes the
+   controller recreate the pod, with the same resolved env, preStop
+   command and node and now the CA bundle (gates: its volume, mount and
+   env, each of SSL_CERT_FILE and its siblings resolved to a file whose
+   bytes are the bundle's, no update-pending left), Healthy once
+   running; the example's torchrun launch below gets that env; the
    controller's reconciles and wall ms by stage are printed and emitted
-   under "controller".  A truncated copy of the
+   under "controller", and one `odh` line prints the ODH objects made,
+   the lock's order, the restarted pod's sidecar and CA bundle, the
+   replicated pods' and the promoted Services' selectors, each
+   controller's reconciles and the ODH webhooks' admissions with their
+   wall ms, and the card's name and power limit (emitted under "odh").
+   A truncated copy of the
    checkpoint as step 7 and a leftover temp file are planted; a fresh
    setup from another seed restores (step 6, both deleted) and runs the
    pipeline's batches 7-12.  Then three drills on the same pod, the
@@ -299,7 +327,9 @@ non-zero without its result line):
    node joins in its own pool, and a CR of two replicas of the same
    one-card gang (spec.replication {2, antiAffine}) is placed, replica 0
    on the card's node in card-pool and replica 1, by the anti-affinity,
-   on the second node.  The base is drill 3's bytes, put with writer
+   on the second node; the CR carries inject-auth, and both replicas'
+   pods carry the sidecar and the CA bundle from their first start.
+   The base is drill 3's bytes, put with writer
    epoch 1 beside the rest of drill 3; two delta records (steps 11 and
    12: the step, the batch's index, the bits of run A's loss) follow
    with epoch 1 and the expected sequence, before the failure.  The
@@ -310,8 +340,13 @@ non-zero without its result line):
    store's fence to 2 and names replica 1 (epoch 2, primary 1,
    promoted); a zombie write at epoch 1 raises StaleWriterError;
    notebook_promotions_total{promoted} and
-   notebook_replication_fenced_writes_total read 1; no restart,
-   migration or attempt is charged.  The promoted runtime restores the
+   notebook_replication_fenced_writes_total read 1; the plain Service
+   and the kube-rbac-proxy Service both select replica 1's gang; no
+   migration is charged, nothing to the promoted gang, and the demoted
+   gang rejoins as a follower (one pod-failed restart and one attempt
+   of gang 0, its failed pod the only one deleted), which the proxy
+   Service's write brings forward from the next resync.  The promoted
+   runtime restores the
    base part of its verified state into a setup from a fourth seed and
    replays the records on the card: each loss bit-equal to its record's,
    20/10/10 flash launches a step, the final parameters bit-equal to
@@ -329,8 +364,9 @@ non-zero without its result line):
    each part and each load, and the process's peak before and after.
    Then one dcp save and restore of the mesh setup on a world-1 NCCL
    group: a fresh mesh setup resumes it for 2 steps against the
-   uninterrupted mesh run.  Beside that round (started before it,
-   collected after it), side by side, two launches of the example, no
+   uninterrupted mesh run.  Beside the drills and that round (started
+   before the drills, collected after the round), side by side, two
+   launches of the example, no
    flag: `python -m torch.distributed.run -m
    kubeflow_tpu_torch.examples.train_llm` with the rendered PET_* env,
    its group formed by distributed_init under torchrun, and the bare
@@ -399,6 +435,7 @@ head-dim-256 flash kernels as entries of their own,
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import functools
 import io
@@ -538,6 +575,14 @@ NB_PREEMPT_STEP, NB_BEN_HOLD_S = 10, 60.0
 # anti-affine, replica 1 on a second GPU node in its own node pool; the
 # promoted replica restores into a setup from a fourth seed
 NB_REP, NB_STANDBY_POOL = "chip-smoke-rep", "standby-pool"
+# the ODH plane: the controller's (central) namespace, where the
+# notebooks' HTTPRoutes live, and the one PEM of the phase's namespace's
+# odh-trusted-ca-bundle ConfigMap (structurally valid: a DER SEQUENCE in
+# base64, as the reference's tests make one)
+NB_ODH_NAMESPACE = "opendatahub"
+NB_CA_PEM = ("-----BEGIN CERTIFICATE-----\n" + base64.b64encode(
+    b"\x30\x82\x01\x0a" + b"chip-smoke".ljust(32, b"\x00")).decode()
+    + "\n-----END CERTIFICATE-----")
 FLASH_REPLACES = {
     "flash_fwd": "kubeflow_tpu/ops/attention.py:173 -> jax/experimental/"
                  "pallas/ops/tpu/flash_attention.py:758",
@@ -3108,8 +3153,13 @@ class NotebookController:
     start containers by itself: `start()` and `ready()` mark the pod
     running once its env is resolved.  `stream` keeps the apiserver's
     events in order (the gang's restore intent, its StatefulSet's restore
-    env, the pod deletes), and `cost` each stage's reconciles and wall ms
-    of controller work."""
+    env and replicas, the reconciliation lock, the pod creates and
+    deletes), and `cost` each stage's reconciles and wall ms of controller
+    work.  The ODH plane runs in the same manager (`OdhConfig` set
+    here, so that the run reads no env): the CR carries inject-auth, the
+    namespace an odh-trusted-ca-bundle ConfigMap, and `timing` counts
+    each controller's reconciles and wall ms and the ODH webhooks'
+    admissions and wall ms."""
 
     def __init__(self, device_name: str, tmp: Path):
         import torch
@@ -3119,13 +3169,16 @@ class NotebookController:
         from kubeflow_tpu_torch.core.jupyter import FakeJupyterState
         from kubeflow_tpu_torch.gpu import topology
         from kubeflow_tpu_torch.gpu.device_plugin import label_gpu_node
-        from kubeflow_tpu_torch.kube import KubeObject
+        from kubeflow_tpu_torch.kube import KubeObject, ObjectMeta
         from kubeflow_tpu_torch.main import build_manager
+        from kubeflow_tpu_torch.odh import constants as O
         from kubeflow_tpu_torch.utils.clock import FakeClock
-        from kubeflow_tpu_torch.utils.config import CoreConfig
+        from kubeflow_tpu_torch.utils.config import CoreConfig, OdhConfig
 
         self.tmp = tmp
         self.cost = {"reconciles": 0, "wall_ms": 0.0, "stages": {}}
+        self.timing: dict = {}
+        self.odh: dict = {}
         self.deleted = []
         self.stream = []
         self.accelerator = topology.accelerator_from_device_name(device_name)
@@ -3144,7 +3197,9 @@ class NotebookController:
                 checkpoint_store_uri=f"file://{tmp / 'store'}",
                 enable_slice_scheduler=True, warmpool_provision_s=3600.0)
             self.mgr, self.api, self.cluster, self.metrics = build_manager(
-                self.cfg, clock=FakeClock(), jupyter=self.jupyter)
+                self.cfg, clock=FakeClock(), jupyter=self.jupyter,
+                odh_cfg=OdhConfig(controller_namespace=NB_ODH_NAMESPACE))
+            self._time_controllers()
             self.cluster.auto_ready = False
             self.cluster.add_node(NB_NODE,
                                   labels={K.GKE_NODEPOOL_LABEL: NB_POOL},
@@ -3154,9 +3209,15 @@ class NotebookController:
                            accelerator=self.accelerator)
             self.api.watch(self._on_event, kinds=[
                 "Notebook", "StatefulSet", "Pod", K.TENANTQUOTA_KIND])
+            self.api.create(KubeObject(
+                api_version="v1", kind="ConfigMap",
+                metadata=ObjectMeta(name=O.ODH_TRUSTED_CA_BUNDLE_CONFIGMAP,
+                                    namespace=NB_NAMESPACE),
+                body={"data": {O.TRUSTED_CA_BUNDLE_FILE: NB_CA_PEM}}))
             self.api.create(KubeObject.from_dict(Notebook.new(
                 NB_NAME, NB_NAMESPACE, gpu=GPUSpec(self.accelerator, 1),
-                priority="low").obj))
+                priority="low",
+                annotations={O.ANNOTATION_INJECT_AUTH: "true"}).obj))
             self.run()
             # the culler wakes on Notebook events only, and its look at
             # the new CR came before the gang gate let the pod exist (the
@@ -3164,6 +3225,29 @@ class NotebookController:
             # culler, as a manager's periodic one, lets it see the pod
             self.mgr.enqueue_all("culling")
             self.run()
+
+    def _time_controllers(self) -> None:
+        """Count each controller's reconciles and wall ms, and the two ODH
+        webhooks' admissions and wall ms (an admission inside a
+        reconcile's write counts in both), as they run."""
+        def timed(key, fn):
+            @functools.wraps(fn)
+            def call(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    count = self.timing.setdefault(key, [0, 0.0])
+                    count[0] += 1
+                    count[1] += (time.perf_counter() - t0) * 1e3
+            return call
+
+        for reg in self.mgr._registrations:
+            reg.reconciler.reconcile = timed(reg.name,
+                                             reg.reconciler.reconcile)
+        for hook in self.api._mutating + self.api._validating:
+            if hook.name in ("mutate-notebook-v1", "validate-notebook-v1"):
+                hook.handler = timed("odh-webhooks", hook.handler)
 
     @contextlib.contextmanager
     def stage(self, name: str):
@@ -3179,10 +3263,13 @@ class NotebookController:
 
     def _on_event(self, ev) -> None:
         from kubeflow_tpu_torch.core import constants as K
+        from kubeflow_tpu_torch.odh import constants as O
 
         obj = ev.obj
         if obj.kind == "Notebook":
             ann = obj.metadata.annotations
+            self.stream.append(("lock", obj.name, ann.get(K.STOP_ANNOTATION)
+                                == O.RECONCILIATION_LOCK_VALUE))
             if obj.name == NB_REP:
                 rep = (obj.body.get("status") or {}).get("replication") \
                     or {}
@@ -3202,7 +3289,7 @@ class NotebookController:
                    obj.spec["template"]["spec"]["containers"][0]["env"]}
             self.stream.append(
                 ("sts", env.get(K.ENV_CHECKPOINT_RESTORE_GENERATION),
-                 obj.name, ev.type.value))
+                 obj.name, ev.type.value, obj.spec.get("replicas")))
         elif obj.kind == K.TENANTQUOTA_KIND:
             # the phase of the write-ahead record naming this CR victim
             st = obj.body.get("status") or {}
@@ -3214,6 +3301,8 @@ class NotebookController:
         elif ev.type.value == "DELETED":
             self.deleted.append(obj)
             self.stream.append(("deleted", obj.name, obj.metadata.uid))
+        elif obj.kind == "Pod" and ev.type.value == "ADDED":
+            self.stream.append(("pod", obj.name))
 
     def run(self, advance_s: float = 0.0) -> None:
         self.cost["reconciles"] += self.mgr.advance(advance_s) \
@@ -3226,26 +3315,48 @@ class NotebookController:
         return self.api.get("Notebook", NB_NAMESPACE, NB_NAME).status
 
     def resolve(self, pod) -> dict:
-        """`pod`'s main container env resolved as the kubelet would from
+        """`pod`'s main container (the one named after its notebook, as
+        the ODH webhook finds it) env resolved as the kubelet would from
         the pod object itself (its pod-index label among them): the
         master's DNS name as 127.0.0.1, its rendered port 29500 as a free
         one (29500 may be taken on this host), each volume mount a
-        directory under the phase's temporary directory."""
+        directory under the phase's temporary directory, holding the
+        files of a ConfigMap volume's ConfigMap (the CA bundle's among
+        them), and a path under a mount mapped into its directory."""
         from kubeflow_tpu_torch.core import constants as K
         from kubeflow_tpu_torch.gpu import env as gpuenv
 
         headless = self.api.get("Service", NB_NAMESPACE,
                                 gpuenv.headless_service_name(NB_NAME))
-        main = pod.spec["containers"][0]
+        name = pod.metadata.labels[K.NOTEBOOK_NAME_LABEL]
+        main = next(c for c in pod.spec["containers"]
+                    if c["name"] == name)
         env = gpuenv.resolve_env(main["env"], {
             "name": pod.name, "namespace": pod.namespace,
             "labels": pod.metadata.labels,
             "annotations": pod.metadata.annotations})
+        volumes = {v["name"]: v for v in pod.spec.get("volumes") or []}
         mounts = {m["mountPath"]: self.tmp / "pod" / m["name"]
                   for m in main["volumeMounts"]}
-        for path in mounts.values():
+        for m in main["volumeMounts"]:
+            path = mounts[m["mountPath"]]
             path.mkdir(parents=True, exist_ok=True)
-        env = {k: str(mounts.get(v, v)) for k, v in env.items()}
+            source = (volumes.get(m["name"]) or {}).get("configMap")
+            cm = source and self.api.try_get("ConfigMap", pod.namespace,
+                                             source["name"])
+            if cm:
+                data = cm.body.get("data") or {}
+                items = source.get("items") or [
+                    {"key": k, "path": k} for k in data]
+                for item in items:
+                    (path / item["path"]).write_text(data[item["key"]])
+
+        def mapped(value: str) -> str:
+            for mount, path in mounts.items():
+                if value == mount or value.startswith(mount + "/"):
+                    return str(path) + value[len(mount):]
+            return value
+        env = {k: mapped(v) for k, v in env.items()}
         rendered_port = env["PET_MASTER_PORT"]
         env.update(PET_MASTER_ADDR="127.0.0.1",
                    PET_MASTER_PORT=str(_free_port()))
@@ -3287,13 +3398,14 @@ class NotebookController:
         peak = GPU_PEAKS.get(self.device_name)
         gpus = {kind: main["resources"][kind].get(K.GPU_RESOURCE)
                 for kind in ("requests", "limits")}
-        # the gang scheduler placed the gang before any StatefulSet
-        # existed: the intent's Notebook update precedes the first
-        # StatefulSet event on the apiserver's stream
+        # the gang scheduler placed the gang before its StatefulSet asked
+        # for a pod: the intent's Notebook update precedes the first
+        # StatefulSet event of 1 replica on the apiserver's stream (the
+        # reconciliation lock renders it at 0 replicas first)
         placed_at = next((i for i, e in enumerate(self.stream)
                           if e[:3] == ("placement", NB_NAME, True)), None)
         sts_at = next((i for i, e in enumerate(self.stream)
-                       if e[0] == "sts"), None)
+                       if e[0] == "sts" and e[4]), None)
         intent = json.loads(self.api.get(
             "Notebook", NB_NAMESPACE, NB_NAME).metadata.annotations.get(
                 K.ANNOTATION_PLACEMENT, "{}"))
@@ -3341,7 +3453,159 @@ class NotebookController:
                        f"{self.status().get('sliceHealth')}")
         if bad:
             raise RuntimeError("controller: " + "; ".join(bad))
+        self.odh["admitted"] = self._odh_admitted(pod)
         return rendered
+
+    def _odh_objects(self, name: str) -> dict:
+        """The ODH plane's objects of the CR `name`, each with its owner
+        (the kind and name of its controller reference, or None), and
+        the kube-rbac-proxy Service's selector."""
+        from kubeflow_tpu_torch.odh import constants as O
+
+        nb = self.api.get("Notebook", NB_NAMESPACE, name)
+
+        def owner(obj):
+            if obj is None:
+                return "missing"
+            ref = obj.metadata.controller_owner()
+            if ref is None:
+                return None
+            return (ref.kind, ref.name, ref.uid == nb.metadata.uid)
+
+        wanted = {
+            ("HTTPRoute", NB_ODH_NAMESPACE, f"nb-{NB_NAMESPACE}-{name}"),
+            ("ReferenceGrant", NB_NAMESPACE, O.REFERENCEGRANT_NAME),
+            ("ClusterRoleBinding", "",
+             f"{name}-rbac-{NB_NAMESPACE}-auth-delegator"),
+            ("ServiceAccount", NB_NAMESPACE, name),
+            ("Service", NB_NAMESPACE, name + O.KUBE_RBAC_PROXY_SERVICE_SUFFIX),
+            ("ConfigMap", NB_NAMESPACE, name + O.KUBE_RBAC_PROXY_CONFIG_SUFFIX),
+            ("ConfigMap", NB_NAMESPACE,
+             O.WORKBENCH_TRUSTED_CA_BUNDLE_CONFIGMAP),
+            ("NetworkPolicy", NB_NAMESPACE, f"{name}-ctrl-np"),
+            ("NetworkPolicy", NB_NAMESPACE,
+             name + O.KUBE_RBAC_PROXY_NETWORK_POLICY_SUFFIX),
+            ("NetworkPolicy", NB_NAMESPACE, f"{name}-gpu-workers-np")}
+        out = {f"{kind}/{n}": owner(self.api.try_get(kind, ns, n))
+               for kind, ns, n in sorted(wanted)}
+        route = self.api.try_get("HTTPRoute", NB_ODH_NAMESPACE,
+                                 f"nb-{NB_NAMESPACE}-{name}")
+        proxy = self.api.try_get("Service", NB_NAMESPACE,
+                                 name + O.KUBE_RBAC_PROXY_SERVICE_SUFFIX)
+        return {"owners": out,
+                "backend": route and route.spec["rules"][0]["backendRefs"][0],
+                "proxy_selector": proxy and proxy.spec["selector"],
+                "finalizers": list(nb.metadata.finalizers)}
+
+    def _odh_pod(self, pod) -> dict:
+        """What the ODH webhook put into `pod`: the kube-rbac-proxy
+        sidecar, the ServiceAccount, and the CA bundle's volume, mount
+        and env, resolved."""
+        from kubeflow_tpu_torch.odh import constants as O
+
+        containers = {c["name"]: c for c in pod.spec["containers"]}
+        main = containers[pod.metadata.labels["notebook-name"]]
+        sidecar = containers.get(O.KUBE_RBAC_PROXY_CONTAINER_NAME) or {}
+        volumes = {v["name"]: v for v in pod.spec.get("volumes") or []}
+        env = self.resolve(pod)["env"]
+        files = {k: Path(env[k]) for k in O.CA_BUNDLE_ENV_VARS if k in env}
+        bundle = self.api.get(
+            "ConfigMap", NB_NAMESPACE, O.WORKBENCH_TRUSTED_CA_BUNDLE_CONFIGMAP
+        ).body["data"][O.TRUSTED_CA_BUNDLE_FILE]
+        return {
+            "containers": sorted(containers),
+            "sidecar_ports": [p["containerPort"]
+                              for p in sidecar.get("ports") or []],
+            "service_account": pod.spec.get("serviceAccountName"),
+            "ca_volume": (volumes.get(O.TRUSTED_CA_BUNDLE_VOLUME) or {}).get(
+                "configMap", {}).get("name"),
+            "ca_mount": [m["mountPath"] for m in main["volumeMounts"]
+                         if m["name"] == O.TRUSTED_CA_BUNDLE_VOLUME],
+            "ca_env": sorted(files),
+            "ca_files_equal_bundle": bool(files) and all(
+                f.is_file() and f.read_text() == bundle
+                for f in files.values()),
+            "bundle_is_the_pem": bundle == NB_CA_PEM}
+
+    def _odh_admitted(self, pod) -> dict:
+        """The ODH plane's gates on the CR's first pod: the lock stamped
+        on create and lifted before the StatefulSet asked for a pod; the
+        sidecar; the route to the proxy on :8443, the ReferenceGrant, the
+        ClusterRoleBinding and the three NetworkPolicies, owned as the
+        reference owns them; the CA bundle built from the namespace's
+        PEM in the reconcile that lifted the lock, and so held back from
+        this pod by the webhook's restart blocking (update-pending),
+        until a restart lets it through."""
+        from kubeflow_tpu_torch.odh import constants as O
+
+        def first(pred):
+            return next((i for i, e in enumerate(self.stream) if pred(e)),
+                        None)
+
+        order = {
+            "lock_stamped": first(lambda e: e == ("lock", NB_NAME, True)),
+            "lock_lifted": first(lambda e: e == ("lock", NB_NAME, False)),
+            "statefulset_of_1": first(lambda e: e[0] == "sts"
+                                      and e[2] == NB_NAME and e[4]),
+            "pod": first(lambda e: e == ("pod", f"{NB_NAME}-0"))}
+        nb = self.api.get("Notebook", NB_NAMESPACE, NB_NAME)
+        out = {"order": order, **self._odh_objects(NB_NAME),
+               "pod": self._odh_pod(pod),
+               "update_pending": nb.metadata.annotations.get(
+                   O.ANNOTATION_UPDATE_PENDING, "")}
+        bad = []
+        # (the fake cluster makes the pod inside the StatefulSet's write,
+        # so the pod's event may reach the stream before the write's)
+        if None in order.values() or not (
+                order["lock_stamped"] < order["lock_lifted"]
+                < min(order["statefulset_of_1"], order["pod"])) \
+                or O.STOP_ANNOTATION in nb.metadata.annotations:
+            bad.append(f"the lock's order {order}")
+        cr = ("Notebook", NB_NAME, True)
+        want_owners = {
+            f"ClusterRoleBinding/{NB_NAME}-rbac-{NB_NAMESPACE}-"
+            f"auth-delegator": None,
+            f"ConfigMap/{NB_NAME}{O.KUBE_RBAC_PROXY_CONFIG_SUFFIX}": cr,
+            f"ConfigMap/{O.WORKBENCH_TRUSTED_CA_BUNDLE_CONFIGMAP}": None,
+            f"HTTPRoute/nb-{NB_NAMESPACE}-{NB_NAME}": None,
+            f"NetworkPolicy/{NB_NAME}-ctrl-np": cr,
+            f"NetworkPolicy/{NB_NAME}-gpu-workers-np": cr,
+            f"NetworkPolicy/{NB_NAME}{O.KUBE_RBAC_PROXY_NETWORK_POLICY_SUFFIX}":
+                cr,
+            f"ReferenceGrant/{O.REFERENCEGRANT_NAME}": None,
+            f"Service/{NB_NAME}{O.KUBE_RBAC_PROXY_SERVICE_SUFFIX}": cr,
+            f"ServiceAccount/{NB_NAME}": cr}
+        if out["owners"] != want_owners:
+            bad.append(f"objects and owners {out['owners']}")
+        if out["backend"] != {"name": NB_NAME
+                              + O.KUBE_RBAC_PROXY_SERVICE_SUFFIX,
+                              "namespace": NB_NAMESPACE,
+                              "port": O.KUBE_RBAC_PROXY_PORT}:
+            bad.append(f"the HTTPRoute's backend {out['backend']}")
+        if sorted(out["finalizers"]) != sorted([
+                O.HTTPROUTE_FINALIZER, O.REFERENCEGRANT_FINALIZER,
+                O.KUBE_RBAC_PROXY_FINALIZER]):
+            bad.append(f"finalizers {out['finalizers']}")
+        odh_pod = out["pod"]
+        if (odh_pod["containers"], odh_pod["sidecar_ports"],
+                odh_pod["service_account"]) != (
+                sorted([NB_NAME, O.KUBE_RBAC_PROXY_CONTAINER_NAME]),
+                [O.KUBE_RBAC_PROXY_PORT], NB_NAME):
+            bad.append(f"the pod's sidecar {odh_pod}")
+        if odh_pod["ca_volume"] or odh_pod["ca_env"] \
+                or not odh_pod["bundle_is_the_pem"] \
+                or "PIP_CERT" not in out["update_pending"]:
+            bad.append(f"the CA bundle on the first pod {odh_pod}, "
+                       f"update-pending {out['update_pending']!r}")
+        print(f"odh admitted: lock stamped at event "
+              f"{order['lock_stamped']}, lifted at {order['lock_lifted']}, "
+              f"StatefulSet of 1 replica at {order['statefulset_of_1']}, "
+              f"pod at {order['pod']}; objects {out['owners']}; route "
+              f"backend {out['backend']}; pod {odh_pod}; update-pending "
+              f"{out['update_pending'][:80]!r}", flush=True)
+        if bad:
+            raise RuntimeError("odh: " + "; ".join(bad))
+        return out
 
     def cull(self) -> dict:
         """Time passes beyond the idle limit with the kernel idle: the
@@ -3380,8 +3644,10 @@ class NotebookController:
 
     def unstop(self, before: dict) -> dict:
         """Remove the stop annotation: the controller recreates the pod,
-        which must get the same rendered env and checkpoint contract."""
+        which must get the same rendered env and checkpoint contract, and
+        now the CA bundle, which the cull's stop let through."""
         from kubeflow_tpu_torch.core import constants as K
+        from kubeflow_tpu_torch.odh import constants as O
 
         with self.stage("unstop"):
             nb = self.api.get("Notebook", NB_NAMESPACE, NB_NAME)
@@ -3396,12 +3662,16 @@ class NotebookController:
             raise RuntimeError("controller: no pod after the unstop")
         after = self.resolve(pod)
         same = {k: after[k] == before[k]
-                for k in ("env_names", "pre_stop", "node", "resources")}
-        # the env but the master port, which each resolve maps afresh
+                for k in ("pre_stop", "node", "resources")}
+        # the env but the master port, which each resolve maps afresh, and
+        # the CA bundle's, which the restart added
+        fresh = {"PET_MASTER_PORT", *O.CA_BUNDLE_ENV_VARS}
+        same["env_names"] = [n for n in after["env_names"]
+                             if n not in fresh] == \
+            [n for n in before["env_names"] if n not in fresh]
         same["env"] = {k: v for k, v in after["env"].items()
-                       if k != "PET_MASTER_PORT"} == \
-            {k: v for k, v in before["env"].items()
-             if k != "PET_MASTER_PORT"}
+                       if k not in fresh} == \
+            {k: v for k, v in before["env"].items() if k not in fresh}
         # an unstopped notebook restores nothing: no restore stamp
         same["no_restore_stamp"] = not any(
             k in pod.metadata.annotations
@@ -3413,6 +3683,24 @@ class NotebookController:
         if not all(same.values()) or health != "Healthy":
             raise RuntimeError(f"controller: the recreated pod differs "
                                f"{same}, or its health is {health}")
+        # the pending update went through at the cull's stop: the
+        # recreated pod carries the CA bundle, its env naming files whose
+        # bytes are the bundle's
+        odh_pod = self._odh_pod(pod)
+        pending = self.api.get("Notebook", NB_NAMESPACE, NB_NAME
+                               ).metadata.annotations.get(
+                                   O.ANNOTATION_UPDATE_PENDING)
+        self.odh["restarted"] = {"pod": odh_pod, "update_pending": pending}
+        print(f"odh restarted: pod {odh_pod}, update-pending {pending!r}",
+              flush=True)
+        if (odh_pod["ca_volume"], odh_pod["ca_mount"], odh_pod["ca_env"],
+                odh_pod["ca_files_equal_bundle"],
+                odh_pod["sidecar_ports"], pending) != (
+                O.WORKBENCH_TRUSTED_CA_BUNDLE_CONFIGMAP,
+                [O.TRUSTED_CA_MOUNT_PATH], sorted(O.CA_BUNDLE_ENV_VARS),
+                True, [O.KUBE_RBAC_PROXY_PORT], None):
+            raise RuntimeError(f"odh: the recreated pod {odh_pod}, "
+                               f"update-pending {pending!r}")
         return after
 
     def busy(self) -> None:
@@ -3822,6 +4110,7 @@ class NotebookController:
         )
         from kubeflow_tpu_torch.core import constants as K
         from kubeflow_tpu_torch.kube import KubeObject
+        from kubeflow_tpu_torch.odh import constants as O
 
         with self.stage("replicate"):
             nb = self.api.get("Notebook", NB_NAMESPACE, NB_NAME)
@@ -3836,7 +4125,8 @@ class NotebookController:
                 "last_activity": "2023-01-01T00:00:00Z", "connections": 1}])
             self.api.create(KubeObject.from_dict(Notebook.new(
                 NB_REP, NB_NAMESPACE, gpu=GPUSpec(self.accelerator, 1),
-                replication=ReplicationSpec(2, anti_affine=True)).obj))
+                replication=ReplicationSpec(2, anti_affine=True),
+                annotations={O.ANNOTATION_INJECT_AUTH: "true"}).obj))
             self.run()
             for pod in (f"{NB_REP}-0", f"{NB_REP}-r1-0"):
                 self.cluster.mark_running(NB_NAMESPACE, pod)
@@ -3863,6 +4153,23 @@ class NotebookController:
                 (out["replication"] or {}).get("epoch") != 1 or \
                 (out["replication"] or {}).get("primary") != 0:
             raise RuntimeError(f"controller: the replicated CR {out}")
+        # the CA bundle existed when this CR was created: both replicas'
+        # pods carry it from their first start, with the sidecar
+        pods = {name: self._odh_pod(self.api.get("Pod", NB_NAMESPACE, name))
+                for name in (f"{NB_REP}-0", f"{NB_REP}-r1-0")}
+        self.odh["replicated"] = {"pods": pods,
+                                  **self._odh_objects(NB_REP)}
+        for name, odh_pod in pods.items():
+            if (odh_pod["ca_volume"], odh_pod["ca_files_equal_bundle"],
+                    odh_pod["sidecar_ports"]) != (
+                    O.WORKBENCH_TRUSTED_CA_BUNDLE_CONFIGMAP, True,
+                    [O.KUBE_RBAC_PROXY_PORT]):
+                raise RuntimeError(f"odh: the replicated pod {name} "
+                                   f"{odh_pod}")
+        if self.odh["replicated"]["proxy_selector"] != {
+                K.STATEFULSET_LABEL: NB_REP}:
+            raise RuntimeError(f"odh: the replicated CR's proxy selects "
+                               f"{self.odh['replicated']['proxy_selector']}")
         return out
 
     def catch_up(self) -> dict:
@@ -3884,13 +4191,19 @@ class NotebookController:
         card drill's): the engine elects replica 1, commits the
         write-ahead record, raises the store's fence and flips the
         primary.  Then a zombie write from replica 0 at epoch 1 must be
-        refused."""
+        refused.  The ODH reconciler moves the kube-rbac-proxy Service to
+        the new primary, and that owned Service's write runs the notebook
+        controller at once: the gangs' roles are rendered anew and the
+        demoted gang rejoins as a follower, one restart of gang 0 and
+        nothing charged to the promoted gang (without the ODH plane the
+        rejoin waited for the next resync)."""
+        from kubeflow_tpu_torch.core import constants as K
         from kubeflow_tpu_torch.core.sessionstate import StaleWriterError
 
         store = self.cluster.session_store
         restarts = dict(self.metrics.slice_restarts.collect())
         migrations = dict(self.metrics.migrations.collect())
-        start = len(self.stream)
+        start, deleted = len(self.stream), len(self.deleted)
         with self.stage("promote"):
             self.cluster.fail_pod(NB_NAMESPACE, f"{NB_REP}-0",
                                   "GPUUnhealthy")
@@ -3926,8 +4239,12 @@ class NotebookController:
                 self.metrics.promotion_duration_seconds.sum_value(ns),
             "attempts": {g: len(st.get("attempts") or [])
                          for g, st in recovery.items()},
-            "restarts_unchanged":
-                dict(self.metrics.slice_restarts.collect()) == restarts,
+            "restarts_added": {
+                reason: n - restarts.get((ns, reason), 0.0)
+                for (_, reason), n in
+                self.metrics.slice_restarts.collect().items()
+                if n != restarts.get((ns, reason), 0.0)},
+            "pods_deleted": [o.name for o in self.deleted[deleted:]],
             "migrations_unchanged":
                 dict(self.metrics.migrations.collect()) == migrations,
             "follower_deleted": [o.name for o in self.deleted
@@ -3948,13 +4265,27 @@ class NotebookController:
             bad.append(f"promotions {out['promoted']} (no candidate "
                        f"{out['no_candidate']}), fenced writes "
                        f"{out['fenced_writes']}")
-        if any(out["attempts"].values()) or not out["restarts_unchanged"] \
+        if out["attempts"] != {"0": 1} \
+                or out["restarts_added"] != {"pod-failed": 1.0} \
+                or out["pods_deleted"] != [f"{NB_REP}-0"] \
                 or not out["migrations_unchanged"] \
                 or out["follower_deleted"]:
-            bad.append(f"attempts {out['attempts']}, restarts unchanged "
-                       f"{out['restarts_unchanged']}, migrations unchanged "
+            bad.append(f"attempts {out['attempts']}, restarts added "
+                       f"{out['restarts_added']}, pods deleted "
+                       f"{out['pods_deleted']}, migrations unchanged "
                        f"{out['migrations_unchanged']}, follower pods "
                        f"deleted {out['follower_deleted']}")
+        # the routing follows the primary: the plain Service and, with
+        # auth, the kube-rbac-proxy Service the HTTPRoute sends to
+        selectors = {svc: self.api.get("Service", NB_NAMESPACE, svc).spec[
+                         "selector"].get(K.STATEFULSET_LABEL)
+                     for svc in (NB_REP, NB_REP + "-kube-rbac-proxy")}
+        out["selectors"] = selectors
+        self.odh["promoted"] = selectors
+        print(f"odh promoted: Service selectors {selectors}", flush=True)
+        if set(selectors.values()) != {f"{NB_REP}-r1"}:
+            bad.append(f"the Services after the promotion select "
+                       f"{selectors}")
         if bad:
             raise RuntimeError("controller: the promotion: "
                                + "; ".join(bad))
@@ -4548,18 +4879,23 @@ def finish_pre_stop(started: dict) -> dict:
 
 def start_examples(rendered: dict, device_name: str) -> dict:
     """Launch the example side by side as a user runs it: in the pod,
-    torchrun with no flag, its world from the rendered PET_* env; on one
-    card, a bare launch, its group from the example's one-rank fallback.
-    One thread a launch waits for it, so that each one's seconds end at
-    its own exit."""
+    torchrun with no flag, its world from the rendered PET_* env and the
+    CA bundle's env (SSL_CERT_FILE and its siblings) naming the bundle's
+    file; on one card, a bare launch, its group from the example's
+    one-rank fallback.  One thread a launch waits for it, so that each
+    one's seconds end at its own exit."""
     from concurrent.futures import ThreadPoolExecutor
+
+    from kubeflow_tpu_torch.odh import constants as O
 
     rendezvous = {k: v for k, v in rendered["env"].items()
                   if k.startswith(("PET_", "GPU_"))}
+    ca = {k: rendered["env"][k] for k in O.CA_BUNDLE_ENV_VARS
+          if k in rendered["env"]}
     module = ["-m", "kubeflow_tpu_torch.examples.train_llm"]
     launches = {
         "torchrun": ([sys.executable, "-m", "torch.distributed.run"]
-                     + module, {**os.environ, **rendezvous},
+                     + module, {**os.environ, **rendezvous, **ca},
                      "distributed_init under torchrun"),
         "bare": ([sys.executable] + module, dict(os.environ),
                  "the one-rank fallback")}
@@ -4736,7 +5072,9 @@ def notebook_train_phase(device, device_name, smi: str) -> dict:
                 (rendered["pre_stop"], signals):
             raise RuntimeError(f"the culled pod's preStop {culled} is not "
                                f"the started one's {rendered}")
-        controller.unstop(rendered)
+        # the pod recreated on the unstop, with the CA bundle the cull's
+        # restart let through: the examples launch with its env
+        restarted = controller.unstop(rendered)
         path = local._step_path(NB_CULL_STEP)
         ckpt_bytes = path.stat().st_size
         del run_b
@@ -4776,17 +5114,22 @@ def notebook_train_phase(device, device_name, smi: str) -> dict:
         shutil.rmtree(tmp / "local")
         torch.cuda.empty_cache()
 
+        # the example's two launches start here and run beside the
+        # drills and the dcp round, which need neither of them (a TINY
+        # model: their time is the interpreters' and the launchers')
+        started = start_examples(restarted, device_name)
+
         # the self-healing engine's drills on the same pod, a drain
         # migration and a dead card, then the preemption drill
-        recovery = recovery_drills(controller, setup, pipeline, want, a,
-                                   state_a_fail, state_a_preempt, final_a,
-                                   expected, device, smi)
+        try:
+            recovery = recovery_drills(controller, setup, pipeline, want, a,
+                                       state_a_fail, state_a_preempt,
+                                       final_a, expected, device, smi)
+        except BaseException:
+            finish_examples(started, abort=True)
+            raise
         del state_a_fail, state_a_preempt, final_a
         torch.cuda.empty_cache()
-
-        # the example's two launches start here and run beside the dcp
-        # round, which needs neither of them
-        started = start_examples(rendered, device_name)
 
         # dcp: one save and restore of the mesh setup at world size 1 on
         # NCCL; a fresh mesh setup resumes it for 2 steps against the
@@ -4885,6 +5228,8 @@ def notebook_train_phase(device, device_name, smi: str) -> dict:
                    if k not in ("env", "signal_dir", "podinfo")},
         "render_s": render_s,
         "controller": {**controller.cost, "nvidia_smi": smi},
+        "odh": {**controller.odh, "timing": controller.timing,
+                "nvidia_smi": smi},
         "recovery": recovery,
         "pre_stop_returncode": pre_stop["rc"],
         "pre_stop_wait_s": pre_stop["wait_s"],
@@ -4892,6 +5237,20 @@ def notebook_train_phase(device, device_name, smi: str) -> dict:
         "pre_stop_wall_s": pre_stop["wall_s"],
         "phase_s": time.perf_counter() - phase_t0,
     }
+    timing = {k: [n, round(ms, 3)] for k, (n, ms) in
+              sorted(controller.timing.items())}
+    odh = controller.odh
+    objects = sorted(k for k, v in odh["admitted"]["owners"].items()
+                     if v != "missing")
+    replicas = {k: (v["ca_volume"], v["sidecar_ports"])
+                for k, v in odh["replicated"]["pods"].items()}
+    print(f"odh: objects made {objects}; lock stamped, lifted, StatefulSet "
+          f"of 1 replica, pod at events "
+          f"{list(odh['admitted']['order'].values())}; card pod after the "
+          f"restart {odh['restarted']['pod']}; replicated pods' CA volume "
+          f"and sidecar ports {replicas}; promoted Service selectors "
+          f"{odh['promoted']}; [reconciles or admissions, wall ms] by "
+          f"controller {timing}; {smi}", flush=True)
     print("notebook_train controller: " + "; ".join(
         f"{stage} {c['reconciles']} reconciles, {c['wall_ms']:.2f} ms"
         for stage, c in controller.cost["stages"].items())

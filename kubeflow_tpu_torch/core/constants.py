@@ -2,7 +2,7 @@
 
 The port's copy of the part of kubeflow_tpu/core/constants.py that
 core/{workload,notebook_controller,culling_controller,culler,selfheal,
-scheduler,preemption}.py, kube/cluster.py and odh/network.py read, plus the GPU's resource, the GPU
+scheduler,preemption}.py, kube/cluster.py and odh/ read, plus the GPU's resource, the GPU
 node's labels, the pod-index label and the checkpoint hook's writable
 signal directory.
 """
@@ -15,6 +15,8 @@ MAX_STATEFULSET_NAME_LENGTH = 52  # name + controller hash must fit 63 chars
 # annotations (user-facing API surface)
 STOP_ANNOTATION = "kubeflow-resource-stopped"
 ANNOTATION_NOTEBOOK_RESTART = "notebooks.opendatahub.io/notebook-restart"
+ANNOTATION_REWRITE_URI = "notebooks.kubeflow.org/http-rewrite-uri"
+ANNOTATION_HEADERS_REQUEST_SET = "notebooks.kubeflow.org/http-headers-request-set"
 LAST_ACTIVITY_ANNOTATION = "notebooks.kubeflow.org/last-activity"
 LAST_ACTIVITY_CHECK_TIMESTAMP_ANNOTATION = (
     "notebooks.kubeflow.org/last_activity_check_timestamp"

@@ -29,9 +29,8 @@ readiness and `sliceHealth` speak for the primary replica's gang only
 session store's fenced writes are counted into
 `notebook_replication_fenced_writes_total`.
 
-Not ported yet, and refused when turned on rather than skipped
-(`setup_core_controllers`), naming the `ROADMAP.md` queue 1 item that
-ports it: the Istio VirtualService (item 15).
+With USE_ISTIO on, the notebook also gets its Istio VirtualService
+(core/workload.py:generate_virtual_service), owned like its Services.
 """
 
 from __future__ import annotations
@@ -67,7 +66,7 @@ from ..kube import (
 )
 from ..utils import tracing
 from ..utils.clock import Clock
-from ..utils.config import CoreConfig, NotPortedError, not_ported
+from ..utils.config import CoreConfig, NotPortedError
 from . import constants as C
 from .metrics import NotebookMetrics
 from .scheduler import placement_covers, setup_scheduler
@@ -78,6 +77,7 @@ from .workload import (
     generate_headless_service,
     generate_service,
     generate_statefulsets,
+    generate_virtual_service,
 )
 
 logger = logging.getLogger("kubeflow_tpu_torch.core")
@@ -87,13 +87,6 @@ logger = logging.getLogger("kubeflow_tpu_torch.core")
 _TRACER = tracing.get_tracer("kubeflow_tpu_torch.core.notebook")
 
 API_VERSIONS = ("v1alpha1", "v1beta1", "v1")
-
-
-def check_config(cfg: CoreConfig) -> None:
-    """Refuse a config that turns on a part this port does not run."""
-    if cfg.use_istio:
-        raise NotPortedError(not_ported(
-            "USE_ISTIO (the VirtualService)", 15, "kubeflow_tpu/odh/"))
 
 
 def _admit_notebook(op: str, old: Optional[KubeObject],
@@ -183,12 +176,16 @@ class NotebookReconciler:
     def _render(self, nb: Notebook,
                 obj: KubeObject) -> tuple[list[KubeObject], list[KubeObject]]:
         """The renderer's dicts as owned KubeObjects: the workload
-        StatefulSets, then the Services (the headless one for a gang)."""
+        StatefulSets, then the Services (the headless one for a gang) and,
+        under USE_ISTIO, the VirtualService."""
         sets = [KubeObject.from_dict(d)
                 for d in generate_statefulsets(nb, self.workload_cfg)]
         services = [KubeObject.from_dict(generate_service(nb))]
         if nb.gpu is not None:
             services.append(KubeObject.from_dict(generate_headless_service(nb)))
+        if self.cfg.use_istio:
+            services.append(KubeObject.from_dict(
+                generate_virtual_service(nb, self.cfg)))
         for owned in sets + services:
             set_controller_reference(obj, owned)
         return sets, services
@@ -258,11 +255,14 @@ class NotebookReconciler:
                     pass
                 raise errors[0]
 
-            # Services (no-op detection against the informer cache: a
-            # converged notebook costs zero Service API calls per pass)
+            # Services and the VirtualService (no-op detection against
+            # the informer cache: a converged notebook costs zero API
+            # calls per pass)
             for svc in services:
-                rh.reconcile_object(self.api, svc, rh.copy_service_fields,
-                                    cache=self.cache)
+                rh.reconcile_object(
+                    self.api, svc, rh.copy_spec
+                    if svc.kind == "VirtualService"
+                    else rh.copy_service_fields, cache=self.cache)
 
         self._update_status(nb, obj, live_names)
 
@@ -704,10 +704,8 @@ def setup_core_controllers(
     core.culling_controller.setup_culling).  `session` overrides the
     store opened from CHECKPOINT_STORE_URI; `provisioner` (the
     FakeCluster standalone) turns warm-pool capacity up and down for the
-    gang scheduler.  Raises NotPortedError for a config that turns on a
-    part this port does not run."""
+    gang scheduler."""
     cfg = cfg or CoreConfig.from_env()
-    check_config(cfg)
     api = mgr.api
     api.register_admission(AdmissionHook(
         kinds=("Notebook",), handler=_admit_notebook,
@@ -757,7 +755,7 @@ def setup_core_controllers(
         "notebook",
         rec,
         for_kind="Notebook",
-        owns=["StatefulSet", "Service"],
+        owns=["StatefulSet", "Service", "VirtualService"],
         watches=[WatchSpec(kind="Pod", mapper=pod_to_request),
                  WatchSpec(kind="Node", mapper=node_to_requests)],
         # the notebook controller is the sole writer of Notebook status;
@@ -781,5 +779,5 @@ def setup_core_controllers(
 
 
 __all__ = ["EventReemitReconciler", "NotPortedError",
-           "NotebookReconciler", "check_config", "setup_core_controllers",
+           "NotebookReconciler", "setup_core_controllers",
            "workload_config"]

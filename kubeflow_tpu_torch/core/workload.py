@@ -6,7 +6,8 @@ plain manifest dicts (`apiVersion`, `kind`, `metadata`, `spec`).
 CPU path (no spec.gpu): the reference's, copied: one StatefulSet with
 replicas 0/1 from the stop annotation, label/annotation propagation with
 kubectl/notebook filtering, default workdir/port/NB_PREFIX, optional
-fsGroup, and a ClusterIP Service 80 -> 8888.
+fsGroup, a ClusterIP Service 80 -> 8888, and under USE_ISTIO the Istio
+VirtualService routing /notebook/{ns}/{name}/ to it.
 
 GPU path (spec.gpu): per replica gang an *indexed* StatefulSet with
 replicas = hosts (0 when stopped — gang-atomic, never partial), parallel
@@ -27,6 +28,7 @@ from dataclasses import dataclass
 
 from ..api.types import Notebook
 from ..gpu import env as gpuenv
+from ..utils.config import CoreConfig
 from . import constants as C
 
 PRE_STOP_COMMAND = ["python", "-m", "kubeflow_tpu_torch.runtime.checkpoint",
@@ -281,6 +283,14 @@ def generate_statefulsets(nb: Notebook, cfg: WorkloadConfig) -> list[dict]:
     return out
 
 
+def primary_replica(nb: Notebook) -> int:
+    """The replica whose gang serves the notebook: status.replication's
+    primary for a replicated notebook (it moves on a promotion), else 0."""
+    if nb.replication is None:
+        return 0
+    return int((nb.status.get("replication") or {}).get("primary", 0))
+
+
 def generate_service(nb: Notebook) -> dict:
     """ClusterIP Service 80 -> notebook port, name http-notebook (Istio-
     compatible port naming), selecting the (first) statefulset's pods
@@ -291,10 +301,7 @@ def generate_service(nb: Notebook) -> dict:
     port = C.DEFAULT_CONTAINER_PORT
     if containers and containers[0].get("ports"):
         port = int(containers[0]["ports"][0].get("containerPort", port))
-    primary = 0
-    if nb.replication is not None:
-        primary = int((nb.status.get("replication") or {}).get("primary", 0))
-    sts0 = gpuenv.statefulset_name(nb.name, 0, 1, primary)
+    sts0 = gpuenv.statefulset_name(nb.name, 0, 1, primary_replica(nb))
     return {
         "apiVersion": "v1",
         "kind": "Service",
@@ -341,6 +348,48 @@ def generate_headless_service(nb: Notebook) -> dict:
     }
 
 
+def generate_virtual_service(nb: Notebook, cfg: CoreConfig) -> dict:
+    """Istio VirtualService under USE_ISTIO
+    (notebook_controller.go:558-699): route
+    /notebook/{ns}/{name}/ through the configured gateway to the Service,
+    honoring the rewrite/headers annotations."""
+    prefix = f"/notebook/{nb.namespace}/{nb.name}/"
+    rewrite = nb.annotations.get(C.ANNOTATION_REWRITE_URI, "")
+    rewrite_uri = rewrite if rewrite.strip() else prefix
+    http_route: dict = {
+        "match": [{"uri": {"prefix": prefix}}],
+        "rewrite": {"uri": rewrite_uri},
+        "route": [
+            {
+                "destination": {
+                    "host": f"{nb.name}.{nb.namespace}.svc."
+                            f"{cfg.cluster_domain}",
+                    "port": {"number": C.DEFAULT_SERVING_PORT},
+                }
+            }
+        ],
+        "timeout": "300s",
+    }
+    headers = nb.annotations.get(C.ANNOTATION_HEADERS_REQUEST_SET, "")
+    if headers.strip():
+        try:
+            http_route["headers"] = {"request": {"set": json.loads(headers)}}
+        except ValueError:
+            pass  # malformed annotation ignored, as in the reference
+    return {
+        "apiVersion": "networking.istio.io/v1alpha3",
+        "kind": "VirtualService",
+        "metadata": {"name": f"notebook-{nb.namespace}-{nb.name}",
+                     "namespace": nb.namespace},
+        "spec": {
+            "hosts": [cfg.istio_host],
+            "gateways": [cfg.istio_gateway],
+            "http": [http_route],
+        },
+    }
+
+
 __all__ = ["PRE_STOP_COMMAND", "WorkloadConfig", "generate_headless_service",
-           "generate_service", "generate_statefulsets", "placement_of",
-           "pre_stop_command"]
+           "generate_service", "generate_statefulsets",
+           "generate_virtual_service", "placement_of", "pre_stop_command",
+           "primary_replica"]

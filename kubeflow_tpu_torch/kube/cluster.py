@@ -35,10 +35,14 @@ and stamps the freshness the promote verb elects by
 (ANNOTATION_REPLICA_GENERATION/SEQ/DIGEST).  A gang is slice 0 here
 too, so every replica's pods read the one chain.
 
+It plays OpenShift's ServiceAccount controller for the ODH plane
+(odh/controller.py): every new ServiceAccount gets a `-dockercfg` pull
+secret listed in its `imagePullSecrets`, which the reconciliation lock's
+removal waits on.
+
 Left out until the modules that use them are ported (`ROADMAP.md` queue
-1): the telemetry stamping for the data-plane rollup (item 16), the
-ServiceAccount pull-secret controller for the ODH controller (item 15),
-and the fault-plan exemption for fault plans (item 17).
+1): the telemetry stamping for the data-plane rollup (item 16) and the
+fault-plan exemption for fault plans (item 17).
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ from typing import Optional
 from ..core import constants as C
 from ..gpu.device_plugin import label_gpu_node
 from ..utils import invariants
-from .errors import NotFoundError
+from .errors import AlreadyExistsError, NotFoundError
 from .meta import KubeObject, ObjectMeta, set_controller_reference
 from .store import ApiServer, EventType, WatchEvent
 
@@ -116,7 +120,7 @@ class FakeCluster:
         # the data plane only reacts to these kinds — register filtered so
         # Notebook/Service/Event churn never reaches it
         api.watch(self._on_event,
-                  kinds=["StatefulSet", "Pod", "Node"])
+                  kinds=["StatefulSet", "Pod", "Node", "ServiceAccount"])
         # prime the accounting for pods that predate this cluster (a data
         # plane attached to an already-populated store)
         for pod in api.list("Pod"):
@@ -595,6 +599,8 @@ class FakeCluster:
                 self._index_pod(ev.obj)
         elif kind == "Node" and ev.type in (EventType.ADDED, EventType.MODIFIED):
             self._retry_pending_pods()
+        elif kind == "ServiceAccount" and ev.type == EventType.ADDED:
+            self._mint_pull_secret(ev.obj)
 
     # -- kubelet/scheduler -----------------------------------------------------
     def _reconcile_sts(self, namespace: str, name: str) -> None:
@@ -819,6 +825,32 @@ class FakeCluster:
             "observedGeneration": sts.metadata.generation,
         }
         self.api.update_status(sts)
+
+    # -- openshift service-account controller ---------------------------------
+    def _mint_pull_secret(self, sa: KubeObject) -> None:
+        """A new ServiceAccount's registry pull secret, listed in its
+        imagePullSecrets (the reference's `_mint_pull_secret`)."""
+        secret = KubeObject(
+            api_version="v1",
+            kind="Secret",
+            metadata=ObjectMeta(
+                name=f"{sa.name}-dockercfg",
+                namespace=sa.namespace,
+                annotations={"kubernetes.io/service-account.name": sa.name},
+            ),
+            body={"type": "kubernetes.io/dockercfg",
+                  "data": {".dockercfg": "e30="}},
+        )
+        try:
+            self.api.create(secret)
+        except AlreadyExistsError:
+            pass
+        live = self.api.get("ServiceAccount", sa.namespace, sa.name)
+        secrets = live.body.setdefault("imagePullSecrets", [])
+        if {"name": secret.name} not in secrets:
+            secrets.append({"name": secret.name})
+            self.api.update(live)
+
 
 def _ordinal_of(pod_name: str, sts_name: str) -> Optional[int]:
     prefix = sts_name + "-"

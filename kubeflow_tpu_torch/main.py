@@ -1,14 +1,19 @@
 """Manager entrypoint: `python -m kubeflow_tpu_torch.main`.
 
 The port of kubeflow_tpu/main.py's standalone path: one manager running
-the notebook controller, the event re-emitter and (with ENABLE_CULLING)
-the culler against the in-memory API server and the fake data plane, with
-the health/readiness/metrics HTTP side real.  Env vars are the config
-surface (utils/config.py), under the reference's names.
+the notebook controller, the event re-emitter, (with ENABLE_CULLING) the
+culler, and the ODH extension plane (odh/: its reconciler, its two
+admission webhooks in the API server's chain, and the TLS profile
+watcher, whose change stops the manager for a restart) against the
+in-memory API server and the fake data plane, with the
+health/readiness/metrics HTTP side real.  Env vars are the config surface
+(utils/config.py), under the reference's names.
 
 `--demo` creates a sample GPU notebook (`spec.gpu {--demo-accelerator,
 --demo-count}`) on fake GPU nodes sized to its gang and prints its status
-once it reads Healthy: the twin of `python -m kubeflow_tpu.main --demo`.
+once it reads Healthy, after the ODH reconciler has lifted the
+reconciliation lock the webhook stamped on it: the twin of
+`python -m kubeflow_tpu.main --demo`.
 
 Not ported yet (`ROADMAP.md` queue 1 item 17): the real-cluster backend
 (`--kubeconfig`, `--in-cluster`), leader election, the sharded fleet, the
@@ -34,8 +39,10 @@ from .core.metrics import NotebookMetrics
 from .core.notebook_controller import setup_core_controllers
 from .gpu import topology
 from .kube import ApiServer, FakeCluster, KubeObject, Manager
+from .odh.controller import setup_odh_controllers
+from .odh.tls_profile import SecurityProfileWatcher, fetch_apiserver_tls_profile
 from .utils.clock import Clock
-from .utils.config import CoreConfig
+from .utils.config import CoreConfig, OdhConfig
 
 PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4"
 OPENMETRICS_CONTENT_TYPE = \
@@ -149,14 +156,17 @@ def build_manager(
     core_cfg: Optional[CoreConfig] = None,
     clock: Optional[Clock] = None,
     jupyter=None,
+    odh_cfg: Optional[OdhConfig] = None,
 ):
     """Wire the standalone stack; returns (manager, api, cluster, metrics).
 
     `clock` (a FakeClock in tests and in the card's smoke run) drives the
     manager and every controller; `jupyter` is the culler's activity
     probe (`core.jupyter.FakeJupyterState` standalone; by default the
-    HTTP client of the reference)."""
+    HTTP client of the reference); `odh_cfg` configures the ODH plane
+    (`OdhConfig.from_env()` when not given)."""
     core_cfg = core_cfg or CoreConfig.from_env()
+    odh_cfg = odh_cfg or OdhConfig.from_env()
     api = ApiServer(history_size=core_cfg.watch_history_size)
     cluster = FakeCluster(api)
     mgr = Manager(api, clock=clock)
@@ -172,6 +182,21 @@ def build_manager(
     if rec.session is not None:
         cluster.attach_session_store(rec.session)
     setup_culling(mgr, core_cfg, jupyter, metrics)
+    setup_odh_controllers(mgr, odh_cfg)
+
+    # TLS posture: resolve at startup, restart-on-change (odh main.go:178-214,
+    # 324-340); in standalone mode the "restart" is a manager stop — the
+    # supervising process (Deployment) brings it back with the new profile
+    profile = fetch_apiserver_tls_profile(api)
+    log = logging.getLogger("kubeflow_tpu_torch")
+    log.info("TLS profile: %s (min %s)", profile.source, profile.min_version)
+
+    def on_change(old, new) -> None:
+        log.warning("TLS profile changed (%s -> %s); initiating graceful "
+                    "restart", old.min_version, new.min_version)
+        mgr.stop()
+
+    SecurityProfileWatcher(api, profile, on_change=on_change).setup(mgr)
     return mgr, api, cluster, metrics
 
 

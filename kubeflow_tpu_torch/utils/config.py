@@ -1,5 +1,5 @@
 """Env-var configuration surface: the port's copy of
-kubeflow_tpu/utils/config.py's `CoreConfig`.
+kubeflow_tpu/utils/config.py's `CoreConfig` and `OdhConfig`.
 
 The reference's de-facto config system is environment variables fed by
 kustomize params ConfigMaps; the same variable names bind into an
@@ -7,12 +7,12 @@ injectable Config object so tests don't mutate process env.  The port
 keeps the fields its controllers read, under the reference's env names,
 defaults and parses: among them the slice scheduler's gang gate, warm
 pool and tenancy layer (core/scheduler.py, core/preemption.py), and the
-switch of the Istio VirtualService, a tier it does not run yet, which
-`setup_core_controllers` refuses when on.  `from_env` refuses the env
-switch of any other tier that is not ported (`NOT_PORTED_SWITCHES`); a
+Istio VirtualService's switch, gateway and host.  `from_env` refuses the
+env switch of any tier that is not ported (`NOT_PORTED_SWITCHES`); a
 tier's tuning knobs are not read, as the reference reads none while the
 tier is off.  Each field comes back with the `ROADMAP.md` item that ports
-its reader.  `OdhConfig` is not ported.
+its reader.  `OdhConfig` is the ODH plane's (odh/), with GPU_DEFAULT_IMAGE
+and the GPU image map as the twins of the reference's TPU ones.
 """
 
 from __future__ import annotations
@@ -136,9 +136,11 @@ class CoreConfig:
     idleness_check_period_min: int = 1   # IDLENESS_CHECK_PERIOD
     cluster_domain: str = "cluster.local"
     dev: bool = False
-    # workload rendering (notebook_controller.go:238,514); the Istio
-    # VirtualService is refused (ROADMAP.md queue 1 item 15)
+    # workload rendering (notebook_controller.go:238,514): USE_ISTIO adds
+    # the VirtualService through ISTIO_GATEWAY for ISTIO_HOST
     use_istio: bool = False
+    istio_gateway: str = "kubeflow/kubeflow-gateway"
+    istio_host: str = "*"
     add_fsgroup: bool = True
     # signal the gang's training loop before the culler stops it
     checkpoint_before_cull: bool = False
@@ -226,6 +228,8 @@ class CoreConfig:
             cluster_domain=env.get("CLUSTER_DOMAIN", "cluster.local"),
             dev=_bool(env, "DEV", False),
             use_istio=_bool(env, "USE_ISTIO", False),
+            istio_gateway=env.get("ISTIO_GATEWAY", "kubeflow/kubeflow-gateway"),
+            istio_host=env.get("ISTIO_HOST", "*"),
             add_fsgroup=_bool(env, "ADD_FSGROUP", True),
             checkpoint_before_cull=_bool(env, "CHECKPOINT_BEFORE_CULL", False),
             workqueue_base_delay_s=_int(
@@ -268,5 +272,51 @@ class CoreConfig:
         )
 
 
+@dataclass
+class OdhConfig:
+    """ODH controller config (odh main.go:141-347 + per-file env reads)."""
+
+    set_pipeline_rbac: bool = False          # SET_PIPELINE_RBAC
+    set_pipeline_secret: bool = False        # SET_PIPELINE_SECRET
+    inject_cluster_proxy_env: bool = False   # INJECT_CLUSTER_PROXY_ENV
+    mlflow_enabled: bool = False             # MLFLOW_ENABLED
+    gateway_url: str = ""                    # GATEWAY_URL
+    gateway_name: str = "data-science-gateway"       # NOTEBOOK_GATEWAY_NAME
+    gateway_namespace: str = "openshift-ingress"     # NOTEBOOK_GATEWAY_NAMESPACE
+    controller_namespace: str = "opendatahub"        # K8S_NAMESPACE
+    kube_rbac_proxy_image: str = "kube-rbac-proxy:latest"
+    # the GPU image swap table (odh/webhook.py:swap_gpu_image): workbench
+    # image -> CUDA + PyTorch image, and the default for an image not
+    # aimed at the card
+    gpu_image_map: dict[str, str] = field(default_factory=dict)
+    gpu_default_image: str = "jupyter-cuda-pytorch:latest"  # GPU_DEFAULT_IMAGE
+
+    @classmethod
+    def from_env(cls, env: Optional[Mapping[str, str]] = None) -> "OdhConfig":
+        explicit = env is not None
+        env = env if env is not None else os.environ
+        return cls(
+            set_pipeline_rbac=_bool(env, "SET_PIPELINE_RBAC", False),
+            set_pipeline_secret=_bool(env, "SET_PIPELINE_SECRET", False),
+            inject_cluster_proxy_env=_bool(env, "INJECT_CLUSTER_PROXY_ENV",
+                                           False),
+            mlflow_enabled=_bool(env, "MLFLOW_ENABLED", False),
+            gateway_url=env.get("GATEWAY_URL", ""),
+            gateway_name=env.get("NOTEBOOK_GATEWAY_NAME",
+                                 "data-science-gateway"),
+            gateway_namespace=env.get("NOTEBOOK_GATEWAY_NAMESPACE",
+                                      "openshift-ingress"),
+            # namespace detection: K8S_NAMESPACE, else the in-cluster SA
+            # mount, else the dev default (odh main.go:127-139); an explicit
+            # mapping stays hermetic (no ambient os.environ / SA-mount reads)
+            controller_namespace=detect_namespace(
+                "opendatahub", env=env if explicit else None),
+            kube_rbac_proxy_image=env.get("KUBE_RBAC_PROXY_IMAGE",
+                                          "kube-rbac-proxy:latest"),
+            gpu_default_image=env.get("GPU_DEFAULT_IMAGE",
+                                      "jupyter-cuda-pytorch:latest"),
+        )
+
+
 __all__ = ["CoreConfig", "NOT_PORTED_SWITCHES", "NotPortedError",
-           "check_env", "detect_namespace", "not_ported"]
+           "OdhConfig", "check_env", "detect_namespace", "not_ported"]

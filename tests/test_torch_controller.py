@@ -15,10 +15,10 @@ under `CoreConfig(enable_self_healing=False)`:
 - the fake cluster places a gang only where its `nvidia.com/gpu` fit,
   and frees them when it stops;
 - `python -m kubeflow_tpu_torch.main --demo` runs in-process and serves
-  /healthz and /metrics; a config or env that turns on a part the port
-  does not run is refused with its ROADMAP item named, a replicated CR
-  is admitted, and the env names the port reads parse as the
-  reference's.  The self-healing engine is held to the reference's in
+  /healthz and /metrics; an env that turns on a part the port does not
+  run is refused with its ROADMAP item named, a replicated CR is
+  admitted, USE_ISTIO renders the reference's VirtualService, and the
+  env names the port reads parse as the reference's.  The self-healing engine is held to the reference's in
   tests/test_torch_selfheal.py, the replicated tier in
   tests/test_torch_replication.py.
 
@@ -448,6 +448,25 @@ def test_parts_not_ported_are_refused(knob, item):
             "notebook", "slice-scheduler", "warm-pool", "preemption"}
         assert mgr.preemption_engine.cfg.enable_preemption
         assert not CoreConfig().enable_slice_scheduler
+        return
+    if knob == "use_istio":
+        # item 15 is ported: the switch is taken, and the reconciler owns
+        # the notebook's VirtualService, the reference's render
+        from kubeflow_tpu.core.workload import generate_virtual_service
+
+        cfg = CoreConfig(use_istio=True, istio_host="nb.example.com")
+        setup_core_controllers(mgr, cfg, NotebookMetrics(mgr.api))
+        nb = Notebook.new("nb", NS, annotations={
+            C.ANNOTATION_REWRITE_URI: "/"})
+        mgr.api.create(kube.KubeObject.from_dict(nb.obj))
+        mgr.run_until_idle()
+        vs = mgr.api.get("VirtualService", NS, "notebook-user1-nb")
+        ref = generate_virtual_service(
+            RefNotebook.new("nb", NS, annotations={
+                C.ANNOTATION_REWRITE_URI: "/"}),
+            RefConfig(use_istio=True, istio_host="nb.example.com"))
+        assert vs.spec == ref.spec
+        assert vs.metadata.controller_owner().name == "nb"
         return
     if knob.startswith("spec."):
         # item 14 is ported: the admission hook admits a replicated CR and

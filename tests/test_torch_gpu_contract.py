@@ -39,6 +39,7 @@ from kubeflow_tpu_torch.core import constants as C
 from kubeflow_tpu_torch.core import workload
 from kubeflow_tpu_torch.gpu import env as gpuenv
 from kubeflow_tpu_torch.gpu import topology
+from kubeflow_tpu_torch.kube import KubeObject
 from kubeflow_tpu_torch.odh.network import new_gpu_worker_network_policy
 from kubeflow_tpu_torch.runtime import checkpoint
 from kubeflow_tpu_torch.runtime.roofline import GPU_PEAKS
@@ -464,9 +465,13 @@ def test_checkpoint_on_cull_answers_the_hook(tmp_path):
 def test_network_policy_matches_the_tpu_policy_without_ports():
     ref_nb, nb = _crs(False, False, False)
     ref = _manifest(new_tpu_worker_network_policy(ref_nb))
-    ours = _port_manifest(new_gpu_worker_network_policy(nb))
-    assert ours["metadata"] == {"name": "nb-gpu-workers-np",
-                                "namespace": "u1"}
+    ours = new_gpu_worker_network_policy(
+        KubeObject.from_dict(nb.obj)).to_dict()
+    (owner,) = ours["metadata"].pop("ownerReferences")
+    assert (owner["kind"], owner["name"], owner["controller"]) == \
+        ("Notebook", "nb", True)
+    assert _manifest(KubeObject.from_dict(ours))["metadata"] == {
+        "name": "nb-gpu-workers-np", "namespace": "u1"}
     assert ours["spec"]["podSelector"] == ref["spec"]["podSelector"]
     assert ours["spec"]["policyTypes"] == ref["spec"]["policyTypes"]
     (rule,), (ref_rule,) = ours["spec"]["ingress"], ref["spec"]["ingress"]

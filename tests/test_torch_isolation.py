@@ -26,7 +26,8 @@ EXPECTED = {"bench", "entry", "examples.llama13b_decode",
             "main", "kube.cluster", "kube.controller",
             "core.notebook_controller", "core.culling_controller",
             "core.selfheal", "core.sessionstate", "gpu.device_plugin",
-            "core.scheduler", "core.preemption"}
+            "core.scheduler", "core.preemption", "odh.controller",
+            "odh.webhook", "odh.tls_profile"}
 
 
 def _port_sources() -> list:
@@ -82,7 +83,11 @@ CONTROL_PLANE = ("main", "kube", "common.reconcilehelper",
                  "core.notebook_controller", "core.culling_controller",
                  "core.metrics", "core.selfheal", "core.sessionstate",
                  "core.scheduler", "core.preemption", "gpu.device_plugin",
-                 "utils.config")
+                 "utils.config", "odh", "odh.auth", "odh.ca_bundle",
+                 "odh.constants", "odh.controller", "odh.diff", "odh.dspa",
+                 "odh.feast", "odh.gateway", "odh.mlflow", "odh.network",
+                 "odh.notebook", "odh.oauth", "odh.rbac", "odh.routing",
+                 "odh.runtime_images", "odh.tls_profile", "odh.webhook")
 
 
 def test_control_plane_imports_no_torch():

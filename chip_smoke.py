@@ -383,6 +383,40 @@ non-zero without its result line):
    and GB/s, run A's median step time against the same setup's
    resident-batch timed_steps step time (the loader's cost), the
    telemetry summary.
+   The observability plane runs in the same manager (`build_manager`
+   attaches the SLO engine, the data-plane rollup, the lifecycle and
+   metering ledgers, the TSDB and the diagnosis engine; its CoreConfig
+   sets DATAPLANE_MFU_TARGET 0.5, SLO_FLEET_MFU 0.9 and the continuous
+   profiler at 100 ms), with the tracing clock on the manager's FakeClock
+   so that span times and the ledgers' are one timeline.  Once the pod
+   runs, run A's TelemetryAgent publishes its summary through
+   `publish_fn` onto the pod's telemetry annotation (an update through
+   the API server, as the worker's sidecar makes it), and one scrape
+   follows.  Gates: notebook_dataplane_tokens_per_second, _mfu_ratio and
+   _step_time_seconds for the CR equal the summary's tokens_per_s, mfu
+   and step_time_s exactly; notebook_dataplane_straggler 0 (one worker is
+   below min_workers); notebook_dataplane_mfu_checks_total moved by one
+   under "low" if the MFU is below the target, else "ok"; after the cull
+   deletes the pod, the next scrape reads 0 for the three gauges and the
+   namespace has accrued chip-seconds (FakeClock) in "ready" only.
+   Scrapes follow the unstop, each drill's ready and the promotion.  At
+   the phase's end: the CR's first start finalized in the lifecycle
+   ledger and its conservation, and the metering ledger's, without a
+   violation over the whole phase (restarts, migrations, preemption and
+   promotion excursions included); the SLO verdicts hold every objective
+   of `default_objectives`, fleet_mfu among them, whose bad count is the
+   "low" count; `explain` of the replicated CR ranks "primary_failover"
+   first with a score of at least 10; the TSDB holds one raw point per
+   scrape, its promotions_delta summing to 1 and its
+   criticalpath_violations and metering_violations 0; the profiler's
+   notebook_profiler_overhead_ratio below 0.05; and the engines' own
+   wall time (the scrapes, the evaluations and the profiler's sampling)
+   under 2 s.  One `observability` line prints the three gauges beside
+   the summary, the top lifecycle stages with their FakeClock
+   (simulated) seconds, the namespace's chip-seconds by bucket, the SLO
+   verdicts, the first cause of each explained CR, the profiler's
+   overhead and top (controller, phase) buckets, the engines' wall ms
+   and the card's name and power limit (emitted under "observability").
 
 12. llama13b: kubeflow_tpu_torch/examples/llama13b_decode.py, Llama-2-13B at
    full width and depth, int4, its weights made and quantized leaf by leaf
@@ -575,6 +609,12 @@ NB_PREEMPT_STEP, NB_BEN_HOLD_S = 10, 60.0
 # anti-affine, replica 1 on a second GPU node in its own node pool; the
 # promoted replica restores into a setup from a fourth seed
 NB_REP, NB_STANDBY_POOL = "chip-smoke-rep", "standby-pool"
+# the observability plane: the data plane's MFU target and the fleet-MFU
+# objective's good share, the continuous profiler's sampling interval,
+# and the gates on its overhead and on the engines' wall time
+NB_MFU_TARGET, NB_SLO_FLEET_MFU = 0.5, 0.9
+NB_PROFILER_INTERVAL_MS, NB_PROFILER_MAX_OVERHEAD = 100.0, 0.05
+NB_ENGINES_MAX_S = 2.0
 # the ODH plane: the controller's (central) namespace, where the
 # notebooks' HTTPRoutes live, and the one PEM of the phase's namespace's
 # odh-trusted-ca-bundle ConfigMap (structurally valid: a DER SEQUENCE in
@@ -607,19 +647,26 @@ def smi_line() -> str:
 
 def kernel_name(mangled: str):
     """"flash_fwd_kernel<128>" or "int4_matmul_kernel<16,1,8>" from a
-    mangled name: the identifier that a length prefix announces and that
-    ends in _kernel, with its int template arguments."""
+    mangled name: the innermost identifier that a length prefix announces
+    and that ends in _kernel, with its int template arguments.  Innermost,
+    because a kernel in an anonymous namespace sits behind the namespace's
+    name, whose hex id changes from build to build and can end in digits
+    that announce a longer identifier ending at the same place."""
+    found = None
     for run in re.finditer(r"\d+", mangled):
         for i in range(len(run[0])):
             n = int(run[0][i:])
             ident = mangled[run.end():run.end() + n]
             if len(ident) == n and ident.endswith("_kernel"):
-                args = re.match(r"I((?:Li-?\d+E)+)E", mangled[run.end() + n:])
-                if not args:
-                    return ident
-                return ident + "<" + ",".join(
-                    re.findall(r"Li(-?\d+)E", args[1])) + ">"
-    return None
+                found = run.end(), ident
+                break
+    if found is None:
+        return None
+    end, ident = found[0] + len(found[1]), found[1]
+    args = re.match(r"I((?:Li-?\d+E)+)E", mangled[end:])
+    if not args:
+        return ident
+    return ident + "<" + ",".join(re.findall(r"Li(-?\d+)E", args[1])) + ">"
 
 
 def ptxas_by_kernel(log: str) -> dict:
@@ -3159,7 +3206,11 @@ class NotebookController:
     here, so that the run reads no env): the CR carries inject-auth, the
     namespace an odh-trusted-ca-bundle ConfigMap, and `timing` counts
     each controller's reconciles and wall ms and the ODH webhooks'
-    admissions and wall ms."""
+    admissions and wall ms.  So does the observability plane, with the
+    tracing clock on the manager's FakeClock and the profiler sampling:
+    `scrape` is one /metrics scrape (the engines evaluate in it) and
+    `obs` their wall ms; `observability` gates them at the phase's end
+    and `close` stops the profiler."""
 
     def __init__(self, device_name: str, tmp: Path):
         import torch
@@ -3172,10 +3223,17 @@ class NotebookController:
         from kubeflow_tpu_torch.kube import KubeObject, ObjectMeta
         from kubeflow_tpu_torch.main import build_manager
         from kubeflow_tpu_torch.odh import constants as O
+        from kubeflow_tpu_torch.utils import tracing
         from kubeflow_tpu_torch.utils.clock import FakeClock
         from kubeflow_tpu_torch.utils.config import CoreConfig, OdhConfig
 
         self.tmp = tmp
+        self.obs = {"scrapes": 0, "scrape_ms": 0.0, "eval_ms": 0.0,
+                    "hooks": {}, "verbs": [0, 0.0]}
+        # spans on the manager's FakeClock: the lifecycle ledger partitions
+        # the event->ready windows of both on one timeline
+        self.clock = FakeClock()
+        tracing.set_clock(self.clock)
         self.cost = {"reconciles": 0, "wall_ms": 0.0, "stages": {}}
         self.timing: dict = {}
         self.odh: dict = {}
@@ -3195,11 +3253,16 @@ class NotebookController:
                 enable_culling=True, cull_idle_time_min=NB_CULL_IDLE_MIN,
                 idleness_check_period_min=1,
                 checkpoint_store_uri=f"file://{tmp / 'store'}",
-                enable_slice_scheduler=True, warmpool_provision_s=3600.0)
+                enable_slice_scheduler=True, warmpool_provision_s=3600.0,
+                dataplane_mfu_target=NB_MFU_TARGET,
+                slo_fleet_mfu=NB_SLO_FLEET_MFU,
+                enable_continuous_profiler=True,
+                profiler_interval_ms=NB_PROFILER_INTERVAL_MS)
             self.mgr, self.api, self.cluster, self.metrics = build_manager(
-                self.cfg, clock=FakeClock(), jupyter=self.jupyter,
+                self.cfg, clock=self.clock, jupyter=self.jupyter,
                 odh_cfg=OdhConfig(controller_namespace=NB_ODH_NAMESPACE))
             self._time_controllers()
+            self._time_engines()
             self.cluster.auto_ready = False
             self.cluster.add_node(NB_NODE,
                                   labels={K.GKE_NODEPOOL_LABEL: NB_POOL},
@@ -3248,6 +3311,52 @@ class NotebookController:
         for hook in self.api._mutating + self.api._validating:
             if hook.name in ("mutate-notebook-v1", "validate-notebook-v1"):
                 hook.handler = timed("odh-webhooks", hook.handler)
+
+    def _time_engines(self) -> None:
+        """Count the engines' per-attempt and per-dispatch hooks, calls
+        and wall ms under each observer's name, and the store's client-verb
+        accounting (entering and leaving its scope around every get, list
+        and write, the read itself left out), as they run."""
+        def timed(key, fn):
+            @functools.wraps(fn)
+            def call(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    count = self.obs["hooks"].setdefault(key, [0, 0.0])
+                    count[0] += 1
+                    count[1] += (time.perf_counter() - t0) * 1e3
+            return call
+
+        mgr = self.mgr
+        for key, engine, name in (
+                ("slo", mgr.slo_engine, "observe_attempt"),
+                ("lifecycle", mgr.lifecycle, "observe_attempt"),
+                ("metering", mgr.metering, "observe_attempt"),
+                ("metering_dispatch", mgr.metering, "observe_dispatch"),
+                ("diagnosis", mgr.diagnosis, "observe_attempt")):
+            setattr(engine, name, timed(key, getattr(engine, name)))
+        scope, verbs = self.api._verb_scope, self.obs["verbs"]
+
+        @contextlib.contextmanager
+        def timed_scope(*args):
+            t0 = time.perf_counter()
+            inner = scope(*args)
+            inner.__enter__()
+            verbs[1] += (time.perf_counter() - t0) * 1e3
+            exc = (None, None, None)
+            try:
+                yield
+            except BaseException:
+                exc = sys.exc_info()
+                raise
+            finally:
+                t0 = time.perf_counter()
+                inner.__exit__(*exc)
+                verbs[0] += 1
+                verbs[1] += (time.perf_counter() - t0) * 1e3
+        self.api._verb_scope = timed_scope
 
     @contextlib.contextmanager
     def stage(self, name: str):
@@ -3310,6 +3419,82 @@ class NotebookController:
 
     def pod(self):
         return self.api.try_get("Pod", NB_NAMESPACE, f"{NB_NAME}-0")
+
+    def scrape(self) -> None:
+        """One /metrics scrape: the data-plane rollup, the metering ledger,
+        the SLO engine, the TSDB and the diagnosis engine evaluate in it,
+        in the reference's order.  A scrape that raises fails the run."""
+        t0 = time.perf_counter()
+        self.metrics.scrape()
+        self.obs["scrape_ms"] += (time.perf_counter() - t0) * 1e3
+        self.obs["scrapes"] += 1
+
+    def evaluate(self, fn, *args):
+        """An engine's read, its wall ms counted."""
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            self.obs["eval_ms"] += (time.perf_counter() - t0) * 1e3
+
+    def publish(self, summary: dict) -> None:
+        """A TelemetryAgent's `publish_fn`, as the worker's sidecar
+        pushes it: the summary onto the card's pod's telemetry
+        annotation, an update through the API server."""
+        from kubeflow_tpu_torch.runtime.telemetry import (
+            TELEMETRY_ANNOTATION,
+            annotation_payload,
+        )
+
+        pod = self.pod()
+        pod.metadata.annotations[TELEMETRY_ANNOTATION] = \
+            annotation_payload(summary)
+        self.api.update(pod)
+        self.obs["published"] = summary
+
+    def dataplane(self) -> dict:
+        """The CR's four data-plane gauges."""
+        reg = self.metrics.registry
+        return {k: reg.get(f"notebook_dataplane_{k}").value(NB_NAMESPACE,
+                                                            NB_NAME)
+                for k in ("tokens_per_second", "mfu_ratio",
+                          "step_time_seconds", "straggler")}
+
+    def mfu_checks(self) -> dict:
+        checks = self.metrics.registry.get(
+            "notebook_dataplane_mfu_checks_total")
+        return {r: checks.value(r) for r in ("low", "ok")}
+
+    def telemetry(self, agent) -> dict:
+        """The card's MFU reaches the controller: `agent` (run A's)
+        publishes its summary onto the running pod through `publish`, and
+        one scrape rolls it up.  Gates: the three gauges equal the
+        summary's numbers exactly, the straggler gauge reads 0 (one
+        worker is below min_workers) and the MFU verdict counter moved by
+        one under its verdict against DATAPLANE_MFU_TARGET."""
+        self.scrape()  # the metering ledger opens the gang's meter
+        before = self.mfu_checks()
+        agent.publish_fn = self.publish
+        agent.publish_now()
+        self.scrape()
+        summary = self.obs["published"]
+        got = self.dataplane()
+        after = self.mfu_checks()
+        verdict = "low" if summary["mfu"] < self.cfg.dataplane_mfu_target \
+            else "ok"
+        moved = {r: after[r] - before[r] for r in after}
+        out = {"gauges": got, "verdict": verdict, "checks_moved": moved}
+        self.obs["telemetry"] = out
+        want = {"tokens_per_second": summary["tokens_per_s"],
+                "mfu_ratio": summary["mfu"],
+                "step_time_seconds": summary["step_time_s"],
+                "straggler": 0.0}
+        if got != want or moved != {r: float(r == verdict)
+                                    for r in ("low", "ok")}:
+            raise RuntimeError(f"observability: the gauges {got} against "
+                               f"the summary's {want}, MFU checks moved "
+                               f"{moved} for verdict {verdict}")
+        return out
 
     def status(self) -> dict:
         return self.api.get("Notebook", NB_NAMESPACE, NB_NAME).status
@@ -3454,6 +3639,8 @@ class NotebookController:
         if bad:
             raise RuntimeError("controller: " + "; ".join(bad))
         self.odh["admitted"] = self._odh_admitted(pod)
+        self.generation = self.api.get(
+            "Notebook", NB_NAMESPACE, NB_NAME).metadata.generation
         return rendered
 
     def _odh_objects(self, name: str) -> dict:
@@ -3614,8 +3801,14 @@ class NotebookController:
         command is what the kubelet runs)."""
         from kubeflow_tpu_torch.core import constants as K
 
+        # the gang runs one FakeClock second first, and a scrape then
+        # lets the metering ledger accrue that interval in "ready" (a
+        # meter that leaves the census is closed without its last one)
+        with self.stage("idle"):
+            self.run(advance_s=1.0)
+        self.scrape()
         with self.stage("cull"):
-            self.run(advance_s=(NB_CULL_IDLE_MIN + 1) * 60)
+            self.run(advance_s=(NB_CULL_IDLE_MIN + 1) * 60 - 1.0)
         annotations = self.api.get("Notebook", NB_NAMESPACE,
                                    NB_NAME).metadata.annotations
         sts = self.api.get("StatefulSet", NB_NAMESPACE, NB_NAME)
@@ -3640,6 +3833,18 @@ class NotebookController:
                 self.metrics.schedule_attempts.value("released") != 1:
             raise RuntimeError("controller: the culled gang's placement "
                                "was not released")
+        # the pod and its telemetry are gone: the next scrape zeroes the
+        # gauges and closes the meter, which accrued in "ready" only
+        self.scrape()
+        gauges = self.dataplane()
+        row = self.mgr.metering.tenant_table().get(NB_NAMESPACE) or {}
+        chip_s = row.get("chip_seconds") or {}
+        self.obs["after_cull"] = {"gauges": gauges, "chip_seconds": chip_s}
+        if any(gauges.values()) or set(chip_s) != {"ready"} \
+                or not chip_s["ready"] > 0:
+            raise RuntimeError(f"observability: after the cull the gauges "
+                               f"{gauges}, the namespace's chip-seconds "
+                               f"{chip_s}")
         return self.resolve(self.deleted[-1])
 
     def unstop(self, before: dict) -> dict:
@@ -3660,6 +3865,7 @@ class NotebookController:
                 self.run()
         if pod is None:
             raise RuntimeError("controller: no pod after the unstop")
+        self.scrape()
         after = self.resolve(pod)
         same = {k: after[k] == before[k]
                 for k in ("pre_stop", "node", "resources")}
@@ -3836,6 +4042,7 @@ class NotebookController:
         with self.stage(f"ready_{trigger}"):
             self.cluster.mark_running(NB_NAMESPACE, self.pod().name)
             self.run()
+        self.scrape()
         status = self.status()
         complete = sum(
             e.body.get("count", 1) for e in self.api.list(
@@ -3855,6 +4062,140 @@ class NotebookController:
                                f"{out}")
         return out
 
+
+    def observability(self, smi: str) -> dict:
+        """The phase's end, read through the engines: the lifecycle and
+        metering ledgers conserve, the SLO verdicts cover every default
+        objective, explain names the promotion, the TSDB kept every
+        scrape, and the profiler and the engines stayed cheap.  Prints
+        the `observability` line; raises on a failed gate."""
+        from kubeflow_tpu_torch.utils.slo import default_objectives
+
+        mgr, bad = self.mgr, []
+        ledger, metering, engine = mgr.lifecycle, mgr.metering, \
+            mgr.slo_engine
+        first = self.evaluate(ledger.entry, NB_NAMESPACE, NB_NAME,
+                              self.generation)
+        cons = self.evaluate(ledger.conservation)
+        ranking = self.evaluate(ledger.ranking)
+        mcons = self.evaluate(metering.conservation)
+        chip_s = (self.evaluate(metering.tenant_table).get(NB_NAMESPACE)
+                  or {}).get("chip_seconds")
+        verdicts = self.evaluate(engine.verdicts)
+        fleet_mfu = next(o for o in engine.objectives
+                         if o.name == "fleet_mfu")
+        good, bad_mfu = self.evaluate(engine._totals, fleet_mfu)
+        checks = self.mfu_checks()
+        explained = {name: self.evaluate(mgr.diagnosis.explain,
+                                         NB_NAMESPACE, name)
+                     for name in (NB_NAME, NB_REP)}
+        causes = {name: (ex["candidates"][0]["cause"],
+                         ex["candidates"][0]["score"])
+                  for name, ex in explained.items()}
+        tsdb = mgr.tsdb
+        series = {name: [v for _, v in tsdb.query(name)["points"]]
+                  for name in ("promotions_delta", "criticalpath_violations",
+                               "metering_violations")}
+        profiler = mgr.profiler
+        overhead = profiler.overhead_ratio()
+        profile = profiler.snapshot()
+        top = list(profile["by_controller_phase"].items())[:4]
+        hook_ms = sum(ms for _, ms in self.obs["hooks"].values())
+        verb_ms = self.obs["verbs"][1]
+        engines_s = (self.obs["scrape_ms"] + self.obs["eval_ms"] + hook_ms
+                     + verb_ms) / 1e3 + profiler._busy_s
+        if not (first or {}).get("finalized"):
+            bad.append(f"the CR's first start {first}")
+        if cons["violations"] or mcons["violations"]:
+            bad.append(f"conservation: lifecycle {cons}, metering {mcons}")
+        if set(verdicts) != {o.name for o in default_objectives(self.cfg)} \
+                or "fleet_mfu" not in verdicts \
+                or (good, bad_mfu) != (checks["ok"], checks["low"]):
+            bad.append(f"SLO verdicts {sorted(verdicts)}, fleet_mfu good "
+                       f"{good} and bad {bad_mfu} against the checks "
+                       f"{checks}")
+        if causes[NB_REP][0] != "primary_failover" or \
+                causes[NB_REP][1] < 10:
+            bad.append(f"explain of {NB_REP}: {explained[NB_REP]}")
+        if any(len(v) != self.obs["scrapes"] for v in series.values()) or \
+                sum(series["promotions_delta"]) != 1 or \
+                any(series["criticalpath_violations"]) or \
+                any(series["metering_violations"]):
+            bad.append(f"TSDB series {series} over {self.obs['scrapes']} "
+                       f"scrapes")
+        if not overhead < NB_PROFILER_MAX_OVERHEAD:
+            bad.append(f"profiler overhead {overhead}")
+        if mgr.observer_errors:
+            bad.append(f"observers raised {mgr.observer_errors}")
+        if not engines_s < NB_ENGINES_MAX_S:
+            bad.append(f"the engines took {engines_s:.3f} s")
+        published, tel = self.obs["published"], self.obs["telemetry"]
+        out = {
+            "gauges": tel["gauges"], "after_cull": self.obs["after_cull"],
+            "summary": {k: published[k] for k in
+                        ("tokens_per_s", "mfu", "step_time_s")},
+            "mfu_verdict": tel["verdict"], "mfu_checks": checks,
+            "first_start": first, "lifecycle_conservation": cons,
+            # FakeClock seconds: simulated, not measured
+            "fakeclock_stages": {r["stage"]: r["total_s"]
+                                 for r in ranking[:5]},
+            "metering_conservation": mcons,
+            "fakeclock_chip_seconds": chip_s,
+            "slo_verdicts": verdicts,
+            "first_causes": causes,
+            "tsdb_points": {k: len(v) for k, v in series.items()},
+            "profiler_overhead_ratio": overhead,
+            "profiler_passes": profiler.passes,
+            "profiler_top": dict(top),
+            "scrapes": self.obs["scrapes"],
+            "scrape_ms": self.obs["scrape_ms"],
+            "eval_ms": self.obs["eval_ms"],
+            "profiler_ms": profiler._busy_s * 1e3,
+            "hooks": {k: {"calls": n, "ms": ms}
+                      for k, (n, ms) in self.obs["hooks"].items()},
+            "hook_ms": hook_ms,
+            "verb_accounting": {"calls": self.obs["verbs"][0],
+                                "ms": verb_ms},
+            "observer_errors": dict(mgr.observer_errors),
+            "engines_s": engines_s, "nvidia_smi": smi,
+        }
+        g, sm = tel["gauges"], out["summary"]
+        print(f"observability: data plane tokens/s "
+              f"{g['tokens_per_second']}, MFU {g['mfu_ratio']}, step time "
+              f"{g['step_time_seconds']} s, straggler {g['straggler']} "
+              f"(the agent's summary: tokens_per_s {sm['tokens_per_s']}, "
+              f"mfu {sm['mfu']}, step_time_s {sm['step_time_s']}; MFU "
+              f"check {tel['verdict']} against {self.cfg.dataplane_mfu_target}"
+              f"), after the cull {self.obs['after_cull']['gauges']}; "
+              f"lifecycle top stages (FakeClock, simulated s) "
+              f"{out['fakeclock_stages']}, conservation {cons['finalized']} "
+              f"finalized, {cons['violations']} violations; namespace "
+              f"{NB_NAMESPACE} chip-seconds by bucket (FakeClock) {chip_s}, "
+              f"metering conservation {mcons['checked']} checked, "
+              f"{mcons['violations']} violations; SLO verdicts "
+              f"{ {k: v['met'] for k, v in verdicts.items()} }; first "
+              f"causes {causes}; profiler overhead {overhead:.5f} over "
+              f"{profiler.passes} passes, top (controller/phase, samples) "
+              f"{top}; engines' wall ms: {self.obs['scrapes']} scrapes "
+              f"{self.obs['scrape_ms']:.2f}, evaluations "
+              f"{self.obs['eval_ms']:.2f}, profiler sampling "
+              f"{profiler._busy_s * 1e3:.2f}, per-attempt and dispatch "
+              f"hooks {hook_ms:.2f} "
+              f"({ {k: round(ms, 2) for k, (_, ms) in self.obs['hooks'].items()} }"
+              f"), the store's verb accounting {verb_ms:.2f} over "
+              f"{self.obs['verbs'][0]} calls, {engines_s:.3f} s in all; "
+              f"observer errors {mgr.observer_errors}; {smi}", flush=True)
+        if bad:
+            raise RuntimeError("observability: " + "; ".join(bad))
+        return out
+
+    def close(self) -> None:
+        """Stop the profiler's sampler and give the tracing clock back."""
+        from kubeflow_tpu_torch.utils import tracing
+
+        if self.mgr.profiler is not None:
+            self.mgr.profiler.stop()
+        tracing.set_clock(None)
 
     def _attempts(self) -> list:
         return ((self.status().get("sliceRecovery") or {}).get("0")
@@ -4208,6 +4549,7 @@ class NotebookController:
             self.cluster.fail_pod(NB_NAMESPACE, f"{NB_REP}-0",
                                   "GPUUnhealthy")
             self.run()
+        self.scrape()
         try:
             store.append_delta(NB_NAMESPACE, NB_REP, 0, b"zombie",
                                writer_epoch=1)
@@ -5031,6 +5373,7 @@ def notebook_train_phase(device, device_name, smi: str) -> dict:
         controller = NotebookController(device_name, tmp)
         rendered = controller.start()
         render_s = time.perf_counter() - t0
+        controller.telemetry(agent)
         signals = rendered["signal_dir"]
         # run B: the same seed; before step 6's hook the culler stops the
         # idle notebook, the controller deletes its pod, and that pod's
@@ -5125,9 +5468,12 @@ def notebook_train_phase(device, device_name, smi: str) -> dict:
             recovery = recovery_drills(controller, setup, pipeline, want, a,
                                        state_a_fail, state_a_preempt,
                                        final_a, expected, device, smi)
+            observability = controller.observability(smi)
         except BaseException:
             finish_examples(started, abort=True)
             raise
+        finally:
+            controller.close()
         del state_a_fail, state_a_preempt, final_a
         torch.cuda.empty_cache()
 
@@ -5231,6 +5577,7 @@ def notebook_train_phase(device, device_name, smi: str) -> dict:
         "odh": {**controller.odh, "timing": controller.timing,
                 "nvidia_smi": smi},
         "recovery": recovery,
+        "observability": observability,
         "pre_stop_returncode": pre_stop["rc"],
         "pre_stop_wait_s": pre_stop["wait_s"],
         "pre_stop_startup_s": pre_stop["startup_s"],

@@ -40,14 +40,23 @@ It plays OpenShift's ServiceAccount controller for the ODH plane
 secret listed in its `imagePullSecrets`, which the reconciliation lock's
 removal waits on.
 
-Left out until the modules that use them are ported (`ROADMAP.md` queue
-1): the telemetry stamping for the data-plane rollup (item 16) and the
-fault-plan exemption for fault plans (item 17).
+For the data-plane rollup (core/telemetry.py) it plays the workers'
+training loops: `stamp_worker_telemetry` runs a real
+runtime/telemetry.py `TelemetryAgent` per worker pod and stamps its
+summary into the pod's telemetry annotation, and
+`clear_worker_telemetry` drops them.
+
+Every public method that calls the API runs under `api.fault_exempt()`:
+the data plane is on the cluster side of the client-apiserver boundary,
+so its calls are not client traffic in the apiserver's per-tenant verb
+counts (and, once `ROADMAP.md` queue 1 item 17 ports fault plans, not
+faulted).
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 import threading
 from typing import Optional
 
@@ -57,7 +66,6 @@ from ..utils import invariants
 from .errors import AlreadyExistsError, NotFoundError
 from .meta import KubeObject, ObjectMeta, set_controller_reference
 from .store import ApiServer, EventType, WatchEvent
-
 
 
 def parse_quantity(q) -> float:
@@ -73,6 +81,15 @@ def parse_quantity(q) -> float:
         if s.endswith(suf):
             return float(s[: -len(suf)]) * suffixes[suf]
     return float(s)
+
+
+def _exempt(fn):
+    """Run a data-plane method under `api.fault_exempt()`."""
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        with self.api.fault_exempt():
+            return fn(self, *args, **kwargs)
+    return wrapper
 
 
 class FakeCluster:
@@ -123,11 +140,13 @@ class FakeCluster:
                   kinds=["StatefulSet", "Pod", "Node", "ServiceAccount"])
         # prime the accounting for pods that predate this cluster (a data
         # plane attached to an already-populated store)
-        for pod in api.list("Pod"):
-            self._account_pod(pod)
-            self._index_pod(pod)
+        with api.fault_exempt():
+            for pod in api.list("Pod"):
+                self._account_pod(pod)
+                self._index_pod(pod)
 
     # -- node inventory --------------------------------------------------------
+    @_exempt
     def add_node(
         self,
         name: str,
@@ -147,6 +166,7 @@ class FakeCluster:
         )
         return self.api.create(node)
 
+    @_exempt
     def add_gpu_nodes(
         self,
         accelerator: str,
@@ -173,6 +193,7 @@ class FakeCluster:
         return nodes
 
     # -- cloud provider (warm-pool provisioner hook) ---------------------------
+    @_exempt
     def provision_slice(self, shape, pool: str) -> list[str]:
         """Turn up one gang's node set for the warm pool: `shape.num_hosts`
         nodes (a gpu/topology.py `GpuShape`) labelled with the nodepool
@@ -192,6 +213,7 @@ class FakeCluster:
                            accelerator=shape.accelerator.name)
         return names
 
+    @_exempt
     def deprovision_slice(self, pool: str) -> None:
         """Tear a warm gang's node set back down (the autoscaler's
         shrink).  A node that still carries bound pods is left standing:
@@ -210,6 +232,7 @@ class FakeCluster:
                     pass
 
     # -- failure injection -----------------------------------------------------
+    @_exempt
     def fail_pod(self, namespace: str, name: str,
                  reason: str = "GPUUnhealthy") -> None:
         """Mark a pod failed, as its kubelet does when a GPU falls off
@@ -238,6 +261,7 @@ class FakeCluster:
         self.api.update_status(pod)
         self._sync_sts_status_for_pod(pod)
 
+    @_exempt
     def crashloop_pod(self, namespace: str, name: str) -> None:
         """The pod's container is stuck in the kubelet's CrashLoopBackOff:
         the pod stays Running but never turns Ready (the state
@@ -268,6 +292,7 @@ class FakeCluster:
             self.api.update_status(pod)
             self._sync_sts_status_for_pod(pod)
 
+    @_exempt
     def delete_node(self, name: str) -> None:
         """Node-driven disruption (preemption, pool scale-down): the Node
         object vanishes while its pods linger with a dangling nodeName."""
@@ -276,6 +301,7 @@ class FakeCluster:
         except NotFoundError:
             pass
 
+    @_exempt
     def cordon_node(self, name: str) -> None:
         """Mark a node unschedulable (kubectl cordon), the voluntary
         migration trigger: its pods keep running, and the scheduler places
@@ -286,6 +312,7 @@ class FakeCluster:
         node.spec["unschedulable"] = True
         self.api.update(node)
 
+    @_exempt
     def uncordon_node(self, name: str) -> None:
         node = self.api.try_get("Node", "", name)
         if node is None:
@@ -297,6 +324,7 @@ class FakeCluster:
         with self._mutex:
             self._retry_pending_pods()
 
+    @_exempt
     def poison_statefulset(self, namespace: str, name: str,
                            reason: str = "GPUUnhealthy") -> None:
         """Every pod (re)created for this StatefulSet comes up Failed: a
@@ -314,6 +342,7 @@ class FakeCluster:
         with self._mutex:
             self._poisoned.pop((namespace, name), None)
 
+    @_exempt
     def mark_running(self, namespace: str, name: str) -> None:
         """Drive a created-but-not-yet-Ready pod to Running/Ready by hand —
         the auto_ready=False escape hatch failover drills use to freeze the
@@ -324,6 +353,79 @@ class FakeCluster:
                 return
             self._mark_running(pod)
             self._sync_sts_status_for_pod(pod)
+
+    # -- data-plane telemetry --------------------------------------------------
+    @_exempt
+    def stamp_worker_telemetry(
+        self,
+        namespace: str,
+        notebook: str,
+        step_time_s: float = 1.0,
+        *,
+        flops_per_token: float = 0.0,
+        config=None,
+        batch: int = 1,
+        seq_len: int = 1,
+        num_chips: int = 8,
+        accelerator: str = "NVIDIA H100 80GB HBM3",
+        steps: int = 3,
+        slow_worker: Optional[object] = None,
+        slow_factor: float = 4.0,
+        now: float = 0.0,
+    ) -> dict[str, dict]:
+        """Play the workers' training loops: run a real
+        runtime/telemetry.py TelemetryAgent per worker pod of `notebook`
+        (the code a worker runs, so the same roofline MFU) and stamp each
+        rolling summary into the pod's telemetry annotation for the
+        WorkerTelemetryAggregator to read watch-fed.  `accelerator` is a
+        key of runtime/roofline.py's GPU_PEAKS (the agent raises KeyError
+        for any other); `num_chips` is the GPUs a worker's step spans.
+
+        `slow_worker` (a pod name or an ordinal into the sorted pod list)
+        records `slow_factor` x the step time: the slow worker a straggler
+        drill injects.  Returns pod name -> published summary."""
+        from ..runtime.telemetry import (TELEMETRY_ANNOTATION,
+                                         TelemetryAgent, annotation_payload)
+
+        pods = sorted(
+            (p for p in self.api.list("Pod", namespace=namespace)
+             if p.metadata.labels.get(C.NOTEBOOK_NAME_LABEL) == notebook
+             and p.metadata.deletion_timestamp is None),
+            key=lambda p: p.name)
+        out: dict[str, dict] = {}
+        for i, pod in enumerate(pods):
+            dt = step_time_s
+            if slow_worker is not None and slow_worker in (i, pod.name):
+                dt = step_time_s * slow_factor
+            agent = TelemetryAgent(
+                config=config, flops_per_token=flops_per_token,
+                batch=batch, seq_len=seq_len, num_chips=num_chips,
+                accelerator=accelerator, worker=pod.name,
+                time_fn=lambda t=now: t, hbm_fn=lambda: {})
+            for _ in range(max(1, steps)):
+                agent.record_step(dt)
+            summary = agent.summary()
+            live = self.api.get("Pod", namespace, pod.name)
+            live.metadata.annotations[TELEMETRY_ANNOTATION] = \
+                annotation_payload(summary)
+            self.api.update(live)
+            out[pod.name] = summary
+        return out
+
+    @_exempt
+    def clear_worker_telemetry(self, namespace: str, notebook: str) -> None:
+        """Drop the telemetry annotations (workers that stopped reporting:
+        the aggregator must zero their series)."""
+        from ..runtime.telemetry import TELEMETRY_ANNOTATION
+
+        for p in self.api.list("Pod", namespace=namespace):
+            if p.metadata.labels.get(C.NOTEBOOK_NAME_LABEL) != notebook:
+                continue
+            if TELEMETRY_ANNOTATION not in p.metadata.annotations:
+                continue
+            live = p.deepcopy()
+            del live.metadata.annotations[TELEMETRY_ANNOTATION]
+            self.api.update(live)
 
     # -- session-state data plane ----------------------------------------------
     def attach_session_store(self, store,
@@ -354,6 +456,8 @@ class FakeCluster:
         return self._session_payload.get((namespace, notebook),
                                          self._session_default_payload)
 
+
+    @_exempt
     def snapshot_sessions(self, namespace: str, notebook: str,
                           trigger: str = "periodic") -> list:
         """The in-pod sidecar's periodic snapshot tick: one snapshot of the
@@ -365,6 +469,7 @@ class FakeCluster:
                     trigger=trigger)
                 for slice_id in sorted(self._slice_ids(namespace, notebook))]
 
+    @_exempt
     def stream_session_delta(self, namespace: str, notebook: str,
                              delta: bytes,
                              writer_epoch: Optional[int] = None) -> list:
@@ -390,6 +495,7 @@ class FakeCluster:
             payload + bytes(delta)
         return infos
 
+    @_exempt
     def sync_followers(self, namespace: str, notebook: str,
                        lag: int = 0) -> int:
         """The follower runtimes' catch-up: every replica-labelled worker
@@ -438,6 +544,7 @@ class FakeCluster:
     def _slice_ids(self, namespace: str, notebook: str) -> set[int]:
         return {0} if self._gang_pods(namespace, notebook) else set()
 
+    @_exempt
     def _final_snapshot(self, namespace: str, notebook: str, slice_id: int):
         """The control plane asked the gang to flush now.  Reachable =
         every worker pod exists, is Running with live containers, and
@@ -517,6 +624,7 @@ class FakeCluster:
         }
         self.api.update_status(pod)
 
+    @_exempt
     def release_restores(self) -> int:
         """Complete every checkpoint reload in flight: flip the held pods
         to Running/Ready.  Call after advancing the fake clock by the
@@ -545,6 +653,7 @@ class FakeCluster:
                 self._mark_running(pod)
 
     # -- event loop ------------------------------------------------------------
+    @_exempt
     def _on_event(self, ev: WatchEvent) -> None:
         with self._mutex:
             self._handle_event(ev)

@@ -371,6 +371,11 @@ class Manager:
         # causal diagnosis engine (utils/diagnosis.py): mines the attempt
         # stream for discrete evidence (faults, promotions, recoveries)
         self.diagnosis = None
+        # observer -> calls it raised on (the flight recorder and the
+        # engines above): logged and kept off the reconcile path, counted
+        # here so a caller that must not lose an attempt can fail on it
+        self.observer_errors: dict[str, int] = {}
+        self._observer_lock = threading.Lock()
         # replica identity for lifecycle attribution: a sharded fleet sets
         # this to the shard id so a manager change between consecutive
         # attempts of one notebook reads as handoff/adoption wait
@@ -737,13 +742,10 @@ class Manager:
                 exemplar={"trace_id": tid} if tid else None)
         if self.metering is not None and \
                 (cause is not None or enqueued_at is not None):
-            try:
-                # same clock-domain values the histograms above observed,
-                # attributed to the owning tenant
-                self.metering.observe_dispatch(tenant, queue_s, e2r_s)
-            except Exception:  # noqa: BLE001 — observability must never
-                # take the dispatch path down with it
-                logger.exception("metering rejected a dispatch")
+            # same clock-domain values the histograms above observed,
+            # attributed to the owning tenant
+            self._observe("metering", self.metering.observe_dispatch,
+                          tenant, queue_s, e2r_s)
         return key
 
     def _done(self, key: tuple[str, Request]) -> None:
@@ -925,31 +927,42 @@ class Manager:
                 # diagnostic bookkeeping, not trace payload)
                 root_span.set_attribute("mono_start", mono_start)
                 root_span.set_attribute("mono_end", time.monotonic())
-                try:
-                    rec = self.flight_recorder.record(root_span)
-                    if rec is not None and self.slo_engine is not None:
-                        # attempt stream -> SLO engine: errored/slow
-                        # attempts become the exemplar trace an alert
-                        # links back into this very recorder
-                        self.slo_engine.observe_attempt(rec)
-                    if rec is not None and self.lifecycle is not None:
-                        # attempt stream -> lifecycle ledger: the stage
-                        # partition behind /debug/criticalpath
-                        self.lifecycle.observe_attempt(
-                            rec, root_span, self.manager_id)
-                    if rec is not None and self.metering is not None:
-                        # attempt stream -> metering ledger: latches the
-                        # per-tenant exemplar trace a fired fairness
-                        # alert resolves at /debug/traces
-                        self.metering.observe_attempt(rec)
-                    if rec is not None and self.diagnosis is not None:
-                        # attempt stream -> diagnosis engine: injected
-                        # faults / promotions / recoveries become the
-                        # discrete timeline change points correlate to
-                        self.diagnosis.observe_attempt(rec)
-                except Exception:  # noqa: BLE001 — observability must
-                    # never take the reconcile loop down with it
-                    logger.exception("flight recorder rejected a span")
+                rec = self._observe("flight recorder",
+                                    self.flight_recorder.record, root_span)
+                if rec is not None:
+                    self._observe_attempt(rec, root_span)
+
+    def _observe(self, name: str, fn, *args):
+        """Feed one observer: what it raises is logged and counted in
+        `observer_errors` and never takes the reconcile or dispatch path
+        down with it."""
+        try:
+            return fn(*args)
+        except Exception:  # noqa: BLE001 — observability must never take
+            # the loop down with it
+            logger.exception("%s rejected an observation", name)
+            with self._observer_lock:
+                self.observer_errors[name] = \
+                    self.observer_errors.get(name, 0) + 1
+            return None
+
+    def _observe_attempt(self, rec, root_span) -> None:
+        """The attempt stream, to each engine on its own: the SLO engine
+        (an errored or slow attempt is the exemplar trace an alert links
+        back into the recorder), the lifecycle ledger (the stage partition
+        behind /debug/criticalpath), the metering ledger (the per-tenant
+        exemplar a fairness alert resolves) and the diagnosis engine
+        (faults, promotions and recoveries become the change points it
+        correlates)."""
+        if self.slo_engine is not None:
+            self._observe("slo", self.slo_engine.observe_attempt, rec)
+        if self.lifecycle is not None:
+            self._observe("lifecycle", self.lifecycle.observe_attempt,
+                          rec, root_span, self.manager_id)
+        if self.metering is not None:
+            self._observe("metering", self.metering.observe_attempt, rec)
+        if self.diagnosis is not None:
+            self._observe("diagnosis", self.diagnosis.observe_attempt, rec)
 
     def _clear_request_trace(self, item: tuple[str, Request]) -> None:
         """The retry chain for this request is over (success, scheduled

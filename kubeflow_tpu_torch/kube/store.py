@@ -9,11 +9,17 @@ their own lock, object map and bounded watch-history ring; filtered watch
 dispatch; copy-on-write reads (`list` and watch events hand out frozen
 shared snapshots, `get` a private copy).
 
+Every top-level client verb is counted per (verb, kind, namespace)
+(`tenant_verb_counts`, the metering ledger's apiserver attribution);
+re-entry (GC, admission, watch fan-out) and blocks that run under
+`fault_exempt` (the fake data plane, informer relists) are not, as in
+the reference.
+
 Left out until `ROADMAP.md` queue 1 item 17 ports `kube/{faults,apply,
-strategicmerge,jsonpatch}.py`: fault plans with their exemption scope,
-the audit trail and the per-verb call counts, watch-stream drops, and the
-patch verbs (merge, strategic-merge, JSON patch, server-side apply),
-which raise `NotImplementedError`.
+strategicmerge,jsonpatch}.py`: fault plans, the audit trail and the
+per-(verb, kind) call counts, watch-stream drops, and the patch verbs
+(merge, strategic-merge, JSON patch, server-side apply), which raise
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ from __future__ import annotations
 import logging
 import os
 import threading
-from contextlib import ExitStack
+from contextlib import ExitStack, contextmanager
 from dataclasses import dataclass
 from enum import Enum
 from typing import Callable, Iterable, Optional
@@ -163,6 +169,52 @@ class ApiServer:
         self._dispatch_counts: dict[tuple[str, str], int] = {}
         self._mutating: list[AdmissionHook] = []
         self._validating: list[AdmissionHook] = []
+        # top-level verb depth (thread-local, so threaded managers stay
+        # correct): only depth-0 calls are client traffic
+        self._verb_ctx = threading.local()
+        # per-(verb, kind, namespace) counters, the tenant-attribution
+        # feed utils/metering.py delta-reads; cluster-scoped calls land
+        # under namespace ""
+        self._count_lock = invariants.tracked(
+            threading.Lock(), "ApiServer._count_lock")
+        self._tenant_verb_counts: dict[tuple[str, str, str], int] = {}
+
+    # -- client-verb accounting -----------------------------------------------
+    @contextmanager
+    def fault_exempt(self):
+        """Run a block outside the client-verb accounting: the cluster's
+        own machinery (the fake data plane, informer relists), not
+        controller traffic.  The reference's name: the same scope exempts
+        a block from its fault plans."""
+        depth = getattr(self._verb_ctx, "depth", 0)
+        self._verb_ctx.depth = depth + 1
+        try:
+            yield
+        finally:
+            self._verb_ctx.depth = depth
+
+    @contextmanager
+    def _verb_scope(self, verb: str, kind: str, namespace: str = ""):
+        """Count one top-level client verb; nested re-entry (GC,
+        admission, watch fan-out) runs at depth > 0 and is not counted."""
+        if getattr(self._verb_ctx, "depth", 0) == 0:
+            key = (verb, kind, namespace)
+            with self._count_lock:
+                self._tenant_verb_counts[key] = \
+                    self._tenant_verb_counts.get(key, 0) + 1
+        with self.fault_exempt():
+            yield
+
+    def tenant_verb_counts(self) -> dict[tuple[str, str, str], int]:
+        """Cumulative (verb, kind, namespace) -> count over every
+        top-level client call, reads included (cluster-scoped calls
+        under namespace ""), which the metering ledger delta-reads."""
+        with self._count_lock:
+            return dict(self._tenant_verb_counts)
+
+    def clear_tenant_verb_counts(self) -> None:
+        with self._count_lock:
+            self._tenant_verb_counts.clear()
 
     # -- shards ---------------------------------------------------------------
     def _shard(self, kind: str) -> _KindShard:
@@ -397,12 +449,14 @@ class ApiServer:
     def get(self, kind: str, namespace: str, name: str) -> KubeObject:
         """Read one object.  Returns a PRIVATE copy — mutate it and
         update() it freely (the universal controller pattern)."""
-        shard = self._shard(kind)
-        with shard.lock:
-            obj = shard.objects.get((namespace, name))
-            if obj is None:
-                raise NotFoundError(f"{kind} {namespace}/{name} not found")
-            return obj.deepcopy()
+        with self._verb_scope("get", kind, namespace):
+            shard = self._shard(kind)
+            with shard.lock:
+                obj = shard.objects.get((namespace, name))
+                if obj is None:
+                    raise NotFoundError(
+                        f"{kind} {namespace}/{name} not found")
+                return obj.deepcopy()
 
     def try_get(self, kind: str, namespace: str, name: str) -> Optional[KubeObject]:
         try:
@@ -426,10 +480,11 @@ class ApiServer:
         materialize — a sharded informer's resync lists only its owned
         keys instead of the whole fleet (the apiserver analog is a
         field/label selector evaluated in the watch cache)."""
-        shard = self._shard(kind)
-        with shard.lock:
-            return self._list_locked(shard, namespace, label_selector,
-                                     predicate)
+        with self._verb_scope("list", kind, namespace or ""):
+            shard = self._shard(kind)
+            with shard.lock:
+                return self._list_locked(shard, namespace, label_selector,
+                                         predicate)
 
     @staticmethod
     def _list_locked(shard: _KindShard, namespace: Optional[str],
@@ -460,12 +515,13 @@ class ApiServer:
         list-then-watch client cannot miss events that land between the list
         and reading the rv (the apiserver returns both in one response).
         Same read-only and predicate contracts as list()."""
-        shard = self._shard(kind)
-        with shard.lock:
-            objs = self._list_locked(shard, namespace, label_selector,
-                                     predicate)
-            with self._rv_lock:
-                return objs, self._rv_counter
+        with self._verb_scope("list", kind, namespace or ""):
+            shard = self._shard(kind)
+            with shard.lock:
+                objs = self._list_locked(shard, namespace, label_selector,
+                                         predicate)
+                with self._rv_lock:
+                    return objs, self._rv_counter
 
     # -- admission ------------------------------------------------------------
     def _admit(
@@ -493,7 +549,8 @@ class ApiServer:
 
     # -- writes ---------------------------------------------------------------
     def create(self, obj: KubeObject) -> KubeObject:
-        return self._create(obj)
+        with self._verb_scope("create", obj.kind, obj.metadata.namespace):
+            return self._create(obj)
 
     def _create(self, obj: KubeObject) -> KubeObject:
         obj = obj.deepcopy()
@@ -579,7 +636,8 @@ class ApiServer:
         semantics): the write must replace unconditionally even under
         concurrency, so a commit-time conflict retries against fresh state
         — the analog of GuaranteedUpdate's internal retry."""
-        return self._update(obj, subresource)
+        with self._verb_scope("update", obj.kind, obj.metadata.namespace):
+            return self._update(obj, subresource)
 
     def _update(self, obj: KubeObject, subresource: str = "") -> KubeObject:
         if not obj.metadata.resource_version:
@@ -686,7 +744,8 @@ class ApiServer:
         raise NotImplementedError(_PATCH_VERB_MISSING % "JSON patch")
 
     def delete(self, kind: str, namespace: str, name: str) -> None:
-        self._delete(kind, namespace, name)
+        with self._verb_scope("delete", kind, namespace):
+            self._delete(kind, namespace, name)
 
     def _delete(self, kind: str, namespace: str, name: str) -> None:
         shard = self._shard(kind)

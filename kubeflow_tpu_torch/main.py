@@ -9,18 +9,27 @@ in-memory API server and the fake data plane, with the
 health/readiness/metrics HTTP side real.  Env vars are the config surface
 (utils/config.py), under the reference's names.
 
+The observability plane runs in every manager: the SLO engine, the
+data-plane telemetry rollup, the lifecycle ledger, the TSDB, the tenant
+metering ledger and the diagnosis engine are attached to the metrics
+scrape, and the continuous profiler runs under
+ENABLE_CONTINUOUS_PROFILER.  Their /debug surfaces answer loopback peers
+only (`HealthAndMetricsHandler`), and `/state` is served behind
+`--expose-state`.  `--log-format json` logs one JSON object a line with
+the live span's trace and span ids (utils/logging.py).
+
 `--demo` creates a sample GPU notebook (`spec.gpu {--demo-accelerator,
---demo-count}`) on fake GPU nodes sized to its gang and prints its status
+--demo-count}`) on fake GPU nodes sized to its gang, prints its status
 once it reads Healthy, after the ODH reconciler has lifted the
-reconciliation lock the webhook stamped on it: the twin of
+reconciliation lock the webhook stamped on it, and stamps one telemetry
+summary per worker for the data-plane rollup: the twin of
 `python -m kubeflow_tpu.main --demo`.
 
 Not ported yet (`ROADMAP.md` queue 1 item 17): the real-cluster backend
 (`--kubeconfig`, `--in-cluster`), leader election, the sharded fleet, the
 webhook server, `--serve-api` (and with it the twin of
-`--fake-tpu-nodes`, whose nodes only a CR from the API could use),
-`--audit-log`, and the /debug and /state surfaces with the SLO,
-diagnosis, lifecycle, metering and profiler engines behind them.
+`--fake-tpu-nodes`, whose nodes only a CR from the API could use) and
+`--audit-log`.
 """
 
 from __future__ import annotations
@@ -37,12 +46,20 @@ from .api.types import GPUSpec, Notebook
 from .core.culling_controller import setup_culling
 from .core.metrics import NotebookMetrics
 from .core.notebook_controller import setup_core_controllers
+from .core.telemetry import WorkerTelemetryAggregator
 from .gpu import topology
-from .kube import ApiServer, FakeCluster, KubeObject, Manager
+from .kube import ApiServer, EventRecorder, FakeCluster, KubeObject, Manager
 from .odh.controller import setup_odh_controllers
 from .odh.tls_profile import SecurityProfileWatcher, fetch_apiserver_tls_profile
 from .utils.clock import Clock
 from .utils.config import CoreConfig, OdhConfig
+from .utils.diagnosis import DiagnosisEngine
+from .utils.lifecycle import LifecycleLedger
+from .utils.logging import setup_structured_logging
+from .utils.metering import TenantMeteringLedger
+from .utils.profiler import ContinuousProfiler
+from .utils.slo import SLOEngine, default_objectives
+from .utils.tsdb import TimeSeriesStore
 
 PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4"
 OPENMETRICS_CONTENT_TYPE = \
@@ -75,15 +92,58 @@ def negotiate_metrics_format(accept: str) -> bool:
 
 
 class HealthAndMetricsHandler(http.server.BaseHTTPRequestHandler):
-    """Probe + scrape surface (main.go:125-133, metrics on :8080):
+    """Probe + scrape + debug surface (main.go:125-133, metrics on :8080):
 
-    - /healthz — liveness: process up and the manager not stopped;
-    - /readyz — readiness: the manager started and its caches synced;
-    - /metrics — OpenMetrics when the scraper asks for it, Prometheus
-      text 0.0.4 otherwise."""
+    - /healthz  — liveness: process up and the manager not stopped;
+    - /readyz   — readiness: additionally the manager STARTED and its
+      watch/informer caches synced;
+    - /metrics  — content-negotiated: OpenMetrics (exemplars + `# EOF`)
+      when the scraper asks for it, Prometheus text 0.0.4 otherwise;
+    - /debug/reconciles, /debug/traces/<id>, /debug/workqueue — the flight
+      recorder and workqueue introspection, loopback-only (same rationale
+      as /state: diagnosis happens via `kubectl exec`/port-forward, and
+      trace payloads carry object names and error strings that must not be
+      scrapeable from off-pod);
+    - /debug/alerts — the SLO engine's burn-alert surface: objective
+      stats, firing alerts (each annotated with the diagnosis engine's
+      one-line verdict for its exemplar), and the bounded fire/resolve
+      history (each alert carrying an exemplar trace_id resolvable at
+      /debug/traces);
+    - /debug/explain — ?object=<ns>/<name> returns the diagnosis
+      engine's ranked causal chain for one notebook, every link citing
+      its evidence (trace_id, event, metric sample);
+    - /debug/changepoints — the fleet change-point detector's annotated
+      findings over the TSDB's watched series, each correlated against
+      the discrete event timeline (fault windows, promotions, shard
+      epochs, warm-pool resizes, straggler onsets, noisy tenants);
+    - /debug/profile — the continuous profiler's aggregated collapsed
+      stacks (JSON, or flamegraph text with ?format=collapsed);
+    - /debug/fleet — per-namespace / per-shape health rollup off the
+      informer cache's incremental census (O(series) per request) plus
+      the SLO verdicts;
+    - /debug/criticalpath — the lifecycle ledger's fleet-wide stage
+      ranking (mean/p99 contribution per stage to event->ready) and its
+      conservation check (attributed sum vs measured wall time);
+    - /debug/timeline — the in-process TSDB: ?series=<name>&tier=raw|10s|
+      60s returns one downsampled series; ?dump=1 the full multi-tier
+      capture (what a diagnose bundle keeps); without either the
+      inventory;
+    - /debug/tenants — the tenant metering ledger: per-tenant chip-second
+      buckets and control-plane attribution, top-K consumers, fairness
+      verdicts (noisy-neighbor flags), and the chip-second conservation
+      gate;
+    - /state    — in-memory store dump (includes Secret data; additionally
+      gated on --expose-state)."""
 
     manager: Optional[Manager] = None
     metrics: Optional[NotebookMetrics] = None
+    expose_state: bool = False  # /state dumps Secrets — loopback/debug only
+
+    def _loopback_only(self) -> bool:
+        """True when the request may see debug payloads: the TCP peer is a
+        loopback address (pod-local exec / port-forward lands here)."""
+        host = self.client_address[0]
+        return host in ("127.0.0.1", "::1", "::ffff:127.0.0.1")
 
     def _not_ready(self) -> str:
         """Empty string when ready to serve traffic, else the reason."""
@@ -99,8 +159,12 @@ class HealthAndMetricsHandler(http.server.BaseHTTPRequestHandler):
         return ""
 
     def do_GET(self):  # noqa: N802  (stdlib API)
-        path = urllib.parse.urlsplit(self.path).path
+        url = urllib.parse.urlsplit(self.path)
+        path = url.path
         if path == "/healthz":
+            # liveness only: a stopped manager (TLS-profile restart, fatal
+            # error) must fail so the Deployment actually restarts the pod,
+            # but an unsynced follower is perfectly alive
             if self.manager is not None and self.manager.stopped:
                 self._respond(503, "manager stopped", "text/plain")
             else:
@@ -112,8 +176,9 @@ class HealthAndMetricsHandler(http.server.BaseHTTPRequestHandler):
             else:
                 self._respond(200, "ok", "text/plain")
         elif path == "/metrics":
-            # scrape() recomputes the census gauges and folds in the
-            # manager's reconcile/workqueue registry
+            # scrape() recomputes list-derived gauges and folds in the
+            # manager's reconcile/workqueue registry; a bare render() would
+            # serve stale gauges and miss the controller_runtime_* families
             openmetrics = negotiate_metrics_format(
                 self.headers.get("Accept", ""))
             if self.metrics is not None:
@@ -123,6 +188,150 @@ class HealthAndMetricsHandler(http.server.BaseHTTPRequestHandler):
             self._respond(200, body,
                           OPENMETRICS_CONTENT_TYPE if openmetrics
                           else PROMETHEUS_CONTENT_TYPE)
+        elif path.startswith("/debug/"):
+            if not self._loopback_only():
+                self._respond(403, "debug endpoints are loopback-only",
+                              "text/plain")
+                return
+            self._serve_debug(path, urllib.parse.parse_qs(url.query))
+        elif path == "/state" and self.expose_state:
+            if not self._loopback_only():
+                self._respond(403, "/state is loopback-only", "text/plain")
+                return
+            api = self.manager.api if self.manager else None
+            dump = getattr(api, "dump", None)
+            body = json.dumps(dump() if callable(dump) else {}, default=str)
+            self._respond(200, body, "application/json")
+        else:
+            self._respond(404, "not found", "text/plain")
+
+    def _serve_debug(self, path: str, query: dict) -> None:
+        mgr = self.manager
+        if mgr is None:
+            self._respond(503, "no manager", "text/plain")
+            return
+        recorder = mgr.flight_recorder
+        if path == "/debug/reconciles":
+            object_key = (query.get("object") or [None])[0]
+            body = recorder.snapshot(object_key=object_key)
+            self._respond(200, json.dumps(body, default=str),
+                          "application/json")
+        elif path.startswith("/debug/traces/"):
+            trace_id = path[len("/debug/traces/"):]
+            trace = recorder.trace(trace_id)
+            if trace is None:
+                self._respond(404, json.dumps(
+                    {"error": f"trace {trace_id!r} not recorded "
+                     "(unknown, or evicted from the bounded trace store)"}),
+                    "application/json")
+            else:
+                self._respond(200, json.dumps(trace, default=str),
+                              "application/json")
+        elif path == "/debug/workqueue":
+            self._respond(200, json.dumps(mgr.workqueue_debug(), default=str),
+                          "application/json")
+        elif path == "/debug/alerts":
+            engine = getattr(mgr, "slo_engine", None)
+            body = engine.snapshot() if engine is not None else {
+                "enabled": False,
+                "error": "no SLO engine attached to this manager"}
+            diagnosis = getattr(mgr, "diagnosis", None)
+            if engine is not None and diagnosis is not None:
+                # each firing alert gains a one-line `diagnosis` verdict
+                # for its latched exemplar ("" when no verdict, never an
+                # error)
+                body = diagnosis.annotate_alerts(body)
+            self._respond(200, json.dumps(body, default=str),
+                          "application/json")
+        elif path == "/debug/explain":
+            diagnosis = getattr(mgr, "diagnosis", None)
+            object_key = (query.get("object") or [""])[0]
+            if diagnosis is None:
+                body = {"enabled": False,
+                        "error": "no diagnosis engine attached to this "
+                                 "manager"}
+            elif "/" not in object_key:
+                body = {"error": "pass ?object=<namespace>/<name>",
+                        "object": object_key, "verdict": ""}
+            else:
+                ns, _, name = object_key.partition("/")
+                body = diagnosis.explain(ns, name)
+            self._respond(200, json.dumps(body, default=str),
+                          "application/json")
+        elif path == "/debug/changepoints":
+            diagnosis = getattr(mgr, "diagnosis", None)
+            if diagnosis is None:
+                body = {"enabled": False,
+                        "error": "no diagnosis engine attached to this "
+                                 "manager"}
+            else:
+                # evaluate on read so an operator polling between scrapes
+                # sees shifts in the latest samples, not the last scrape's
+                diagnosis.evaluate()
+                body = diagnosis.snapshot()
+            self._respond(200, json.dumps(body, default=str),
+                          "application/json")
+        elif path == "/debug/profile":
+            profiler = getattr(mgr, "profiler", None)
+            fmt = (query.get("format") or ["json"])[0]
+            if profiler is None:
+                if fmt == "collapsed":
+                    self._respond(200, "", "text/plain")
+                else:
+                    self._respond(200, json.dumps(
+                        {"enabled": False, "samples_total": 0, "stacks": [],
+                         "hint": "set ENABLE_CONTINUOUS_PROFILER=true"}),
+                        "application/json")
+            elif fmt == "collapsed":
+                self._respond(200, profiler.collapsed(), "text/plain")
+            else:
+                self._respond(200, json.dumps(profiler.snapshot(),
+                                              default=str),
+                              "application/json")
+        elif path == "/debug/fleet":
+            if self.metrics is None:
+                self._respond(503, "no metrics", "text/plain")
+                return
+            self._respond(200, json.dumps(self.metrics.fleet_snapshot(),
+                                          default=str),
+                          "application/json")
+        elif path == "/debug/criticalpath":
+            ledger = getattr(mgr, "lifecycle", None)
+            body = ledger.snapshot() if ledger is not None else {
+                "enabled": False,
+                "error": "no lifecycle ledger attached to this manager"}
+            self._respond(200, json.dumps(body, default=str),
+                          "application/json")
+        elif path == "/debug/tenants":
+            metering = getattr(mgr, "metering", None)
+            body = metering.snapshot() if metering is not None else {
+                "enabled": False,
+                "error": "no tenant metering ledger attached to this "
+                         "manager"}
+            if self.metrics is not None:
+                # per-tenant admission-gate view (queue depth, quota
+                # usage, recent preemptions) — same source as the
+                # tenancy section of /debug/fleet
+                body["tenancy"] = self.metrics.tenancy_snapshot()
+            self._respond(200, json.dumps(body, default=str),
+                          "application/json")
+        elif path == "/debug/timeline":
+            store = getattr(mgr, "tsdb", None)
+            if store is None:
+                body = {"enabled": False,
+                        "error": "no time-series store attached"}
+            else:
+                series = (query.get("series") or [None])[0]
+                tier = (query.get("tier") or ["raw"])[0]
+                dump = (query.get("dump") or [""])[0]
+                if series:
+                    body = store.query(series, tier=tier)
+                elif dump in ("1", "true"):
+                    body = store.dump()  # full capture, for bundles
+                else:
+                    body = store.snapshot()
+            self._respond(200, json.dumps(body, default=str),
+                          "application/json")
         else:
             self._respond(404, "not found", "text/plain")
 
@@ -138,14 +347,18 @@ class HealthAndMetricsHandler(http.server.BaseHTTPRequestHandler):
         pass
 
 
-def serve_http(port: int, manager: Manager, metrics: NotebookMetrics):
+def serve_http(port: int, manager: Manager, metrics: NotebookMetrics,
+               expose_state: bool = False):
     """Health + metrics on all interfaces (the kubelet probes the pod IP
-    and Prometheus scrapes :8080).  Returns the running server (port 0
-    picks a free one: `server.server_address[1]`)."""
+    and Prometheus scrapes :8080).  The /debug/* endpoints answer only
+    loopback clients, and the /state dump, which includes Secret data,
+    additionally needs `expose_state` (--expose-state).  Returns the
+    running server (port 0 picks a free one: `server.server_address[1]`)."""
     handler = type(
         "Handler",
         (HealthAndMetricsHandler,),
-        {"manager": manager, "metrics": metrics},
+        {"manager": manager, "metrics": metrics,
+         "expose_state": expose_state},
     )
     server = http.server.ThreadingHTTPServer(("0.0.0.0", port), handler)
     threading.Thread(target=server.serve_forever, daemon=True).start()
@@ -164,13 +377,90 @@ def build_manager(
     manager and every controller; `jupyter` is the culler's activity
     probe (`core.jupyter.FakeJupyterState` standalone; by default the
     HTTP client of the reference); `odh_cfg` configures the ODH plane
-    (`OdhConfig.from_env()` when not given)."""
+    (`OdhConfig.from_env()` when not given).  The observability engines
+    are attached in the reference's order and hang on the manager
+    (`slo_engine`, `telemetry_aggregator`, `lifecycle`, `tsdb`,
+    `metering`, `diagnosis`, and `profiler` when it runs); the caller
+    stops a running profiler (`mgr.profiler.stop()`)."""
     core_cfg = core_cfg or CoreConfig.from_env()
     odh_cfg = odh_cfg or OdhConfig.from_env()
     api = ApiServer(history_size=core_cfg.watch_history_size)
     cluster = FakeCluster(api)
     mgr = Manager(api, clock=clock)
     metrics = NotebookMetrics(api, manager=mgr)
+    # fleet SLO engine: declared objectives (SLO_* knobs) over the metric
+    # streams, evaluated at every scrape; alerts serve at /debug/alerts
+    engine = SLOEngine(
+        default_objectives(core_cfg),
+        registries=[metrics.registry, mgr.metrics_registry],
+        clock=mgr.clock,
+        windows=(core_cfg.slo_short_window_s, core_cfg.slo_long_window_s),
+        burn_threshold=core_cfg.slo_burn_alert_threshold,
+        recorder=mgr.flight_recorder)
+    metrics.attach_slo(engine)
+    mgr.slo_engine = engine
+    # data-plane rollup: per-worker telemetry annotations -> per-notebook
+    # series + straggler detection, evaluated at every scrape (before the
+    # SLO engine, which burns against its verdict counters) and surfaced
+    # in /debug/fleet
+    aggregator = WorkerTelemetryAggregator(
+        api, metrics.registry, mgr.clock, cache=mgr.cache,
+        recorder=EventRecorder(api, "dataplane-telemetry"),
+        straggler_ratio=core_cfg.dataplane_straggler_ratio,
+        min_workers=core_cfg.dataplane_straggler_min_workers,
+        mfu_target=core_cfg.dataplane_mfu_target)
+    metrics.attach_dataplane(aggregator)
+    mgr.telemetry_aggregator = aggregator
+    # lifecycle stage ledger + in-process TSDB: the manager feeds the
+    # ledger with every finished attempt (critical-path attribution at
+    # /debug/criticalpath), and each metrics scrape appends one TSDB
+    # sample (p99-vs-time history at /debug/timeline)
+    ledger = LifecycleLedger(
+        registry=metrics.registry,
+        max_notebooks=core_cfg.lifecycle_max_notebooks,
+        samples_per_stage=core_cfg.lifecycle_samples_per_stage,
+        tolerance=core_cfg.lifecycle_tolerance)
+    mgr.lifecycle = ledger
+    metrics.attach_lifecycle(ledger)
+    tsdb = TimeSeriesStore(
+        raw_capacity=core_cfg.tsdb_raw_capacity,
+        tier10_capacity=core_cfg.tsdb_tier10_capacity,
+        tier60_capacity=core_cfg.tsdb_tier60_capacity,
+        max_series=core_cfg.tsdb_max_series)
+    mgr.tsdb = tsdb
+    metrics.attach_tsdb(tsdb, clock=mgr.clock)
+    # tenant metering ledger: chip-second accrual + control-plane
+    # attribution + noisy-neighbor detection, fed by the manager's
+    # dispatch/attempt hooks and each metrics scrape; serves at
+    # /debug/tenants and rides in /debug/fleet
+    metering = TenantMeteringLedger(
+        mgr.clock, registry=metrics.registry,
+        recorder=EventRecorder(api, "tenant-metering"),
+        max_tenants=core_cfg.metering_max_tenants,
+        max_notebooks=core_cfg.metering_max_notebooks,
+        tolerance=core_cfg.metering_tolerance,
+        fairshare_factor=core_cfg.tenant_fairshare_factor,
+        top_k=core_cfg.tenant_top_k,
+        slo_engine=engine)
+    mgr.metering = metering
+    metrics.attach_metering(metering)
+    # causal diagnosis engine: fuses every stream above into per-notebook
+    # verdicts (/debug/explain) and TSDB change-point findings
+    # (/debug/changepoints); evaluated once per scrape after the TSDB
+    # sample lands
+    diagnosis = DiagnosisEngine(
+        mgr.clock, registry=metrics.registry,
+        recorder=mgr.flight_recorder, lifecycle=ledger, slo_engine=engine,
+        metering=metering, tsdb=tsdb, dataplane=aggregator, api=api)
+    mgr.diagnosis = diagnosis
+    metrics.attach_diagnosis(diagnosis)
+    if core_cfg.enable_continuous_profiler:
+        # always-on (controller, phase) CPU attribution; self-overhead is
+        # exported so "can it stay on" is a gauge (/debug/profile)
+        mgr.profiler = ContinuousProfiler(
+            registry=metrics.registry,
+            interval_s=max(core_cfg.profiler_interval_ms, 1.0) / 1000.0)
+        mgr.profiler.start()
     # the fake cluster doubles as the warm pool's provisioner: with
     # ENABLE_SLICE_SCHEDULER the scheduler turns capacity up and down
     # through it
@@ -204,7 +494,9 @@ def _demo(api: ApiServer, cluster: FakeCluster, accelerator: str,
           count: int) -> dict:
     """Create the demo GPU notebook on nodes sized to its gang, wait
     (wall clock, against the threaded manager) until it reads Healthy,
-    and return its status."""
+    play its workers' training loops (one telemetry summary per worker,
+    a real TelemetryAgent's, for the /debug/fleet data-plane rollup) and
+    return its status."""
     gpu = GPUSpec(accelerator, count)
     shape = gpu.validate()
     cluster.add_gpu_nodes(accelerator, shape.num_hosts, shape.gpus_per_host,
@@ -219,7 +511,15 @@ def _demo(api: ApiServer, cluster: FakeCluster, accelerator: str,
                 == "Healthy":
             break
         wall.sleep(0.05)
-    return api.get("Notebook", "default", "demo").body.get("status", {})
+    status = api.get("Notebook", "default", "demo").body.get("status", {})
+    from .models.configs import LLAMA2_350M
+
+    cluster.stamp_worker_telemetry(
+        "default", "demo", step_time_s=0.5, config=LLAMA2_350M, batch=8,
+        seq_len=2048, num_chips=shape.gpus_per_host,
+        accelerator=topology.ACCELERATORS[accelerator].device_name,
+        now=wall.now())
+    return status
 
 
 def main(argv: Optional[list[str]] = None) -> int:
@@ -236,16 +536,30 @@ def main(argv: Optional[list[str]] = None) -> int:
                         help="GPUs in the demo notebook's gang")
     parser.add_argument("--run-seconds", type=float, default=0.0,
                         help="exit after N seconds (0 = run forever)")
+    parser.add_argument("--expose-state", action="store_true",
+                        help="serve the /state object-store dump (includes "
+                             "Secret data; loopback, standalone/debug only)")
+    parser.add_argument("--debug-log", action="store_true")
+    parser.add_argument("--log-format", choices=("text", "json"),
+                        default="text",
+                        help="json: one JSON object a line with "
+                             "trace_id/span_id correlation "
+                             "(utils/logging.py)")
     args = parser.parse_args(argv)
 
-    logging.basicConfig(
-        level=logging.INFO,
-        format="%(asctime)s %(name)s %(levelname)s %(message)s",
-    )
+    level = logging.DEBUG if args.debug_log else logging.INFO
+    if args.log_format == "json":
+        setup_structured_logging(level)
+    else:
+        logging.basicConfig(
+            level=level,
+            format="%(asctime)s %(name)s %(levelname)s %(message)s",
+        )
     mgr, api, cluster, metrics = build_manager()
     cluster.add_node("cpu-node",
                      allocatable={"cpu": "64", "memory": "256Gi"})
-    server = serve_http(args.metrics_addr, mgr, metrics)
+    server = serve_http(args.metrics_addr, mgr, metrics,
+                        expose_state=args.expose_state)
     mgr.start()
     logging.info("manager started; metrics on :%d",
                  server.server_address[1])
@@ -263,6 +577,8 @@ def main(argv: Optional[list[str]] = None) -> int:
     except KeyboardInterrupt:
         pass
     finally:
+        if mgr.profiler is not None:
+            mgr.profiler.stop()
         mgr.stop()
         server.shutdown()
         server.server_close()

@@ -6,8 +6,10 @@ kustomize params ConfigMaps; the same variable names bind into an
 injectable Config object so tests don't mutate process env.  The port
 keeps the fields its controllers read, under the reference's env names,
 defaults and parses: among them the slice scheduler's gang gate, warm
-pool and tenancy layer (core/scheduler.py, core/preemption.py), and the
-Istio VirtualService's switch, gateway and host.  `from_env` refuses the
+pool and tenancy layer (core/scheduler.py, core/preemption.py), the
+Istio VirtualService's switch, gateway and host, and the observability
+plane's: the SLO objectives and windows, the profiler, the data-plane
+rollup, the lifecycle and metering ledgers and the TSDB.  `from_env` refuses the
 env switch of any tier that is not ported (`NOT_PORTED_SWITCHES`); a
 tier's tuning knobs are not read, as the reference reads none while the
 tier is off.  Each field comes back with the `ROADMAP.md` item that ports
@@ -102,17 +104,11 @@ def _above(floor: float):
 
 # The env switches of the reference's tiers that this port does not run:
 # (env name, whether a value turns the tier on, ROADMAP.md queue 1 item,
-# the reference's module).  An SLO knob above 0 declares an objective.
+# the reference's module).  The shard-handoff objective reads
+# notebook_shard_handoff_duration_seconds, which only the sharded fleet
+# writes, so its SLO knob waits for the fleet.
 NOT_PORTED_SWITCHES = (
-    ("SLO_PROMOTION_P99_S", _above(0), 16, "kubeflow_tpu/utils/slo.py"),
-    ("ENABLE_CONTINUOUS_PROFILER", _true, 16,
-     "kubeflow_tpu/utils/profiler.py"),
-    *((name, _above(0), 16, "kubeflow_tpu/utils/slo.py") for name in (
-        "SLO_TIME_TO_READY_P99_S", "SLO_EVENT_TO_RECONCILE_P99_S",
-        "SLO_RECONCILE_ERROR_RATE", "SLO_RECOVERY_DURATION_P99_S",
-        "SLO_WARMPOOL_HIT_RATE", "SLO_PLACEMENT_P99_S", "SLO_FLEET_MFU",
-        "SLO_STRAGGLER_RATE", "SLO_TENANT_FAIRNESS",
-        "SLO_SHARD_HANDOFF_P99_S", "DATAPLANE_MFU_TARGET")),
+    ("SLO_SHARD_HANDOFF_P99_S", _above(0), 17, "kubeflow_tpu/kube/shard.py"),
     ("SHARD_COUNT", _above(1), 17, "kubeflow_tpu/kube/shard.py"),
 )
 
@@ -185,10 +181,10 @@ class CoreConfig:
     # replicated-kernel tier (spec.replication, core/selfheal.py's promote
     # verb): a follower counts as caught up, and may be promoted, when it
     # has applied the latest base snapshot and trails the delta chain
-    # head by at most replication_max_lag deltas.  Its latency objective
-    # (SLO_PROMOTION_P99_S) belongs to the SLO tier (ROADMAP.md queue 1
-    # item 16) and is refused above 0.
+    # head by at most replication_max_lag deltas.  slo_promotion_p99_s
+    # bounds the promote verb's latency objective (<= 0 disables it).
     replication_max_lag: int = 2              # REPLICATION_MAX_LAG
+    slo_promotion_p99_s: float = 1.0          # SLO_PROMOTION_P99_S
     # topology-aware gang scheduler (core/scheduler.py): with it on, a GPU
     # notebook renders no StatefulSet until an all-or-nothing placement
     # intent covers its gang, and a warm pool of pre-provisioned gangs per
@@ -212,10 +208,69 @@ class CoreConfig:
     # the dequeue order is the aged weighted fair-share score
     # priority_rank + weight * age / queue_aging_s, so no queued gang
     # starves.  enable_preemption gates checkpoint-then-preempt and is on
-    # by default, as in the reference.
+    # by default, as in the reference.  slo_placement_p99_s bounds the
+    # queue-wait (time-to-placement) objective (<= 0 disables it).
     enable_preemption: bool = True            # ENABLE_PREEMPTION
     queue_requeue_s: float = 15.0             # QUEUE_REQUEUE_S
     queue_aging_s: float = 60.0               # QUEUE_AGING_S
+    slo_placement_p99_s: float = 0.0          # SLO_PLACEMENT_P99_S
+    # fleet SLO engine (utils/slo.py): declared objectives over the
+    # metric streams, evaluated into multi-window burn rates at every
+    # scrape.  Latency knobs are p99 ceilings; a knob <= 0 disables its
+    # objective.  Alerts fire when every window burns the error budget
+    # faster than slo_burn_alert_threshold, and resolve when the short
+    # window recovers; served at /debug/alerts.
+    slo_time_to_ready_p99_s: float = 600.0      # SLO_TIME_TO_READY_P99_S
+    slo_event_to_reconcile_p99_s: float = 30.0  # SLO_EVENT_TO_RECONCILE_P99_S
+    slo_reconcile_error_rate: float = 0.01      # SLO_RECONCILE_ERROR_RATE
+    slo_recovery_p99_s: float = 300.0           # SLO_RECOVERY_DURATION_P99_S
+    slo_warmpool_hit_rate: float = 0.6          # SLO_WARMPOOL_HIT_RATE
+    slo_short_window_s: float = 300.0           # SLO_SHORT_WINDOW_S
+    slo_long_window_s: float = 3600.0           # SLO_LONG_WINDOW_S
+    slo_burn_alert_threshold: float = 2.0       # SLO_BURN_ALERT_THRESHOLD
+    # continuous sampling profiler (utils/profiler.py): (controller,
+    # phase) CPU attribution at /debug/profile, off by default (a
+    # real-time sampler thread); its self-overhead is exported as
+    # notebook_profiler_overhead_ratio when on.
+    enable_continuous_profiler: bool = False    # ENABLE_CONTINUOUS_PROFILER
+    profiler_interval_ms: float = 10.0          # PROFILER_INTERVAL_MS
+    # data-plane telemetry (runtime/telemetry.py's TelemetryAgent
+    # publishes rolling summaries into pod annotations; core/telemetry.py
+    # rolls them up at every scrape).  A worker whose rolling step time
+    # exceeds dataplane_straggler_ratio x the gang median (with at least
+    # dataplane_straggler_min_workers reporting) fires the straggler gauge
+    # and a Warning event, never a healing action.  dataplane_mfu_target
+    # feeds the fleet-MFU objective's low/ok verdict counter;
+    # slo_fleet_mfu / slo_straggler_rate <= 0 keep those objectives off.
+    dataplane_straggler_ratio: float = 1.5      # DATAPLANE_STRAGGLER_RATIO
+    dataplane_straggler_min_workers: int = 2    # DATAPLANE_STRAGGLER_MIN_WORKERS
+    dataplane_mfu_target: float = 0.0           # DATAPLANE_MFU_TARGET
+    slo_fleet_mfu: float = 0.0                  # SLO_FLEET_MFU
+    slo_straggler_rate: float = 0.0             # SLO_STRAGGLER_RATE
+    # lifecycle stage ledger (utils/lifecycle.py): event->ready
+    # critical-path attribution behind /debug/criticalpath; the LRU of
+    # ledgers, the per-stage p99 sample ring and the conservation gate.
+    lifecycle_max_notebooks: int = 4096         # LIFECYCLE_MAX_NOTEBOOKS
+    lifecycle_samples_per_stage: int = 2048     # LIFECYCLE_SAMPLES_PER_STAGE
+    lifecycle_tolerance: float = 0.05           # LIFECYCLE_TOLERANCE
+    # in-process time-series store (utils/tsdb.py): raw ring plus 10s and
+    # 60s tiers per series, fed once per scrape, at /debug/timeline.
+    tsdb_raw_capacity: int = 512                # TSDB_RAW_CAPACITY
+    tsdb_tier10_capacity: int = 1024            # TSDB_TIER10_CAPACITY
+    tsdb_tier60_capacity: int = 1024            # TSDB_TIER60_CAPACITY
+    tsdb_max_series: int = 256                  # TSDB_MAX_SERIES
+    # tenant metering ledger (utils/metering.py): per-namespace
+    # chip-seconds (one GPU is one chip) and control-plane attribution
+    # behind /debug/tenants.  A tenant whose rolling control-plane share
+    # exceeds tenant_fairshare_factor x fair share while another
+    # tenant's event->reconcile p99 is degraded is flagged noisy;
+    # slo_tenant_fairness > 0 turns on the tenant_fairness objective.
+    metering_max_tenants: int = 64              # METERING_MAX_TENANTS
+    metering_max_notebooks: int = 4096          # METERING_MAX_NOTEBOOKS
+    metering_tolerance: float = 0.05            # METERING_TOLERANCE
+    tenant_fairshare_factor: float = 3.0        # TENANT_FAIRSHARE_FACTOR
+    tenant_top_k: int = 8                       # TENANT_TOP_K
+    slo_tenant_fairness: float = 0.01           # SLO_TENANT_FAIRNESS
 
     @classmethod
     def from_env(cls, env: Optional[Mapping[str, str]] = None) -> "CoreConfig":
@@ -257,6 +312,7 @@ class CoreConfig:
             checkpoint_signal_root=env.get("CHECKPOINT_SIGNAL_ROOT", ""),
             replication_max_lag=max(0, _int(
                 env, "REPLICATION_MAX_LAG", 2)),
+            slo_promotion_p99_s=_float(env, "SLO_PROMOTION_P99_S", 1.0),
             enable_slice_scheduler=_bool(
                 env, "ENABLE_SLICE_SCHEDULER", False),
             warmpool_size=max(0, _int(env, "WARMPOOL_SIZE", 0)),
@@ -269,6 +325,51 @@ class CoreConfig:
             enable_preemption=_bool(env, "ENABLE_PREEMPTION", True),
             queue_requeue_s=_float(env, "QUEUE_REQUEUE_S", 15.0),
             queue_aging_s=_float(env, "QUEUE_AGING_S", 60.0),
+            slo_placement_p99_s=_float(env, "SLO_PLACEMENT_P99_S", 0.0),
+            slo_time_to_ready_p99_s=_float(
+                env, "SLO_TIME_TO_READY_P99_S", 600.0),
+            slo_event_to_reconcile_p99_s=_float(
+                env, "SLO_EVENT_TO_RECONCILE_P99_S", 30.0),
+            slo_reconcile_error_rate=_float(
+                env, "SLO_RECONCILE_ERROR_RATE", 0.01),
+            slo_recovery_p99_s=_float(
+                env, "SLO_RECOVERY_DURATION_P99_S", 300.0),
+            slo_warmpool_hit_rate=_float(
+                env, "SLO_WARMPOOL_HIT_RATE", 0.6),
+            slo_short_window_s=_float(env, "SLO_SHORT_WINDOW_S", 300.0),
+            slo_long_window_s=_float(env, "SLO_LONG_WINDOW_S", 3600.0),
+            slo_burn_alert_threshold=_float(
+                env, "SLO_BURN_ALERT_THRESHOLD", 2.0),
+            enable_continuous_profiler=_bool(
+                env, "ENABLE_CONTINUOUS_PROFILER", False),
+            profiler_interval_ms=_float(env, "PROFILER_INTERVAL_MS", 10.0),
+            dataplane_straggler_ratio=_float(
+                env, "DATAPLANE_STRAGGLER_RATIO", 1.5),
+            dataplane_straggler_min_workers=max(2, _int(
+                env, "DATAPLANE_STRAGGLER_MIN_WORKERS", 2)),
+            dataplane_mfu_target=_float(env, "DATAPLANE_MFU_TARGET", 0.0),
+            slo_fleet_mfu=_float(env, "SLO_FLEET_MFU", 0.0),
+            slo_straggler_rate=_float(env, "SLO_STRAGGLER_RATE", 0.0),
+            lifecycle_max_notebooks=max(1, _int(
+                env, "LIFECYCLE_MAX_NOTEBOOKS", 4096)),
+            lifecycle_samples_per_stage=max(1, _int(
+                env, "LIFECYCLE_SAMPLES_PER_STAGE", 2048)),
+            lifecycle_tolerance=_float(env, "LIFECYCLE_TOLERANCE", 0.05),
+            tsdb_raw_capacity=max(1, _int(env, "TSDB_RAW_CAPACITY", 512)),
+            tsdb_tier10_capacity=max(1, _int(
+                env, "TSDB_TIER10_CAPACITY", 1024)),
+            tsdb_tier60_capacity=max(1, _int(
+                env, "TSDB_TIER60_CAPACITY", 1024)),
+            tsdb_max_series=max(1, _int(env, "TSDB_MAX_SERIES", 256)),
+            metering_max_tenants=max(1, _int(
+                env, "METERING_MAX_TENANTS", 64)),
+            metering_max_notebooks=max(1, _int(
+                env, "METERING_MAX_NOTEBOOKS", 4096)),
+            metering_tolerance=_float(env, "METERING_TOLERANCE", 0.05),
+            tenant_fairshare_factor=_float(
+                env, "TENANT_FAIRSHARE_FACTOR", 3.0),
+            tenant_top_k=max(1, _int(env, "TENANT_TOP_K", 8)),
+            slo_tenant_fairness=_float(env, "SLO_TENANT_FAIRNESS", 0.01),
         )
 
 

@@ -378,8 +378,8 @@ def test_main_demo_serves_health_and_metrics(monkeypatch, capsys,
 
     serve = port_main.serve_http
 
-    def recording_serve_http(port, manager, metrics):
-        built["server"] = serve(0, manager, metrics)
+    def recording_serve_http(port, manager, metrics, **kwargs):
+        built["server"] = serve(0, manager, metrics, **kwargs)
         return built["server"]
 
     monkeypatch.setattr(port_main, "build_manager", recording_build_manager)
@@ -497,12 +497,28 @@ def test_parts_not_ported_are_refused(knob, item):
 
 _SWITCH_ON = {"ENABLE_PREEMPTION": "true", "ENABLE_CONTINUOUS_PROFILER": "true",
               "WARMPOOL_SHAPES": "h100-80gb:8", "SHARD_COUNT": "4"}
-# the env switches of the slice scheduler's tier (queue 1 item 13), taken
-# since it was ported: each parses into its field
+# the env switches of the slice scheduler's tier (queue 1 item 13) and of
+# the observability plane (item 16), taken since they were ported: each
+# parses into its field
 _TIER_SWITCHES = {"ENABLE_PREEMPTION": ("enable_preemption", True),
                   "WARMPOOL_SIZE": ("warmpool_size", 1),
                   "WARMPOOL_SHAPES": ("warmpool_shapes", "h100-80gb:8"),
-                  "REPLICATION_MAX_LAG": ("replication_max_lag", 1)}
+                  "REPLICATION_MAX_LAG": ("replication_max_lag", 1),
+                  "ENABLE_CONTINUOUS_PROFILER": (
+                      "enable_continuous_profiler", True),
+                  **{name: (field, 1.0) for name, field in (
+                      ("SLO_PROMOTION_P99_S", "slo_promotion_p99_s"),
+                      ("SLO_TIME_TO_READY_P99_S", "slo_time_to_ready_p99_s"),
+                      ("SLO_EVENT_TO_RECONCILE_P99_S",
+                       "slo_event_to_reconcile_p99_s"),
+                      ("SLO_RECONCILE_ERROR_RATE", "slo_reconcile_error_rate"),
+                      ("SLO_RECOVERY_DURATION_P99_S", "slo_recovery_p99_s"),
+                      ("SLO_WARMPOOL_HIT_RATE", "slo_warmpool_hit_rate"),
+                      ("SLO_PLACEMENT_P99_S", "slo_placement_p99_s"),
+                      ("SLO_FLEET_MFU", "slo_fleet_mfu"),
+                      ("SLO_STRAGGLER_RATE", "slo_straggler_rate"),
+                      ("SLO_TENANT_FAIRNESS", "slo_tenant_fairness"),
+                      ("DATAPLANE_MFU_TARGET", "dataplane_mfu_target"))}}
 _SWITCH_OFF = {"ENABLE_PREEMPTION": "false",
                "ENABLE_CONTINUOUS_PROFILER": "false", "WARMPOOL_SHAPES": "",
                "SHARD_COUNT": "1"}

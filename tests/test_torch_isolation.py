@@ -17,7 +17,8 @@ ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "kubeflow_tpu"}
 # modules the two tests must reach, among all the others they walk: the
 # serving entry points, the small models, the compile-check entry, the
-# GPU side of the controller contract and the controller itself
+# GPU side of the controller contract, the controller itself and its
+# observability plane
 EXPECTED = {"bench", "entry", "examples.llama13b_decode",
             "examples.serve_model", "examples.speculative_demo",
             "examples.train_llm", "models.generate", "models.mlp",
@@ -27,12 +28,14 @@ EXPECTED = {"bench", "entry", "examples.llama13b_decode",
             "core.notebook_controller", "core.culling_controller",
             "core.selfheal", "core.sessionstate", "gpu.device_plugin",
             "core.scheduler", "core.preemption", "odh.controller",
-            "odh.webhook", "odh.tls_profile"}
+            "odh.webhook", "odh.tls_profile", "core.telemetry",
+            "utils.tsdb", "utils.logging", "utils.slo", "utils.lifecycle",
+            "utils.metering", "utils.diagnosis", "utils.profiler"}
 
 
 def _port_sources() -> list:
     return sorted((ROOT / "kubeflow_tpu_torch").rglob("*.py")) \
-        + [ROOT / "chip_smoke.py"]
+        + [ROOT / "bench_controller.py", ROOT / "chip_smoke.py"]
 
 
 def _imported_roots(path: Path) -> set:
@@ -48,8 +51,9 @@ def _imported_roots(path: Path) -> set:
 def test_port_sources_import_no_reference():
     sources = _port_sources()
     assert len(sources) > 10
-    names = {".".join(p.relative_to(ROOT / "kubeflow_tpu_torch")
-                      .with_suffix("").parts) for p in sources[:-1]}
+    package = ROOT / "kubeflow_tpu_torch"
+    names = {".".join(p.relative_to(package).with_suffix("").parts)
+             for p in sources if p.is_relative_to(package)}
     assert EXPECTED <= names, sorted(EXPECTED - names)
     for path in sources:
         bad = _imported_roots(path) & FORBIDDEN
@@ -87,7 +91,10 @@ CONTROL_PLANE = ("main", "kube", "common.reconcilehelper",
                  "odh.constants", "odh.controller", "odh.diff", "odh.dspa",
                  "odh.feast", "odh.gateway", "odh.mlflow", "odh.network",
                  "odh.notebook", "odh.oauth", "odh.rbac", "odh.routing",
-                 "odh.runtime_images", "odh.tls_profile", "odh.webhook")
+                 "odh.runtime_images", "odh.tls_profile", "odh.webhook",
+                 "core.telemetry", "utils.tsdb", "utils.logging", "utils.slo",
+                 "utils.lifecycle", "utils.metering", "utils.diagnosis",
+                 "utils.profiler")
 
 
 def test_control_plane_imports_no_torch():

@@ -453,7 +453,27 @@ non-zero without its result line):
 17. serve_model: `python -m kubeflow_tpu_torch.examples.serve_model` on
    the card (TINY trained 5 steps, graphed plain decode, int8 decode,
    greedy speculative equal to plain, speculative sampling): rc 0 and
-   RESULT: OK.
+   RESULT: OK;
+18. wire: the real-cluster backend, in a process of its own that starts
+   before gemma_train and is collected after it (`wire_step`): a CA and
+   a serving pair minted (kube/certs.py), a fresh ApiServer and
+   FakeCluster served over TLS by KubeApiWireServer with its audit log
+   and the conversion webhook, its node labelled for this card, and
+   `python -m kubeflow_tpu_torch.main --kubeconfig ...
+   --enable-leader-election` as a separate process whose ODH webhooks
+   the ApiServer calls over HTTPS.  notebook_train's CR, made through a
+   KubeClient at kubeflow.org/v1beta1, must come back converted, locked
+   by the mutating webhook and unlocked by the leader's merge patch, and
+   its StatefulSet, pod, Services and ODH objects must equal what
+   `build_manager` renders in process from the same CR.  Then, through
+   the KubeClient: a stop annotation by merge patch removes the pod; two
+   apply managers conflict with a 409 and one forces; a strategic merge
+   patch of the StatefulSet's container by name; a JSON patch; a fault
+   plan drops the watch streams and resets the history, the manager's
+   informers relist through 410 Gone and the un-stop converges; the
+   store's audit log holds each verb.  The ten conformance fixtures
+   replay against a second TLS wire server, each as its `expect` says.
+   SIGINT stops the manager within 2 s with the lease released.
 
 It prints one JSON line per kernel shape and per slice, then a "kernels"
 line (each kernel's launches on its main path, and beside them the
@@ -477,6 +497,7 @@ import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -2936,6 +2957,449 @@ def finish_nccl_probe(started: dict) -> dict:
             "wall_s": now - started["t0"], "waited_s": now - wait_t0}
 
 
+WIRE_LEASE = "kubeflow-tpu-notebook-controller"
+WIRE_TOKEN = "wire-smoke-token"
+WIRE_TIMEOUT_S = 150
+# kinds the in-process render and the manager over the wire must make alike
+WIRE_RENDERED = ("StatefulSet", "Pod", "Service", "HTTPRoute",
+                 "ReferenceGrant", "NetworkPolicy", "ServiceAccount",
+                 "ConfigMap", "Secret", "ClusterRoleBinding")
+# what a write or another process's clock stamps: uids (owner uids too),
+# resourceVersions, times and field-manager records
+WIRE_VOLATILE = {"uid", "resourceVersion", "creationTimestamp",
+                 "deletionTimestamp", "managedFields", "generation",
+                 "startedAt", "finishedAt", "lastTransitionTime"}
+
+
+def _wire_normalized(node):
+    if isinstance(node, dict):
+        return {k: _wire_normalized(v) for k, v in node.items()
+                if k not in WIRE_VOLATILE}
+    if isinstance(node, list):
+        return [_wire_normalized(v) for v in node]
+    return node
+
+
+def _wire_objects(api) -> dict:
+    """The rendered kinds' objects in `api` with the volatile stamps
+    dropped, by "kind namespace/name"."""
+    with api.fault_exempt():
+        return {f"{kind} {obj.namespace}/{obj.name}":
+                _wire_normalized(obj.to_dict())
+                for kind in WIRE_RENDERED for obj in api.list(kind)}
+
+
+def _wire_wait(what: str, predicate, timeout_s: float = 30.0,
+               step_s: float = 0.05):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        value = predicate()
+        if value:
+            return value
+        time.sleep(step_s)
+    raise RuntimeError(f"wire: timed out after {timeout_s} s waiting for "
+                       f"{what}")
+
+
+def _wire_fixtures(bundle, result: dict) -> None:
+    """The ten conformance transcripts against a fresh TLS wire server:
+    {name: "pass" | the failure} into `result`."""
+    from kubeflow_tpu_torch.kube import ApiServer
+    from kubeflow_tpu_torch.kube.fixtures import (
+        FixtureFailure,
+        FixtureRunner,
+        load_fixtures,
+    )
+    from kubeflow_tpu_torch.kube.wire import KubeApiWireServer
+
+    t0 = time.perf_counter()
+    srv = KubeApiWireServer(ApiServer(), ssl_context=bundle.server_ssl_context(),
+                            token=WIRE_TOKEN).start()
+    try:
+        runner = FixtureRunner(srv.url, token=WIRE_TOKEN,
+                               ssl_context=bundle.client_ssl_context())
+        for fixture in load_fixtures():
+            try:
+                runner.run(fixture)
+                result[fixture["name"]] = "pass"
+            except FixtureFailure as err:
+                result[fixture["name"]] = f"fail: {err}"
+    finally:
+        srv.stop()
+    result["_seconds"] = time.perf_counter() - t0
+
+
+def wire_step(device_name: str, gpus: int, tmp: Path) -> dict:
+    """The real-cluster backend on this card's CR (see the module
+    docstring, phase 18).  Runs in a process of its own: it imports no
+    torch and leaves no tracing clock, logging config or env behind."""
+    import socket
+    import threading
+    import urllib.request
+
+    from kubeflow_tpu_torch.api.types import GPUSpec, Notebook
+    from kubeflow_tpu_torch.api.types import convert_notebook_dict
+    from kubeflow_tpu_torch.core import constants as K
+    from kubeflow_tpu_torch.gpu import topology
+    from kubeflow_tpu_torch.gpu.device_plugin import label_gpu_node
+    from kubeflow_tpu_torch.kube import (
+        ApiServer,
+        ConflictError,
+        FakeCluster,
+        FaultPlan,
+        FaultRule,
+        KubeObject,
+        ObjectMeta,
+    )
+    from kubeflow_tpu_torch.kube.certs import mint_serving_cert
+    from kubeflow_tpu_torch.kube.client import KubeClient, RestConfig
+    from kubeflow_tpu_torch.kube.resources import ResourceInfo, Scheme
+    from kubeflow_tpu_torch.kube.wire import KubeApiWireServer
+    from kubeflow_tpu_torch.main import build_manager
+    from kubeflow_tpu_torch.odh import constants as O
+    from kubeflow_tpu_torch.odh.webhook_server import (
+        RemoteAdmissionHook,
+        RemoteConverter,
+    )
+    from kubeflow_tpu_torch.utils.clock import FakeClock
+    from kubeflow_tpu_torch.utils.config import CoreConfig, OdhConfig
+
+    t0 = time.perf_counter()
+    res: dict = {}
+    accelerator = topology.accelerator_from_device_name(device_name)
+    bundle = mint_serving_cert()
+    cert_dir = tmp / "certs"
+    bundle.write(str(cert_dir))
+    fixtures: dict = {}
+    replay = threading.Thread(target=_wire_fixtures, args=(bundle, fixtures),
+                              name="wire-fixtures")
+    replay.start()
+
+    def free_port() -> int:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    # the cluster: one node for this card, served over TLS
+    knobs = {"CHECKPOINT_STORE_URI": f"file://{tmp / 'store'}",
+             "K8S_NAMESPACE": NB_ODH_NAMESPACE}
+    api = ApiServer()
+    cluster = FakeCluster(api)
+    cluster.add_node(NB_NODE, labels={K.GKE_NODEPOOL_LABEL: NB_POOL},
+                     allocatable={"cpu": "8", "memory": "96Gi"})
+    label_gpu_node(api, NB_NODE, gpus=gpus, accelerator=accelerator)
+    webhook_port = free_port()
+    webhook_url = f"https://127.0.0.1:{webhook_port}"
+    audit_path = tmp / "wire-audit.jsonl"
+    srv = KubeApiWireServer(
+        api, token=WIRE_TOKEN, ssl_context=bundle.server_ssl_context(),
+        converter=RemoteConverter(webhook_url, ca_pem=bundle.ca_cert_pem),
+        audit_log=str(audit_path)).start()
+    kubeconfig = tmp / "kubeconfig"
+    kubeconfig.write_text(json.dumps({
+        "apiVersion": "v1", "kind": "Config", "current-context": "card",
+        "contexts": [{"name": "card", "context": {"cluster": "card",
+                                                  "user": "card"}}],
+        "clusters": [{"name": "card", "cluster": {
+            "server": srv.url,
+            "certificate-authority": str(cert_dir / "ca.crt")}}],
+        "users": [{"name": "card", "user": {"token": WIRE_TOKEN}}]}))
+    env = {k: os.environ[k] for k in ("PATH", "HOME", "TMPDIR", "LANG")
+           if k in os.environ}
+    env.update(knobs, PYTHONPATH=str(ROOT))
+    log = open(tmp / "manager.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubeflow_tpu_torch.main",
+         "--kubeconfig", str(kubeconfig), "--enable-leader-election",
+         "--leader-election-namespace", "default",
+         "--webhook-port", str(webhook_port), "--cert-dir", str(cert_dir),
+         "--metrics-addr", "0", "--run-seconds", str(WIRE_TIMEOUT_S)],
+        cwd=str(ROOT), env=env, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        # the in-process render of the same CR while the manager boots:
+        # build_manager as NotebookController builds it, on a FakeClock
+        core_cfg, odh_cfg = CoreConfig.from_env(knobs), OdhConfig.from_env(knobs)
+        mgr, ref_api, ref_cluster, _ = build_manager(
+            core_cfg, clock=FakeClock(), odh_cfg=odh_cfg)
+        ref_cluster.add_node(NB_NODE, labels={K.GKE_NODEPOOL_LABEL: NB_POOL},
+                             allocatable={"cpu": "8", "memory": "96Gi"})
+        label_gpu_node(ref_api, NB_NODE, gpus=gpus, accelerator=accelerator)
+
+        def ca_bundle() -> KubeObject:
+            return KubeObject(
+                api_version="v1", kind="ConfigMap",
+                metadata=ObjectMeta(name=O.ODH_TRUSTED_CA_BUNDLE_CONFIGMAP,
+                                    namespace=NB_NAMESPACE),
+                body={"data": {O.TRUSTED_CA_BUNDLE_FILE: NB_CA_PEM}})
+
+        def notebook(version: str) -> KubeObject:
+            d = Notebook.new(
+                NB_NAME, NB_NAMESPACE, gpu=GPUSpec(accelerator, 1),
+                priority="low",
+                annotations={O.ANNOTATION_INJECT_AUTH: "true"}).obj
+            return KubeObject.from_dict(convert_notebook_dict(
+                d, f"kubeflow.org/{version}"))
+
+        ref_api.create(ca_bundle())
+        ref_api.create(notebook("v1"))
+        for _ in range(4):
+            mgr.enqueue_all()
+            mgr.run_until_idle()
+        want = _wire_objects(ref_api)
+        res["render_s"] = time.perf_counter() - t0
+
+        # the leader, its webhooks over HTTPS, then the CR at v1beta1
+        lease = _wire_wait("the lease holder", lambda: (api.try_get(
+            "Lease", "default", WIRE_LEASE) or None), 60)
+        holder = lease.body["spec"]["holderIdentity"]
+        if not holder.endswith(f"-{proc.pid}"):
+            raise RuntimeError(f"wire: lease held by {holder!r}, not the "
+                               f"manager (pid {proc.pid})")
+        ctx = bundle.client_ssl_context()
+
+        def webhook_ready():
+            try:
+                with urllib.request.urlopen(f"{webhook_url}/readyz",
+                                            context=ctx, timeout=2) as r:
+                    return r.status == 200
+            except OSError:
+                return False
+
+        _wire_wait("the manager's webhook server", webhook_ready, 30)
+        api.register_admission(RemoteAdmissionHook(
+            webhook_url, "/mutate-notebook-v1", mutating=True,
+            ca_pem=bundle.ca_cert_pem).as_hook())
+        api.register_admission(RemoteAdmissionHook(
+            webhook_url, "/validate-notebook-v1", mutating=False,
+            ca_pem=bundle.ca_cert_pem, operations=("UPDATE",)).as_hook())
+        config = RestConfig(server=srv.url, token=WIRE_TOKEN,
+                            ca_file=str(cert_dir / "ca.crt"))
+        client = KubeClient(config)
+        beta = Scheme()
+        beta.register(ResourceInfo("Notebook", "kubeflow.org", "v1beta1",
+                                   "notebooks"))
+        beta_client = KubeClient(config, scheme=beta)
+        client.create(ca_bundle())
+        created = beta_client.create(notebook("v1beta1"))
+        stored = api.get("Notebook", NB_NAMESPACE, NB_NAME)
+        lock = created.annotations.get(K.STOP_ANNOTATION)
+        if created.api_version != "kubeflow.org/v1beta1" \
+                or stored.api_version != "kubeflow.org/v1" \
+                or lock != "odh-notebook-controller-lock":
+            raise RuntimeError(
+                f"wire: the CR came back at {created.api_version}, stored at "
+                f"{stored.api_version}, lock {lock!r}")
+
+        def unlocked():
+            nb = api.get("Notebook", NB_NAMESPACE, NB_NAME)
+            return K.STOP_ANNOTATION not in nb.metadata.annotations
+
+        def pod_running():
+            pod = api.try_get("Pod", NB_NAMESPACE, f"{NB_NAME}-0")
+            return pod is not None and (pod.body.get("status") or {}).get(
+                "phase") == "Running"
+
+        _wire_wait("the lock lifted", unlocked)
+        lifts = [r for r in api.audit_log(verb="patch", kind="Notebook")
+                 if r.ok and r.name == NB_NAME]
+        if not lifts:
+            raise RuntimeError("wire: the lock came off without a patch")
+        _wire_wait("the pod Running", pod_running)
+        res["reconciled_s"] = time.perf_counter() - t0
+
+        def settled():
+            got = _wire_objects(api)
+            return got if got == want else None
+
+        try:
+            _wire_wait("the render to settle", settled, 20)
+        except RuntimeError:
+            got = _wire_objects(api)
+            diff = sorted(k for k in set(got) | set(want)
+                          if got.get(k) != want.get(k))
+            raise RuntimeError(f"wire: objects differ from the in-process "
+                               f"render: {diff[:8]}; over the wire "
+                               f"{[got.get(k) for k in diff[:1]]}, in "
+                               f"process {[want.get(k) for k in diff[:1]]}")
+        pod = api.get("Pod", NB_NAMESPACE, f"{NB_NAME}-0")
+        node = api.get("Node", "", NB_NODE)
+        limits = [c["resources"]["limits"].get("nvidia.com/gpu")
+                  for c in pod.spec["containers"]
+                  if "nvidia.com/gpu" in (c.get("resources") or {}).get(
+                      "limits", {})]
+        res["rendered"] = {"objects": len(want), "pod_gpu_limits": limits,
+                           "node_gpus": node.status["allocatable"].get(
+                               "nvidia.com/gpu"),
+                           "containers": [c["name"] for c in
+                                          pod.spec["containers"]]}
+        if limits != ["1"] or res["rendered"]["node_gpus"] != str(gpus):
+            raise RuntimeError(f"wire: nvidia.com/gpu limits {limits}, node "
+                               f"{res['rendered']['node_gpus']} (want 1 and "
+                               f"{gpus})")
+
+        # the verbs over the wire
+        client.merge_patch("Notebook", NB_NAMESPACE, NB_NAME, {
+            "metadata": {"annotations": {
+                K.STOP_ANNOTATION: "2026-01-01T00:00:00Z"}}})
+        _wire_wait("the stopped pod gone", lambda: api.try_get(
+            "Pod", NB_NAMESPACE, f"{NB_NAME}-0") is None)
+        applied = {"apiVersion": "v1", "kind": "ConfigMap",
+                   "metadata": {"name": "wire-apply",
+                                "namespace": NB_NAMESPACE},
+                   "data": {"owner": "alice"}}
+        client.apply(KubeObject.from_dict(applied), field_manager="alice")
+        applied["data"]["owner"] = "bob"
+        try:
+            client.apply(KubeObject.from_dict(applied), field_manager="bob")
+            raise RuntimeError("wire: a contested apply did not conflict")
+        except ConflictError as err:
+            res["apply_conflict"] = str(err)
+        forced = client.apply(KubeObject.from_dict(applied),
+                              field_manager="bob", force=True)
+        managers = sorted(e["manager"] for e in
+                          forced.metadata.managed_fields)
+        if forced.body["data"]["owner"] != "bob":
+            raise RuntimeError("wire: the forced apply did not land")
+        sts = client.strategic_merge_patch("StatefulSet", NB_NAMESPACE,
+                                           NB_NAME, {"spec": {"template": {
+                                               "spec": {"containers": [{
+                                                   "name": NB_NAME,
+                                                   "env": [{"name": "WIRE_SMP",
+                                                            "value": "1"}]}]}}}})
+        (main_c,) = [c for c in sts.spec["template"]["spec"]["containers"]
+                     if c["name"] == NB_NAME]
+        env_names = [e["name"] for e in main_c.get("env", [])]
+        if "WIRE_SMP" not in env_names or len(env_names) < 2:
+            raise RuntimeError(f"wire: the strategic merge patch gave env "
+                               f"{env_names}")
+        patched = client.json_patch("Notebook", NB_NAMESPACE, NB_NAME, [
+            {"op": "add", "path": "/metadata/labels/wire-json-patch",
+             "value": "yes"}])
+        if patched.metadata.labels.get("wire-json-patch") != "yes":
+            raise RuntimeError("wire: the JSON patch did not land")
+
+        # a fault plan drops every watch stream and resets the history at
+        # the un-stop patch; a write just before it leaves the informers'
+        # resume versions behind the compaction, so they relist on 410
+        plan = FaultPlan([FaultRule(verbs=("patch",), kinds=("Notebook",),
+                                    drop_watch=True, reset_watch_history=True,
+                                    name="wire-relist")])
+        marks_before = audit_path.read_text().count('"code": 410')
+        client.merge_patch("ConfigMap", NB_NAMESPACE, "wire-apply",
+                           {"metadata": {"labels": {"tick": "1"}}})
+        api.install_fault_plan(plan)
+        client.merge_patch("Notebook", NB_NAMESPACE, NB_NAME, {
+            "metadata": {"annotations": {K.STOP_ANNOTATION: None}}})
+        api.clear_fault_plan()
+        _wire_wait("the un-stopped pod Running after the relist",
+                   pod_running)
+        gone = [json.loads(line) for line in audit_path.read_text()
+                .splitlines() if '"code": 410' in line]
+        if len(plan.log) != 1 or len(gone) <= marks_before:
+            raise RuntimeError(f"wire: plan log {plan.log}, 410 answers "
+                               f"{len(gone)} (before {marks_before})")
+        res["relist"] = {"faults": [r.action for r in plan.log],
+                         "watch_410": len(gone) - marks_before,
+                         "paths": sorted({g["path"].split("?")[0]
+                                          for g in gone})}
+        wanted = {("create", "Notebook"), ("create", "ConfigMap"),
+                  ("patch", "Notebook"), ("patch", "ConfigMap"),
+                  ("patch", "StatefulSet")}
+        audited = {(r.verb, r.kind) for r in api.audit_log()}
+        refused = [r for r in api.audit_log(verb="patch", kind="ConfigMap")
+                   if not r.ok]
+        if not wanted <= audited or len(refused) != 1:
+            raise RuntimeError(f"wire: the audit log lacks "
+                               f"{sorted(wanted - audited)} or holds "
+                               f"{len(refused)} refused applies")
+        res["audit"] = {"records": len(api.audit_log()),
+                        "verbs": sorted(f"{v} {k}" for v, k in audited),
+                        "apply_managers": managers,
+                        "requests": len(audit_path.read_text().splitlines())}
+    finally:
+        t_stop = time.perf_counter()
+        proc.send_signal(signal.SIGINT)
+        try:
+            code = proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            code = proc.wait()
+        res["exit_s"] = time.perf_counter() - t_stop
+        res["exit_code"] = code
+        log.close()
+        replay.join()
+        srv.stop()
+    released = api.get("Lease", "default", WIRE_LEASE)
+    if code != 0 or res["exit_s"] > 2.0 or \
+            released.body["spec"].get("holderIdentity"):
+        raise RuntimeError(f"wire: the manager exited {code} after "
+                           f"{res['exit_s']:.2f} s, lease held by "
+                           f"{released.body['spec'].get('holderIdentity')!r}")
+    res["fixtures_s"] = fixtures.pop("_seconds", None)
+    failed = {k: v for k, v in fixtures.items() if v != "pass"}
+    if len(fixtures) != 10 or failed:
+        raise RuntimeError(f"wire: fixtures {len(fixtures)}, failed {failed}")
+    res["fixtures"] = sorted(fixtures)
+    res["step_s"] = time.perf_counter() - t0
+    return res
+
+
+def _wire_step_process(device_name: str, gpus: int, queue) -> None:
+    """wire_step in a spawned process: ("ok", result) or ("error",
+    traceback) on `queue`."""
+    import tempfile
+    import traceback
+
+    sys.path.insert(0, str(ROOT))
+    try:
+        with tempfile.TemporaryDirectory(prefix="wire-step-") as tmp:
+            queue.put(("ok", wire_step(device_name, gpus, Path(tmp))))
+    except BaseException:
+        queue.put(("error", traceback.format_exc()))
+    queue.close()
+    queue.join_thread()
+
+
+def start_wire_step(device_name: str, gpus: int) -> dict:
+    """Start the wire step in a spawned process; `finish_wire_step`
+    collects it.  `main` starts it before gemma_train, whose steps are
+    seconds of card time, so the step's host work overlaps them."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    proc = ctx.Process(target=_wire_step_process,
+                       args=(device_name, gpus, results))
+    t0 = time.perf_counter()
+    proc.start()
+    return {"proc": proc, "results": results, "t0": t0}
+
+
+def finish_wire_step(started: dict) -> dict:
+    """The step's result, with its wall seconds and the seconds left to
+    wait for here; raises if it failed or gave no answer in
+    WIRE_TIMEOUT_S."""
+    import queue as queues
+
+    proc, results = started["proc"], started["results"]
+    wait_t0 = time.perf_counter()
+    try:
+        status, payload = results.get(timeout=max(
+            1.0, WIRE_TIMEOUT_S - (wait_t0 - started["t0"])))
+    except queues.Empty:
+        status, payload = "error", f"no answer within {WIRE_TIMEOUT_S} s"
+    finally:
+        proc.join(timeout=30)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    if status != "ok":
+        raise RuntimeError(f"wire step failed:\n{payload}")
+    now = time.perf_counter()
+    payload.update(wall_s=now - started["t0"], waited_s=now - wait_t0)
+    return payload
+
+
 def _pipeline_rank(reference_path: str, batch: dict) -> list:
     """One pipeline stage of BENCH_CHIP on card 0, in a gloo world of
     PIPE_STAGES processes: per schedule, the kernel-path gradients against
@@ -3337,17 +3801,17 @@ class NotebookController:
                 ("metering_dispatch", mgr.metering, "observe_dispatch"),
                 ("diagnosis", mgr.diagnosis, "observe_attempt")):
             setattr(engine, name, timed(key, getattr(engine, name)))
-        scope, verbs = self.api._verb_scope, self.obs["verbs"]
+        scope, verbs = self.api._fault_scope, self.obs["verbs"]
 
         @contextlib.contextmanager
         def timed_scope(*args):
             t0 = time.perf_counter()
             inner = scope(*args)
-            inner.__enter__()
+            directives = inner.__enter__()
             verbs[1] += (time.perf_counter() - t0) * 1e3
             exc = (None, None, None)
             try:
-                yield
+                yield directives
             except BaseException:
                 exc = sys.exc_info()
                 raise
@@ -3356,7 +3820,7 @@ class NotebookController:
                 inner.__exit__(*exc)
                 verbs[0] += 1
                 verbs[1] += (time.perf_counter() - t0) * 1e3
-        self.api._verb_scope = timed_scope
+        self.api._fault_scope = timed_scope
 
     @contextlib.contextmanager
     def stage(self, name: str):
@@ -5853,8 +6317,12 @@ def main() -> int:
     db = timed("decode_bench", decode_bench_phase, device, smi)
     tr = timed("train", train_phase, device, device_name, flash_results,
                flush)
+    # the wire step's processes run beside gemma_train's device-bound steps
+    wire_started = start_wire_step(device_name, torch.cuda.device_count())
     gemma = timed("gemma_train", gemma_train_phase, device, device_name,
                   smi, flash_results, flush)
+    wire = timed("wire", finish_wire_step, wire_started)
+    emit({"phase": "wire", "nvidia_smi": smi, **wire})
     del flush
     long_context = timed("long_context", long_context_phase, device)
     mt = timed("moe_train", moe_train_phase, device, device_name)

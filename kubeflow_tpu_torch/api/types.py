@@ -13,12 +13,17 @@ core/workload.py uses, with `spec.gpu` in the place of `spec.tpu`:
 `Notebook` here is a thin read-only view over a Notebook CR in its dict
 form (`apiVersion`, `kind`, `metadata`, `spec`, `status`), with the
 accessors of the reference's `Notebook` that the renderer uses, and
-`Notebook.new`, the twin of the reference's constructor.
+`Notebook.new`, the twin of the reference's constructor.  As in the
+reference there are three field-identical versions (v1alpha1, v1beta1,
+v1): v1 is the storage version and v1beta1 the conversion hub, and
+`Notebook.convert_to` and `convert_notebook_dict` (the conversion
+webhook's and the wire apiserver's converter) relabel through the hub
+with the metadata kept.
 `notebook_status` builds the status the notebook controller writes, under
 the reference's field names.  The priority classes of the tenancy layer
 (`spec.priority`, core/scheduler.py and core/preemption.py) are the
-reference's.  The rest of the API (versions, conversion, validation) is
-not ported.
+reference's.  Validation (api/validation.py) is not ported yet
+(`ROADMAP.md` queue 1 item 19).
 """
 
 from __future__ import annotations
@@ -28,10 +33,14 @@ from dataclasses import dataclass
 from typing import Mapping, Optional
 
 from ..gpu.topology import GpuShape, TopologyError, resolve
+from ..kube.errors import InvalidError
+from ..kube.meta import KubeObject
 
 GROUP = "kubeflow.org"
 KIND = "Notebook"
 STORAGE_VERSION = "v1"
+HUB_VERSION = "v1beta1"
+VERSIONS = ("v1alpha1", "v1beta1", "v1")
 
 # Priority classes (spec.priority): the tenancy layer's admission and
 # preemption ordering (core/scheduler.py, core/preemption.py), the
@@ -46,10 +55,6 @@ PRIORITY_DEFAULT = "standard"
 # that spent its restart budget.  The status writer carries it forward
 # through every status rewrite, as the reference's does.
 CONDITION_RECOVERY_EXHAUSTED = "RecoveryExhausted"
-
-
-class InvalidError(ValueError):
-    """A spec the API refuses (the reference's kube.InvalidError)."""
 
 
 @dataclass(frozen=True)
@@ -145,6 +150,10 @@ class Notebook:
         })
 
     @property
+    def version(self) -> str:
+        return self.obj.get("apiVersion", "").split("/", 1)[1]
+
+    @property
     def _meta(self) -> Mapping:
         return self.obj.get("metadata") or {}
 
@@ -193,6 +202,33 @@ class Notebook:
         p = self._spec.get("priority")
         return str(p) if p is not None else None
 
+    def convert_to(self, version: str) -> "Notebook":
+        """Spoke -> hub -> spoke conversion, as the reference routes it:
+        the versions are field-identical, so it is a relabel through the
+        hub, on a copy."""
+        if version not in VERSIONS:
+            raise InvalidError(f"unknown Notebook version {version!r}")
+        return self._relabel(HUB_VERSION)._relabel(version)
+
+    def _relabel(self, version: str) -> "Notebook":
+        out = copy.deepcopy(dict(self.obj))
+        out["apiVersion"] = f"{GROUP}/{version}"
+        return Notebook(out)
+
+
+def convert_notebook_dict(obj: dict, desired_api_version: str) -> dict:
+    """Dict-level conversion for the webhook server's /convert endpoint and
+    the wire apiserver's converter hook.  Metadata is kept: uid and
+    resourceVersion must survive conversion or optimistic concurrency
+    breaks on version-crossing clients."""
+    group, _, version = desired_api_version.partition("/")
+    if group != GROUP or not version:
+        raise InvalidError(
+            f"cannot convert {obj.get('apiVersion')!r} to "
+            f"{desired_api_version!r}: not a {GROUP} version")
+    out = Notebook(obj).convert_to(version).obj
+    return KubeObject.from_dict(out).to_dict()
+
 
 def notebook_status(
     ready_replicas: int,
@@ -227,7 +263,8 @@ def notebook_status(
     return status
 
 
-__all__ = ["CONDITION_RECOVERY_EXHAUSTED", "GPUSpec", "GROUP",
+__all__ = ["CONDITION_RECOVERY_EXHAUSTED", "GPUSpec", "GROUP", "HUB_VERSION",
            "InvalidError", "KIND", "Notebook", "PRIORITY_CLASSES",
            "PRIORITY_DEFAULT", "PRIORITY_RANK", "ReplicationSpec",
-           "STORAGE_VERSION", "notebook_status"]
+           "STORAGE_VERSION", "VERSIONS", "convert_notebook_dict",
+           "notebook_status"]

@@ -1,8 +1,9 @@
 """In-memory Kubernetes control-plane substrate (apiserver + controller
 runtime + fake data plane) that the GPU notebook controllers run against:
-the port's copy of kubeflow_tpu/kube.  Leader election, the sharded
-fleet, the wire protocol, the real-cluster client, server-side apply and
-fault plans are not ported yet (`ROADMAP.md` queue 1 item 17)."""
+the port's copy of kubeflow_tpu/kube, with the real-cluster backend:
+the patch verbs, fault plans, the wire apiserver (`wire.py`), the REST
+client (`client.py`), certs and leader election.  The sharded fleet
+(`kube/shard.py`) is not ported yet (`ROADMAP.md` queue 1 item 17)."""
 
 from .cache import InformerCache
 from .cluster import FakeCluster, parse_quantity
@@ -34,6 +35,8 @@ from .errors import (
     retry_on_conflict,
 )
 from .events import EventRecorder
+from .faults import FaultPlan, FaultRecord, FaultRule, random_fault_plan
+from .leader import FencingToken, LeaderElector, StaleEpochError
 from .meta import (
     KubeObject,
     ObjectMeta,
@@ -45,6 +48,7 @@ from .store import (
     AdmissionDenied,
     AdmissionHook,
     ApiServer,
+    AuditRecord,
     EventType,
     WatchEvent,
 )
@@ -55,17 +59,23 @@ __all__ = [
     "AlreadyExistsError",
     "ApiError",
     "ApiServer",
+    "AuditRecord",
     "BucketRateLimiter",
     "ConflictError",
     "EventRecorder",
     "EventType",
     "FakeCluster",
+    "FaultPlan",
+    "FaultRecord",
+    "FaultRule",
+    "FencingToken",
     "ForbiddenError",
     "GoneError",
     "InformerCache",
     "InvalidError",
     "ItemExponentialBackoff",
     "KubeObject",
+    "LeaderElector",
     "Manager",
     "MaxOfRateLimiter",
     "NotFoundError",
@@ -75,6 +85,7 @@ __all__ = [
     "Request",
     "Result",
     "ServerError",
+    "StaleEpochError",
     "WatchEvent",
     "WatchSpec",
     "default_rate_limiter",
@@ -84,6 +95,7 @@ __all__ = [
     "is_status_only_update",
     "new_uid",
     "parse_quantity",
+    "random_fault_plan",
     "retry_on_conflict",
     "set_controller_reference",
     "suppress_status_only",

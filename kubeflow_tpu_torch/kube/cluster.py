@@ -48,9 +48,8 @@ summary into the pod's telemetry annotation, and
 
 Every public method that calls the API runs under `api.fault_exempt()`:
 the data plane is on the cluster side of the client-apiserver boundary,
-so its calls are not client traffic in the apiserver's per-tenant verb
-counts (and, once `ROADMAP.md` queue 1 item 17 ports fault plans, not
-faulted).
+so its calls are neither client traffic in the apiserver's verb counts
+nor faulted by an installed fault plan.
 """
 
 from __future__ import annotations

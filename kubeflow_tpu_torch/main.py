@@ -1,13 +1,30 @@
 """Manager entrypoint: `python -m kubeflow_tpu_torch.main`.
 
-The port of kubeflow_tpu/main.py's standalone path: one manager running
-the notebook controller, the event re-emitter, (with ENABLE_CULLING) the
-culler, and the ODH extension plane (odh/: its reconciler, its two
-admission webhooks in the API server's chain, and the TLS profile
-watcher, whose change stops the manager for a restart) against the
-in-memory API server and the fake data plane, with the
-health/readiness/metrics HTTP side real.  Env vars are the config surface
-(utils/config.py), under the reference's names.
+The port of kubeflow_tpu/main.py: one manager running the notebook
+controller, the event re-emitter, (with ENABLE_CULLING) the culler, and
+the ODH extension plane (odh/: its reconciler, its two admission
+webhooks, and the TLS profile watcher, whose change stops the manager for
+a restart), with the health/readiness/metrics HTTP side real.  Env vars
+are the config surface (utils/config.py), under the reference's names.
+
+Backends:
+- real cluster: `--kubeconfig PATH` or `--in-cluster` builds a KubeClient
+  speaking the Kubernetes REST API (`--qps`/`--burst` throttle it), starts
+  list-then-watch informers for every watched kind (cluster-wide, or one
+  namespace with `--watch-namespace`), serves the admission webhooks over
+  HTTPS (`--webhook-port`, `--cert-dir`; a dev pair is minted when the
+  directory holds none) and, with `--enable-leader-election`, reconciles
+  only while it holds the Lease (`--leader-election-namespace`): /readyz
+  reads "not the leader" until then, and a lost lease stops the manager.
+- standalone: the in-memory API server with the fake data plane.
+  `--serve-api PORT` serves that store over the Kubernetes REST wire
+  protocol with the Notebook converter (`--audit-log PATH` appends its
+  JSONL request trail), and `--fake-gpu-nodes N` adds N full H100 hosts
+  labelled by `gpu/device_plugin.py:label_gpu_node`, so a CR sent over
+  the wire schedules.  The reference seeds the Notebook CRD under
+  `--serve-api` from `deploy/manifests.py`, which is not ported yet
+  (`ROADMAP.md` queue 1 item 18): until then /openapi serves the generic
+  model for Notebook.
 
 The observability plane runs in every manager: the SLO engine, the
 data-plane telemetry rollup, the lifecycle ledger, the TSDB, the tenant
@@ -25,11 +42,8 @@ reconciliation lock the webhook stamped on it, and stamps one telemetry
 summary per worker for the data-plane rollup: the twin of
 `python -m kubeflow_tpu.main --demo`.
 
-Not ported yet (`ROADMAP.md` queue 1 item 17): the real-cluster backend
-(`--kubeconfig`, `--in-cluster`), leader election, the sharded fleet, the
-webhook server, `--serve-api` (and with it the twin of
-`--fake-tpu-nodes`, whose nodes only a CR from the API could use) and
-`--audit-log`.
+Not ported yet (`ROADMAP.md` queue 1 item 17): the sharded fleet
+(`SHARD_COUNT` above 1).
 """
 
 from __future__ import annotations
@@ -38,6 +52,8 @@ import argparse
 import http.server
 import json
 import logging
+import os
+import socket
 import threading
 import urllib.parse
 from typing import Optional
@@ -48,7 +64,14 @@ from .core.metrics import NotebookMetrics
 from .core.notebook_controller import setup_core_controllers
 from .core.telemetry import WorkerTelemetryAggregator
 from .gpu import topology
-from .kube import ApiServer, EventRecorder, FakeCluster, KubeObject, Manager
+from .kube import (
+    ApiServer,
+    EventRecorder,
+    FakeCluster,
+    KubeObject,
+    LeaderElector,
+    Manager,
+)
 from .odh.controller import setup_odh_controllers
 from .odh.tls_profile import SecurityProfileWatcher, fetch_apiserver_tls_profile
 from .utils.clock import Clock
@@ -95,8 +118,9 @@ class HealthAndMetricsHandler(http.server.BaseHTTPRequestHandler):
     """Probe + scrape + debug surface (main.go:125-133, metrics on :8080):
 
     - /healthz  — liveness: process up and the manager not stopped;
-    - /readyz   — readiness: additionally the manager STARTED and its
-      watch/informer caches synced;
+    - /readyz   — readiness: additionally the manager STARTED, its
+      watch/informer caches synced, and (when leader election is on) this
+      replica leading: a follower is alive but must not take traffic;
     - /metrics  — content-negotiated: OpenMetrics (exemplars + `# EOF`)
       when the scraper asks for it, Prometheus text 0.0.4 otherwise;
     - /debug/reconciles, /debug/traces/<id>, /debug/workqueue — the flight
@@ -138,6 +162,7 @@ class HealthAndMetricsHandler(http.server.BaseHTTPRequestHandler):
     manager: Optional[Manager] = None
     metrics: Optional[NotebookMetrics] = None
     expose_state: bool = False  # /state dumps Secrets — loopback/debug only
+    elector = None  # LeaderElector when --enable-leader-election
 
     def _loopback_only(self) -> bool:
         """True when the request may see debug payloads: the TCP peer is a
@@ -156,6 +181,8 @@ class HealthAndMetricsHandler(http.server.BaseHTTPRequestHandler):
             return "manager not started"
         if not mgr.caches_synced():
             return "caches not synced"
+        if self.elector is not None and not self.elector.is_leader:
+            return "not the leader"
         return ""
 
     def do_GET(self):  # noqa: N802  (stdlib API)
@@ -199,6 +226,8 @@ class HealthAndMetricsHandler(http.server.BaseHTTPRequestHandler):
                 self._respond(403, "/state is loopback-only", "text/plain")
                 return
             api = self.manager.api if self.manager else None
+            # the real-cluster KubeClient has no dump(); only the in-memory
+            # store can be exported
             dump = getattr(api, "dump", None)
             body = json.dumps(dump() if callable(dump) else {}, default=str)
             self._respond(200, body, "application/json")
@@ -348,20 +377,24 @@ class HealthAndMetricsHandler(http.server.BaseHTTPRequestHandler):
 
 
 def serve_http(port: int, manager: Manager, metrics: NotebookMetrics,
-               expose_state: bool = False):
+               expose_state: bool = False, elector=None):
     """Health + metrics on all interfaces (the kubelet probes the pod IP
     and Prometheus scrapes :8080).  The /debug/* endpoints answer only
     loopback clients, and the /state dump, which includes Secret data,
-    additionally needs `expose_state` (--expose-state).  Returns the
-    running server (port 0 picks a free one: `server.server_address[1]`)."""
+    additionally needs `expose_state` (--expose-state); /readyz gates on
+    `elector`'s leadership when one is given.  Returns the running server
+    (port 0 picks a free one: `server.server_address[1]`)."""
     handler = type(
         "Handler",
         (HealthAndMetricsHandler,),
         {"manager": manager, "metrics": metrics,
-         "expose_state": expose_state},
+         "expose_state": expose_state, "elector": elector},
     )
     server = http.server.ThreadingHTTPServer(("0.0.0.0", port), handler)
-    threading.Thread(target=server.serve_forever, daemon=True).start()
+    # a 0.1 s shutdown poll (the stdlib's is 0.5 s): a SIGINT exit waits
+    # for it
+    threading.Thread(target=server.serve_forever,
+                     kwargs={"poll_interval": 0.1}, daemon=True).start()
     return server
 
 
@@ -370,8 +403,13 @@ def build_manager(
     clock: Optional[Clock] = None,
     jupyter=None,
     odh_cfg: Optional[OdhConfig] = None,
+    api=None,
 ):
-    """Wire the standalone stack; returns (manager, api, cluster, metrics).
+    """Wire the full stack; returns (manager, api, cluster, metrics).
+
+    `api` is a KubeClient (a real cluster, and then no fake data plane:
+    `cluster` is None) or None (the in-memory store with a FakeCluster);
+    both expose the same read/write/watch surface.
 
     `clock` (a FakeClock in tests and in the card's smoke run) drives the
     manager and every controller; `jupyter` is the culler's activity
@@ -384,8 +422,10 @@ def build_manager(
     stops a running profiler (`mgr.profiler.stop()`)."""
     core_cfg = core_cfg or CoreConfig.from_env()
     odh_cfg = odh_cfg or OdhConfig.from_env()
-    api = ApiServer(history_size=core_cfg.watch_history_size)
-    cluster = FakeCluster(api)
+    real_cluster = api is not None
+    if api is None:
+        api = ApiServer(history_size=core_cfg.watch_history_size)
+    cluster = None if real_cluster else FakeCluster(api)
     mgr = Manager(api, clock=clock)
     metrics = NotebookMetrics(api, manager=mgr)
     # fleet SLO engine: declared objectives (SLO_* knobs) over the metric
@@ -469,7 +509,7 @@ def build_manager(
     # the cluster plays the pods' checkpoint sidecars against the store
     # the reconciler opened: it answers final-snapshot requests and stamps
     # what a restored pod restored
-    if rec.session is not None:
+    if rec.session is not None and cluster is not None:
         cluster.attach_session_store(rec.session)
     setup_culling(mgr, core_cfg, jupyter, metrics)
     setup_odh_controllers(mgr, odh_cfg)
@@ -488,6 +528,50 @@ def build_manager(
 
     SecurityProfileWatcher(api, profile, on_change=on_change).setup(mgr)
     return mgr, api, cluster, metrics
+
+
+def build_real_backend(args):
+    """KubeClient from --kubeconfig/--in-cluster with the qps/burst knobs
+    (notebook-controller/main.go:71-89)."""
+    from .kube.client import KubeClient, RestConfig
+
+    if args.kubeconfig:
+        cfg = RestConfig.from_kubeconfig(args.kubeconfig)
+    else:
+        cfg = RestConfig.in_cluster()
+    cfg.qps = args.qps
+    cfg.burst = args.burst
+    return KubeClient(cfg)
+
+
+def start_webhook_server(api, args):
+    """Serve the collected AdmissionHooks over HTTPS (odh
+    main.go:285-311).  Certs come from --cert-dir (tls.crt/tls.key, the
+    serving-cert layout); without them a self-signed pair is minted, as
+    envtest does.  Returns the running server, or None when there are no
+    hooks or --webhook-port is negative."""
+    hooks = getattr(api, "admission_hooks", None)
+    if not hooks or args.webhook_port < 0:
+        return None
+    from .odh.webhook_server import AdmissionReviewServer
+
+    cert = os.path.join(args.cert_dir, "tls.crt") if args.cert_dir else ""
+    if cert and os.path.exists(cert):
+        server = AdmissionReviewServer(
+            hooks, cert_file=cert,
+            key_file=os.path.join(args.cert_dir, "tls.key"),
+            host="0.0.0.0", port=args.webhook_port)
+    else:
+        from .kube.certs import mint_serving_cert
+
+        logging.warning("no serving certs in %r; minting a self-signed pair",
+                        args.cert_dir)
+        server = AdmissionReviewServer(
+            hooks, bundle=mint_serving_cert(),
+            host="0.0.0.0", port=args.webhook_port)
+    server.start()
+    logging.info("webhook server on %s", server.url)
+    return server
 
 
 def _demo(api: ApiServer, cluster: FakeCluster, accelerator: str,
@@ -524,9 +608,29 @@ def _demo(api: ApiServer, cluster: FakeCluster, accelerator: str,
 
 def main(argv: Optional[list[str]] = None) -> int:
     parser = argparse.ArgumentParser(
-        description="GPU notebook controller (standalone)")
+        description="GPU notebook controller")
     parser.add_argument("--metrics-addr", type=int, default=8080,
                         help="port for /metrics + health endpoints")
+    parser.add_argument("--kubeconfig", default="",
+                        help="path to a kubeconfig; reconcile that cluster")
+    parser.add_argument("--in-cluster", action="store_true",
+                        help="use the ServiceAccount token mount")
+    parser.add_argument("--qps", type=float, default=0.0,
+                        help="client-side request rate limit (0 = unlimited)")
+    parser.add_argument("--burst", type=int, default=0,
+                        help="client-side burst size")
+    parser.add_argument("--webhook-port", type=int, default=9443,
+                        help="admission webhook HTTPS port (0 = a free "
+                             "one, -1 = disabled)")
+    parser.add_argument("--cert-dir", default="",
+                        help="dir with tls.crt/tls.key for the webhook server")
+    parser.add_argument("--enable-leader-election", action="store_true",
+                        help="gate reconciling on a coordination.k8s.io Lease")
+    parser.add_argument("--watch-namespace", default="",
+                        help="scope informers to one namespace instead of "
+                             "cluster-wide list/watch")
+    parser.add_argument("--leader-election-namespace", default="",
+                        help="namespace for the election Lease")
     parser.add_argument("--demo", action="store_true",
                         help="create a sample GPU notebook and print its "
                              "status")
@@ -539,6 +643,19 @@ def main(argv: Optional[list[str]] = None) -> int:
     parser.add_argument("--expose-state", action="store_true",
                         help="serve the /state object-store dump (includes "
                              "Secret data; loopback, standalone/debug only)")
+    parser.add_argument("--serve-api", type=int, default=-1, metavar="PORT",
+                        help="standalone mode: serve the in-memory store "
+                             "over the Kubernetes REST wire protocol on "
+                             "PORT (0 = ephemeral)")
+    parser.add_argument("--fake-gpu-nodes", type=int, default=0,
+                        metavar="N",
+                        help="standalone mode: add N full H100 hosts "
+                             "(GKE accelerator label + nvidia.com/gpu "
+                             "allocatable, gpu/device_plugin.py) so GPU "
+                             "workloads schedule")
+    parser.add_argument("--audit-log", default="", metavar="PATH",
+                        help="with --serve-api: append a JSONL request "
+                             "trail (ts/verb/path/code)")
     parser.add_argument("--debug-log", action="store_true")
     parser.add_argument("--log-format", choices=("text", "json"),
                         default="text",
@@ -555,20 +672,75 @@ def main(argv: Optional[list[str]] = None) -> int:
             level=level,
             format="%(asctime)s %(name)s %(levelname)s %(message)s",
         )
-    mgr, api, cluster, metrics = build_manager()
-    cluster.add_node("cpu-node",
-                     allocatable={"cpu": "64", "memory": "256Gi"})
+    real = bool(args.kubeconfig or args.in_cluster)
+    backend = build_real_backend(args) if real else None
+    mgr, api, cluster, metrics = build_manager(api=backend)
+    if cluster is not None:
+        cluster.add_node("cpu-node",
+                         allocatable={"cpu": "64", "memory": "256Gi"})
+        if args.fake_gpu_nodes > 0:
+            acc = topology.ACCELERATORS["h100-80gb"]
+            cluster.add_gpu_nodes(acc.name, args.fake_gpu_nodes,
+                                  acc.gpus_per_host, name_prefix="fake-gpu")
+    if args.expose_state and real:
+        logging.warning("--expose-state ignored with a real cluster backend "
+                        "(the KubeClient has no store to dump; /state "
+                        "stays 404)")
+    # the elector is built before the HTTP server so /readyz can gate on
+    # leadership (a follower is alive but not ready); it starts later
+    elector: Optional[LeaderElector] = None
+    if args.enable_leader_election:
+        elector = LeaderElector(
+            api,
+            lease_name="kubeflow-tpu-notebook-controller",
+            namespace=args.leader_election_namespace
+            or OdhConfig.from_env().controller_namespace,
+            identity=f"{socket.gethostname()}-{os.getpid()}",
+        )
     server = serve_http(args.metrics_addr, mgr, metrics,
-                        expose_state=args.expose_state)
-    mgr.start()
-    logging.info("manager started; metrics on :%d",
-                 server.server_address[1])
-    if args.demo:
+                        expose_state=args.expose_state and not real,
+                        elector=elector)
+    webhook_server = start_webhook_server(api, args) if real else None
+    wire_server = None
+    if args.serve_api >= 0 and real:
+        logging.warning("--serve-api ignored with a real cluster backend "
+                        "(there is no in-memory store to serve)")
+    if args.serve_api >= 0 and not real:
+        from .api.types import convert_notebook_dict
+        from .kube.wire import KubeApiWireServer
+
+        wire_server = KubeApiWireServer(
+            api, host="127.0.0.1", port=args.serve_api,
+            converter=convert_notebook_dict,
+            audit_log=args.audit_log or None).start()
+        logging.info("wire apiserver on %s", wire_server.url)
+        print(f"WIRE_API={wire_server.url}", flush=True)
+
+    def start_reconciling():
+        if real:
+            api.start_informers(mgr.watched_kinds(),
+                                namespace=args.watch_namespace or None)
+        mgr.start()
+        logging.info("manager started; metrics on :%d",
+                     server.server_address[1])
+
+    if elector is not None:
+        elector.start_background(
+            on_started=start_reconciling,
+            on_stopped=mgr.stop,  # lost lease -> exit 1 -> pod restart
+        )
+        logging.info("leader election enabled; waiting for lease")
+    else:
+        start_reconciling()
+    if args.demo and cluster is not None:
         status = _demo(api, cluster, args.demo_accelerator, args.demo_count)
         print(json.dumps(status, indent=2), flush=True)
 
     exit_code = 0
     try:
+        # exits when run_seconds elapses OR the manager stops itself (a
+        # TLS-profile change, a lost lease): a non-zero exit makes the
+        # Deployment restart the pod
         timeout = args.run_seconds if args.run_seconds > 0 else None
         stopped = mgr.wait_until_stopped(timeout)
         if stopped and timeout is None:
@@ -577,9 +749,17 @@ def main(argv: Optional[list[str]] = None) -> int:
     except KeyboardInterrupt:
         pass
     finally:
+        if elector is not None:
+            elector.stop()
         if mgr.profiler is not None:
             mgr.profiler.stop()
         mgr.stop()
+        if wire_server is not None:
+            wire_server.stop()
+        if webhook_server is not None:
+            webhook_server.stop()
+        if real:
+            api.stop_informers()
         server.shutdown()
         server.server_close()
     return exit_code

@@ -8,9 +8,7 @@ bundle ConfigMap, NetworkPolicies, pipeline integrations, the auth/non-auth
 routing branch, MLflow, and removal of the reconciliation lock the mutating
 webhook stamped on create.
 
-The port's store has no merge-patch verb yet (`ROADMAP.md` queue 1 item
-17), so the lock comes off through a read and an update retried on
-conflict: the same write through the same admission chain.  The
+The lock comes off by one merge patch, as in the reference.  The
 reconciler ignores the core controller's status-only writes but one: a
 change of `status.replication.primary`, the promotion of a replicated
 notebook, after which the kube-rbac-proxy Service must select the new
@@ -256,14 +254,12 @@ class OpenshiftNotebookReconciler:
                 self._lock_wait_attempts[key] = attempts + 1
                 return Result(requeue_after=1.0 * (5**attempts))
         self._lock_wait_attempts.pop(key, None)
-
-        def unlock() -> None:
-            live = self.api.get("Notebook", nb.namespace, nb.name)
-            if live.metadata.annotations.pop(C.STOP_ANNOTATION, None) \
-                    is not None:
-                self.api.update(live)
-
-        retry_on_conflict(unlock)
+        self.api.merge_patch(
+            "Notebook",
+            nb.namespace,
+            nb.name,
+            {"metadata": {"annotations": {C.STOP_ANNOTATION: None}}},
+        )
         return Result()
 
 

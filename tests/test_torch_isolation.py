@@ -17,8 +17,8 @@ ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "kubeflow_tpu"}
 # modules the two tests must reach, among all the others they walk: the
 # serving entry points, the small models, the compile-check entry, the
-# GPU side of the controller contract, the controller itself and its
-# observability plane
+# GPU side of the controller contract, the controller itself, its
+# observability plane and its real-cluster backend
 EXPECTED = {"bench", "entry", "examples.llama13b_decode",
             "examples.serve_model", "examples.speculative_demo",
             "examples.train_llm", "models.generate", "models.mlp",
@@ -30,7 +30,11 @@ EXPECTED = {"bench", "entry", "examples.llama13b_decode",
             "core.scheduler", "core.preemption", "odh.controller",
             "odh.webhook", "odh.tls_profile", "core.telemetry",
             "utils.tsdb", "utils.logging", "utils.slo", "utils.lifecycle",
-            "utils.metering", "utils.diagnosis", "utils.profiler"}
+            "utils.metering", "utils.diagnosis", "utils.profiler",
+            "kube.jsonpatch", "kube.strategicmerge", "kube.apply",
+            "kube.faults", "kube.resources", "kube.wire", "kube.client",
+            "kube.certs", "kube.leader", "kube.fixtures",
+            "odh.webhook_server", "examples.run_real_cluster"}
 
 
 def _port_sources() -> list:
@@ -94,7 +98,10 @@ CONTROL_PLANE = ("main", "kube", "common.reconcilehelper",
                  "odh.runtime_images", "odh.tls_profile", "odh.webhook",
                  "core.telemetry", "utils.tsdb", "utils.logging", "utils.slo",
                  "utils.lifecycle", "utils.metering", "utils.diagnosis",
-                 "utils.profiler")
+                 "utils.profiler", "kube.jsonpatch", "kube.strategicmerge",
+                 "kube.apply", "kube.faults", "kube.resources", "kube.wire",
+                 "kube.client", "kube.certs", "kube.leader", "kube.fixtures",
+                 "odh.webhook_server", "examples.run_real_cluster")
 
 
 def test_control_plane_imports_no_torch():

@@ -17,10 +17,9 @@ against 16 H100s, so the reference's chip-seconds are scaled by 2), cold
 provisioned, a worker failed and restarted, then stopped.  Then
 /debug/criticalpath, /debug/tenants, /debug/alerts, /debug/timeline's
 dump, the fleet rollup, the SLO verdicts and the explain chain must be
-equal after the device keys: the shape tokens, the words "slice" and
-"gang" in Event messages, and the apiserver verb counts of the ODH lock's
-lift, one merge patch on the reference (whose patch verbs the port gets
-with ROADMAP.md queue 1 item 17) and a get and an update on the port.
+equal after the device keys: the shape tokens and the words "slice" and
+"gang" in Event messages.  The apiserver verb counts are compared whole:
+both lift the ODH lock with one merge patch.
 
 Only the reference's control plane is imported, and no process is
 launched."""
@@ -910,25 +909,10 @@ def _scale(v, ratio):
     return v
 
 
-def _lock_lift_as_port(snap: dict) -> None:
-    """Read the reference's one merge patch of the ODH lock's lift as the
-    port's get and update in a metering snapshot's cumulative counts and
-    top consumers (the lift is older than the windowed units)."""
-    lifted = {}
-    for ns, row in snap.get("tenants", {}).items():
-        n = lifted[ns] = row["apiserver"].pop("patch", 0)
-        for verb in ("get", "update") if n else ():
-            row["apiserver"][verb] = row["apiserver"].get(verb, 0) + n
-        row["apiserver_total"] += n
-    for entry in snap.get("top", {}).get("control_plane", []):
-        entry["units"] += lifted.get(entry["tenant"], 0)
-
-
 def _device_neutral(out: dict, port: bool, hosts: int) -> str:
     """`out` in the port's device words: the shape token read as one,
-    and for the reference "slice" in Event messages read as "gang", chip
-    counts scaled to the gang's GPUs, and the lock's lift as the port
-    counts it."""
+    and for the reference "slice" in Event messages read as "gang", and
+    chip counts scaled to the gang's GPUs."""
     (acc, topo), gpus = HOSTS[hosts]
     if port:
         return canon(out).replace(f"h100-80gb-{gpus}", "<shape>")
@@ -945,7 +929,6 @@ def _device_neutral(out: dict, port: bool, hosts: int) -> str:
                     row[key] = _scale(row[key], ratio)
             snap["top"]["chip_seconds"] = _scale(snap["top"]["chip_seconds"],
                                                  ratio)
-            _lock_lift_as_port(snap)
     tenancy = (data.get("fleet") or {}).get("tenancy")
     if tenancy:
         tenancy["usage_chips"] = _scale(tenancy["usage_chips"], ratio)

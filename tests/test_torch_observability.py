@@ -709,19 +709,6 @@ def _stable(body: str):
         data = json.loads(body)
     except ValueError:
         return body
-    # the metering ledger's apiserver counts differ by the ODH lock's
-    # lift (one merge patch on the reference, a get and an update on the
-    # port until ROADMAP.md queue 1 item 17), which
-    # tests/test_torch_ledgers.py reads as one; here the chip-seconds
-    # and the conservation gate are compared
-    metering = data if "fairness" in data else data.get("tenants")
-    if isinstance(metering, dict) and "fairness" in metering:
-        for row in metering["tenants"].values():
-            for key in ("apiserver", "apiserver_total",
-                        "control_units_window"):
-                row.pop(key)
-        metering["top"].pop("control_plane")
-
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()

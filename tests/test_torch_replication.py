@@ -16,11 +16,11 @@ FakeClock from the same epoch:
   `make_replicated_env` and `warm_follower`): after every step
   `status.replication`, `sliceHealth`, `sliceRecovery`, the fence, the
   chain head, the follower stamps, the Service's selector, the Events
-  (the reference's "slice" read as "gang"), the pods and the samples of
-  the promotion families and the engine's equal.  The reference's
-  brown-out drill needs fault plans (queue 1 item 17); its guarantee, a
-  promotion interrupted between the record and the flip resuming from
-  the record with one epoch bump, is held by a drill that crashes the
+  (the reference's "slice" read as "gang"), the pods, the samples of
+  the promotion families and the engine's, and the fault plan's log
+  equal.  The drills: a promotion, a lagging follower, the reference's
+  brown-out (injected 503s on the Notebook commits delay the flip but
+  never split it), and a flip that crashes between the record and the
   flip, once in place and once across a manager failover;
 - the replica anti-affinity (tests/test_scheduler.py::
   TestReplicaAntiAffinity) and the two scenarios of several gangs that
@@ -301,6 +301,7 @@ class RepSide:
         self.cfg = (CoreConfig if port else RefConfig)(
             checkpoint_store_uri="mem://session-state")
         self.deleted: list[str] = []
+        self.plan = None
         self.api.watch(self._on_pod, kinds=["Pod"])
         self.manager()
 
@@ -373,7 +374,10 @@ class RepSide:
                 "head": self.store.chain_head(NS, NAME, 0),
                 "selector": self.api.get("Service", NS, NAME)
                 .spec["selector"], "events": events, "pods": pods,
-                "deleted": list(self.deleted), "samples": samples}
+                "deleted": list(self.deleted), "samples": samples,
+                "faults": [(r.rule, r.action, r.verb, r.kind, r.namespace,
+                            r.name, r.seq) for r in self.plan.log]
+                if self.plan is not None else None}
 
 
 def _promotes(s: RepSide):
@@ -413,6 +417,36 @@ def _lagging(s: RepSide):
         s.mgr.advance(30)
     yield
     assert s.zombie_write(1) == "ok"
+    yield
+
+
+def _brownout(s: RepSide):
+    """tests/test_selfheal.py::test_promotion_commits_through_control_plane
+    _partition: 503s injected on three Notebook updates delay the
+    promotion's commits but cannot split it; the write-ahead record
+    resumes it, the epoch bumps once and the zombie stays fenced."""
+    s.create()
+    s.warm_follower()
+    s.settle()
+    s.plan = s.kube.FaultPlan([s.kube.FaultRule(
+        verbs=("update",), kinds=("Notebook",), error="unavailable",
+        max_matches=3, name="status-brownout")], clock=s.clock)
+    s.api.install_fault_plan(s.plan)
+    with s.api.fault_exempt():
+        s.cluster.fail_pod(NS, f"{NAME}-0")
+    s.mgr.run_until_idle()
+    yield
+    for _ in range(6):
+        s.mgr.advance(30)
+    s.api.clear_fault_plan()
+    assert s.plan.exhausted()
+    yield
+    for _ in range(4):
+        s.mgr.advance(30)
+    rep = s.api.get("Notebook", NS, NAME).body["status"]["replication"]
+    assert (rep["epoch"], rep["primary"], rep["promotion"]["phase"]) == \
+        (2, 1, "promoted")
+    assert s.zombie_write(1).startswith("StaleWriterError")
     yield
 
 
@@ -456,7 +490,7 @@ def _crash_between_record_and_flip(s: RepSide, failover: bool):
     yield
 
 
-PROMOTE = {"promotes": _promotes, "lagging": _lagging,
+PROMOTE = {"promotes": _promotes, "lagging": _lagging, "brownout": _brownout,
            "crash-resume": lambda s: _crash_between_record_and_flip(
                s, failover=False),
            "crash-failover": lambda s: _crash_between_record_and_flip(

@@ -473,7 +473,32 @@ non-zero without its result line):
    informers relist through 410 Gone and the un-stop converges; the
    store's audit log holds each verb.  The ten conformance fixtures
    replay against a second TLS wire server, each as its `expect` says.
-   SIGINT stops the manager within 2 s with the lease released.
+   The manager's schema hook (api/validation.py, served at
+   /notebook-crd-schema) refuses a CR with no containers sent over TLS,
+   with the reference's message.  SIGINT stops the manager within 2 s
+   with the lease released.  Then, in the same process, the shard step
+   (`shard_step`, FakeClock time, no card memory): `build_sharded_fleet`
+   of SHARD_COUNT replicas with SLO_SHARD_HANDOFF_P99_S set and an SLO
+   engine attached settles this card's CR (`spec.gpu {this card, 1}`, no
+   node for it yet) and a dozen CPU notebooks over four namespaces, each
+   key claimed by exactly its ring owner; the replica owning the card's
+   CR is killed and sub-lease steps age its lease out: the handoff record
+   completes with a duration, a survivor adopts the CR, a write through
+   the killed replica's FencedApi raises StaleEpochError and is counted
+   (`notebook_shard_fenced_writes_total` 1), the card's node arrives and
+   the adopter takes the gang to Healthy with the lifecycle ledger's
+   handoff_wait above 0, the scrape holds the four notebook_shard_*
+   families and the shard_handoff objective is evaluated and met, and no
+   two replicas reconciled one key at once; the killed replica rejoins,
+   each key has one owner again, one ops/diagnose bundle per replica
+   goes through JSON and `merge_records`/`merge_overlaps` find attempts
+   and no overlap; the card CR's StatefulSet, pod and Services equal
+   those one Manager running the same controllers renders; and
+   `python -m kubeflow_tpu_torch.main --serve-api 0`, started beside
+   it, serves the port's Notebook CRD at /openapi/v2 with `spec.gpu`
+   {accelerator, count}.  Its `shard` line prints the step's seconds, the
+   handoff's FakeClock seconds, the fenced writes, the overlaps and the
+   bundles' bytes.
 
 It prints one JSON line per kernel shape and per slice, then a "kernels"
 line (each kernel's launches on its main path, and beside them the
@@ -2971,12 +2996,12 @@ WIRE_VOLATILE = {"uid", "resourceVersion", "creationTimestamp",
                  "startedAt", "finishedAt", "lastTransitionTime"}
 
 
-def _wire_normalized(node):
+def _wire_normalized(node, volatile=WIRE_VOLATILE):
     if isinstance(node, dict):
-        return {k: _wire_normalized(v) for k, v in node.items()
-                if k not in WIRE_VOLATILE}
+        return {k: _wire_normalized(v, volatile) for k, v in node.items()
+                if k not in volatile}
     if isinstance(node, list):
-        return [_wire_normalized(v) for v in node]
+        return [_wire_normalized(v, volatile) for v in node]
     return node
 
 
@@ -3043,6 +3068,7 @@ def wire_step(device_name: str, gpus: int, tmp: Path) -> dict:
     from kubeflow_tpu_torch.gpu import topology
     from kubeflow_tpu_torch.gpu.device_plugin import label_gpu_node
     from kubeflow_tpu_torch.kube import (
+        ApiError,
         ApiServer,
         ConflictError,
         FakeCluster,
@@ -3316,6 +3342,24 @@ def wire_step(device_name: str, gpus: int, tmp: Path) -> dict:
                         "verbs": sorted(f"{v} {k}" for v, k in audited),
                         "apply_managers": managers,
                         "requests": len(audit_path.read_text().splitlines())}
+
+        # the schema hook over HTTPS: the manager serves it at
+        # /notebook-crd-schema, and a CR with no containers sent through
+        # the KubeClient is refused with the reference's message
+        api.register_admission(RemoteAdmissionHook(
+            webhook_url, "/notebook-crd-schema", mutating=False,
+            ca_pem=bundle.ca_cert_pem).as_hook())
+        bare = KubeObject.from_dict(Notebook.new(
+            f"{NB_NAME}-bare", NB_NAMESPACE, gpu=GPUSpec(accelerator, 1),
+            pod_spec={"containers": []}).obj)
+        try:
+            client.create(bare)
+            raise RuntimeError("wire: a CR with no containers was admitted")
+        except ApiError as err:
+            if SCHEMA_NO_CONTAINERS not in str(err):
+                raise RuntimeError(f"wire: the CR with no containers was "
+                                   f"refused with {err}") from None
+            res["schema_refusal"] = str(err)
     finally:
         t_stop = time.perf_counter()
         proc.send_signal(signal.SIGINT)
@@ -3344,8 +3388,282 @@ def wire_step(device_name: str, gpus: int, tmp: Path) -> dict:
     return res
 
 
+# the shard step: SHARD_COUNT replicas of the control plane, a dozen CPU
+# notebooks over four namespaces beside this card's CR, and sub-lease
+# steps of FakeClock time (survivors renew, the dead lease ages out)
+SHARD_COUNT = 3
+SHARD_NAMESPACES = ("team-0", "team-1", "team-2", "team-3")
+SHARD_NOTEBOOKS = 12
+SHARD_STEP_S, SHARD_EXPIRY_STEPS = 8.0, 3
+SHARD_HANDOFF_P99_S = 30.0
+SHARD_FAMILIES = ("notebook_shard_keys_owned", "notebook_shard_epoch",
+                  "notebook_shard_fenced_writes_total",
+                  "notebook_shard_handoff_duration_seconds")
+# the reference's refusal of a CR with no containers
+# (kubeflow_tpu/api/types.py:Notebook.validate, through its schema hook)
+SCHEMA_NO_CONTAINERS = ("invalid Notebook: spec.template.spec.containers "
+                        "must be non-empty")
+# what differs between two stores' renders of one CR beyond the wire
+# step's volatile stamps: the pod IPs the fake cluster hands out in turn
+SHARD_VOLATILE = WIRE_VOLATILE | {"podIP", "podIPs", "hostIP"}
+SHARD_RENDERED = ("StatefulSet", "Pod", "Service")
+
+
+def _shard_render(api, namespace: str, name: str) -> dict:
+    """The card CR's StatefulSet, pods and Services in `api`, stamps
+    dropped, by "kind name"."""
+    with api.fault_exempt():
+        return {f"{kind} {obj.name}": _wire_normalized(obj.to_dict(),
+                                                       SHARD_VOLATILE)
+                for kind in SHARD_RENDERED
+                for obj in api.list(kind, namespace=namespace)
+                if obj.name == name or obj.name.startswith(f"{name}-")}
+
+
+def _serve_api_openapi() -> dict:
+    """`python -m kubeflow_tpu_torch.main --serve-api 0` as a process of
+    its own: the Notebook model its /openapi/v2 serves (the port's CRD,
+    seeded at startup) and the seconds to the answer."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    env = {k: os.environ[k] for k in ("PATH", "HOME", "TMPDIR", "LANG")
+           if k in os.environ}
+    env["PYTHONPATH"] = str(ROOT)
+    # the process exits after --run-seconds, so the read of its output
+    # ends by then
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubeflow_tpu_torch.main", "--serve-api", "0",
+         "--metrics-addr", "0", "--webhook-port", "-1",
+         "--run-seconds", "60"],
+        cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True)
+    try:
+        url = next((line.strip().split("=", 1)[1] for line in proc.stdout
+                    if line.startswith("WIRE_API=")), "")
+        if not url:
+            raise RuntimeError("shard: the --serve-api manager printed no "
+                               "WIRE_API line")
+        with urllib.request.urlopen(url + "/openapi/v2", timeout=10) as r:
+            doc = json.loads(r.read())
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    spec = doc["definitions"]["kubeflow.org.v1.Notebook"]["properties"][
+        "spec"].get("properties") or {}
+    return {"spec_fields": sorted(spec),
+            "gpu_fields": sorted((spec.get("gpu") or {}).get("properties")
+                                 or {}),
+            "seconds": time.perf_counter() - t0}
+
+
+def shard_step(device_name: str, gpus: int) -> dict:
+    """The sharded control plane on this card's CR (see the module
+    docstring, phase 18's shard step).  Runs in the wire step's process,
+    after it: no card memory, FakeClock time."""
+    import threading
+
+    from kubeflow_tpu_torch.api.types import GPUSpec, Notebook
+    from kubeflow_tpu_torch.core.culling_controller import setup_culling
+    from kubeflow_tpu_torch.core.metrics import NotebookMetrics
+    from kubeflow_tpu_torch.core.notebook_controller import (
+        setup_core_controllers,
+    )
+    from kubeflow_tpu_torch.gpu import topology
+    from kubeflow_tpu_torch.gpu.device_plugin import label_gpu_node
+    from kubeflow_tpu_torch.kube import (
+        ApiServer,
+        FakeCluster,
+        KubeObject,
+        Manager,
+        StaleEpochError,
+    )
+    from kubeflow_tpu_torch.main import build_sharded_fleet
+    from kubeflow_tpu_torch.ops.diagnose import (
+        collect_local,
+        merge_overlaps,
+        merge_records,
+    )
+    from kubeflow_tpu_torch.utils import tracing
+    from kubeflow_tpu_torch.utils.clock import FakeClock
+    from kubeflow_tpu_torch.utils.config import CoreConfig
+    from kubeflow_tpu_torch.utils.slo import SLOEngine, default_objectives
+
+    t0 = time.perf_counter()
+    openapi: dict = {}
+
+    def read_openapi():
+        try:
+            openapi.update(_serve_api_openapi())
+        except Exception as err:  # noqa: BLE001 — gated below
+            openapi["error"] = repr(err)
+
+    served = threading.Thread(target=read_openapi, name="shard-openapi")
+    served.start()
+    accelerator = topology.accelerator_from_device_name(device_name)
+    card = Notebook.new(NB_NAME, NB_NAMESPACE,
+                        gpu=GPUSpec(accelerator, 1)).obj
+    cfg = CoreConfig.from_env({
+        "SHARD_COUNT": str(SHARD_COUNT),
+        "SLO_SHARD_HANDOFF_P99_S": str(SHARD_HANDOFF_P99_S)})
+    clock = FakeClock()
+    tracing.set_clock(clock)
+    res: dict = {}
+    try:
+        fleet, api, cluster, metrics = build_sharded_fleet(cfg, clock=clock)
+        engine = SLOEngine(default_objectives(cfg), [metrics.registry],
+                           clock=clock)
+        metrics.attach_slo(engine)
+        cluster.add_node("cpu-node",
+                         allocatable={"cpu": "64", "memory": "256Gi"})
+        keys = [(SHARD_NAMESPACES[i % len(SHARD_NAMESPACES)], f"nb-{i}")
+                for i in range(SHARD_NOTEBOOKS)] + [(NB_NAMESPACE, NB_NAME)]
+        for ns, name in keys[:-1]:
+            api.create(KubeObject.from_dict(Notebook.new(name, ns).obj))
+        # no node for the card yet: its gang waits, not ready, while its
+        # owner dies, so its ledger holds the handoff
+        api.create(KubeObject.from_dict(card))
+
+        def one_owner() -> dict:
+            owners = {}
+            for ns, name in keys:
+                claimants = [sid for sid, r in fleet.replicas.items()
+                             if r.alive and r.owns_key(ns, name)]
+                if claimants != [fleet.owner_of(ns, name)]:
+                    raise RuntimeError(f"shard: {ns}/{name} claimed by "
+                                       f"{claimants}, ring owner "
+                                       f"{fleet.owner_of(ns, name)}")
+                owners[claimants[0]] = owners.get(claimants[0], 0) + 1
+            return owners
+
+        fleet.settle()
+        res["owners"] = one_owner()
+        metrics.scrape()
+
+        # kill the card CR's owner; sub-lease steps age its lease out
+        owner = fleet.owner_of(NB_NAMESPACE, NB_NAME)
+        killed = fleet.replicas[owner]
+        epoch = fleet.shard_snapshot()["epoch"]
+        fleet.kill(owner)
+        for _ in range(SHARD_EXPIRY_STEPS):
+            clock.advance(SHARD_STEP_S)
+            fleet.settle()
+        snap = fleet.shard_snapshot()
+        last = snap["lastHandoff"] or {}
+        adopter = fleet.owner_of(NB_NAMESPACE, NB_NAME)
+        if owner in snap["members"] or snap["handoff"] is not None \
+                or last.get("epoch") != snap["epoch"] \
+                or last.get("durationSeconds") is None \
+                or snap["epoch"] <= epoch:
+            raise RuntimeError(f"shard: the handoff after killing {owner} "
+                               f"did not complete: {snap}")
+        if adopter == owner or not fleet.replicas[adopter].alive or \
+                not fleet.replicas[adopter].owns_key(NB_NAMESPACE, NB_NAME):
+            raise RuntimeError(f"shard: {adopter} did not adopt the card's "
+                               f"CR from {owner}")
+        res["handoff"] = {"killed": owner, "adopter": adopter,
+                          "epoch": snap["epoch"],
+                          "fakeclock_s": last["durationSeconds"]}
+        res["owners_after_kill"] = one_owner()
+        # a zombie write through the killed replica's fenced client
+        zombie = api.get("Notebook", NB_NAMESPACE, NB_NAME)
+        zombie.metadata.annotations["chip-smoke/zombie"] = owner
+        try:
+            killed.fenced.update(zombie)
+            raise RuntimeError("shard: a zombie write landed")
+        except StaleEpochError:
+            pass
+        if killed.fenced.rejected_total != 1 or "chip-smoke/zombie" in \
+                api.get("Notebook", NB_NAMESPACE,
+                        NB_NAME).metadata.annotations:
+            raise RuntimeError(f"shard: fenced writes "
+                               f"{killed.fenced.rejected_total}, want 1")
+        # the card's node: the adopter takes the gang to Healthy
+        cluster.add_node(NB_NODE, allocatable={"cpu": "8", "memory": "96Gi"})
+        label_gpu_node(api, NB_NODE, gpus=gpus, accelerator=accelerator)
+        fleet.settle()
+        health = api.get("Notebook", NB_NAMESPACE, NB_NAME).body.get(
+            "status", {}).get("sliceHealth")
+        overlaps = fleet.cross_process_overlaps()
+        entry = metrics.lifecycle.latest_entry(NB_NAMESPACE, NB_NAME) or {}
+        handoff_wait = (entry.get("stages") or {}).get("handoff_wait", 0.0)
+        scrape = metrics.scrape()
+        verdict = engine.verdicts().get("shard_handoff")
+        fenced = f'notebook_shard_fenced_writes_total{{shard="{owner}"}} 1'
+        if health != "Healthy" or overlaps or not handoff_wait > 0 \
+                or not all(f"# TYPE {f} " in scrape
+                           for f in SHARD_FAMILIES) \
+                or fenced not in scrape or verdict is None \
+                or not verdict["events"] >= 1 or not verdict["met"]:
+            raise RuntimeError(
+                f"shard: health {health}, overlaps {len(overlaps)}, "
+                f"handoff_wait {handoff_wait}, families "
+                f"{[f for f in SHARD_FAMILIES if f not in scrape]}, "
+                f"fenced line {fenced in scrape}, verdict {verdict}")
+        res.update(handoff_wait_s=handoff_wait, shard_handoff=verdict,
+                   fenced_writes=killed.fenced.rejected_total)
+
+        # rejoin, settle, one diagnose bundle per replica
+        fleet.rejoin(owner)
+        fleet.settle()
+        snap = fleet.shard_snapshot()
+        if snap["members"] != sorted(fleet.replicas) or snap["handoff"]:
+            raise RuntimeError(f"shard: the rejoin did not settle: {snap}")
+        res["owners_after_rejoin"] = one_owner()
+        texts = [json.dumps(collect_local(r.manager, env={}), default=str)
+                 for r in fleet.replicas.values()]
+        bundles = [json.loads(t) for t in texts]
+        records = merge_records(bundles)
+        bundle_overlaps = merge_overlaps(bundles)
+        overlaps = fleet.cross_process_overlaps()
+        if not records or bundle_overlaps or overlaps:
+            raise RuntimeError(f"shard: {len(records)} merged attempts, "
+                               f"{len(bundle_overlaps)} overlapping pairs "
+                               f"in the bundles, {len(overlaps)} in process")
+        res.update(bundle_bytes=[len(t) for t in texts],
+                   merged_attempts=len(records),
+                   overlaps=len(bundle_overlaps) + len(overlaps))
+
+        # the single-manager render of the same CR: one Manager running
+        # the controllers every replica runs, on a store of its own
+        ref_clock = FakeClock()
+        ref_api = ApiServer()
+        ref_cluster = FakeCluster(ref_api)
+        mgr = Manager(ref_api, clock=ref_clock)
+        ref_metrics = NotebookMetrics(ref_api, manager=mgr)
+        setup_core_controllers(mgr, cfg, ref_metrics, provisioner=ref_cluster)
+        setup_culling(mgr, cfg, metrics=ref_metrics)
+        ref_cluster.add_node(NB_NODE,
+                             allocatable={"cpu": "8", "memory": "96Gi"})
+        label_gpu_node(ref_api, NB_NODE, gpus=gpus, accelerator=accelerator)
+        ref_api.create(KubeObject.from_dict(card))
+        mgr.run_until_idle()
+        want = _shard_render(ref_api, NB_NAMESPACE, NB_NAME)
+        got = _shard_render(api, NB_NAMESPACE, NB_NAME)
+        if got != want or not want:
+            diff = sorted(k for k in set(got) | set(want)
+                          if got.get(k) != want.get(k))
+            raise RuntimeError(f"shard: the fleet's render differs from "
+                               f"one manager's: {diff}")
+        res["rendered"] = sorted(want)
+    finally:
+        tracing.set_clock(None)
+        served.join()
+    if "error" in openapi or "gpu" not in openapi.get("spec_fields", ()) \
+            or not {"accelerator", "count"} <= set(openapi["gpu_fields"]):
+        raise RuntimeError(f"shard: --serve-api's /openapi: {openapi}")
+    res["openapi"] = openapi
+    res["step_s"] = time.perf_counter() - t0
+    return res
+
+
 def _wire_step_process(device_name: str, gpus: int, queue) -> None:
-    """wire_step in a spawned process: ("ok", result) or ("error",
+    """wire_step, then shard_step, in a spawned process: ("ok", the wire
+    step's result with the shard step's under "shard") or ("error",
     traceback) on `queue`."""
     import tempfile
     import traceback
@@ -3353,7 +3671,9 @@ def _wire_step_process(device_name: str, gpus: int, queue) -> None:
     sys.path.insert(0, str(ROOT))
     try:
         with tempfile.TemporaryDirectory(prefix="wire-step-") as tmp:
-            queue.put(("ok", wire_step(device_name, gpus, Path(tmp))))
+            res = wire_step(device_name, gpus, Path(tmp))
+        res["shard"] = shard_step(device_name, gpus)
+        queue.put(("ok", res))
     except BaseException:
         queue.put(("error", traceback.format_exc()))
     queue.close()
@@ -6322,7 +6642,9 @@ def main() -> int:
     gemma = timed("gemma_train", gemma_train_phase, device, device_name,
                   smi, flash_results, flush)
     wire = timed("wire", finish_wire_step, wire_started)
+    shard = wire.pop("shard")
     emit({"phase": "wire", "nvidia_smi": smi, **wire})
+    emit({"step": "shard", "nvidia_smi": smi, **shard})
     del flush
     long_context = timed("long_context", long_context_phase, device)
     mt = timed("moe_train", moe_train_phase, device, device_name)

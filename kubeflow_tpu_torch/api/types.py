@@ -22,8 +22,9 @@ with the metadata kept.
 `notebook_status` builds the status the notebook controller writes, under
 the reference's field names.  The priority classes of the tenancy layer
 (`spec.priority`, core/scheduler.py and core/preemption.py) are the
-reference's.  Validation (api/validation.py) is not ported yet
-(`ROADMAP.md` queue 1 item 19).
+reference's.  `Notebook.validate` holds the structural checks that
+api/validation.py's schema hook runs at admission, the reference's with
+`spec.gpu` in the place of `spec.tpu`.
 """
 
 from __future__ import annotations
@@ -201,6 +202,28 @@ class Notebook:
         """Explicit priority class, or None to defer to the tenant default."""
         p = self._spec.get("priority")
         return str(p) if p is not None else None
+
+    def validate(self) -> None:
+        """Non-empty containers, a known priority class, a valid
+        `spec.gpu`, and a replication block only on a GPU gang, within
+        its bounds: the reference's checks, with its messages."""
+        if not self.pod_spec.get("containers"):
+            raise InvalidError(
+                "spec.template.spec.containers must be non-empty")
+        if self.priority is not None and self.priority not in PRIORITY_RANK:
+            raise InvalidError(
+                f"spec.priority must be one of {sorted(PRIORITY_RANK)}, "
+                f"got {self.priority!r}")
+        if self.gpu is not None:
+            self.gpu.validate()
+        if self.replication is not None:
+            # a spec.tpu block carries replication in the reference; the
+            # port refuses that block in its own hook, with its own message
+            if self.gpu is None and not self._spec.get("tpu"):
+                raise InvalidError(
+                    "spec.replication requires spec.gpu (replicated CPU "
+                    "notebooks are not supported)")
+            self.replication.validate()
 
     def convert_to(self, version: str) -> "Notebook":
         """Spoke -> hub -> spoke conversion, as the reference routes it:

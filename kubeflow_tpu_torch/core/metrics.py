@@ -25,8 +25,10 @@ The families keep the reference's names and labels, on the port's
 `utils/metrics.py` Registry.  `notebook_gpus_requested` is the twin of
 the reference's `notebook_tpu_chips_requested`; everywhere else one GPU
 counts as one chip (`notebook_tenant_chip_seconds_total`, the tenancy
-view's `usage_chips`).  The sharded fleet's `notebook_shard_*` families,
-`attach_shard` and their feed wait for `ROADMAP.md` queue 1 item 17.
+view's `usage_chips`).  `attach_shard` feeds the sharded fleet's
+`notebook_shard_*` families (kube/shard.py) at every scrape, before the
+SLO engine reads the handoff histogram, and adds its `shards` section to
+/debug/fleet.
 """
 
 from __future__ import annotations
@@ -379,6 +381,37 @@ class NotebookMetrics:
         # labelsets_dropped() — per-registry auto-registration would emit
         # duplicate TYPE lines in the combined exposition
         self.labelsets_dropped = register_cardinality_metrics(self.registry)
+        # active-active sharding families (kube/shard.py): registered
+        # unconditionally for inventory stability; fed from an attached
+        # ShardedFleet's per-replica snapshots at every scrape
+        self.shard_keys_owned = self.registry.gauge(
+            "notebook_shard_keys_owned",
+            "Notebook keys owned by each control-plane shard replica "
+            "(off its filtered informer cache)",
+            labels=("shard",),
+        )
+        self.shard_epoch = self.registry.gauge(
+            "notebook_shard_epoch",
+            "Shard-map epoch as last observed by each replica (replicas "
+            "disagreeing for long means a stuck membership view)",
+            labels=("shard",),
+        )
+        self.shard_fenced_writes = self.registry.counter(
+            "notebook_shard_fenced_writes_total",
+            "Writes rejected by epoch fencing per shard replica (a "
+            "deposed/zombie holder tried to write under lost authority)",
+            labels=("shard",),
+        )
+        self.shard_handoff_duration = self.registry.histogram(
+            "notebook_shard_handoff_duration_seconds",
+            "Shard-map handoff duration, membership commit to the ack "
+            "that completed it (drains + adoptions)",
+            buckets=(0.05, 0.1, 0.5, 1.0, 5.0, 15.0, 60.0, 300.0),
+        )
+        # ShardedFleet attached via attach_shard(); per-shard handoff
+        # durations already fed into the histogram (indexed per shard)
+        self.shards = None
+        self._handoff_fed: dict[str, int] = {}
         # SLOEngine attached via attach_slo(): evaluated at every scrape
         # so burn rates/alerts advance at scrape resolution
         self.slo = None
@@ -433,6 +466,12 @@ class NotebookMetrics:
         per-worker telemetry annotations into the notebook_dataplane_*
         series and runs straggler detection."""
         self.dataplane = aggregator
+
+    def attach_shard(self, fleet) -> None:
+        """Attach a ShardedFleet (kube/shard.py); every scrape() feeds
+        the notebook_shard_* families from its replicas' snapshots and
+        fleet_snapshot() grows a `shards` section."""
+        self.shards = fleet
 
     def attach_lifecycle(self, ledger) -> None:
         """Attach a LifecycleLedger (utils/lifecycle.py); fleet_snapshot()
@@ -605,6 +644,10 @@ class NotebookMetrics:
                     stats.get("longest_running_s", {}).get(name, 0.0))
                 self._feed_counter(self.reconcile_errors_total, name,
                                    stats["errors_total"].get(name, 0))
+        if self.shards is not None:
+            # before the SLO engine: the handoff-stall objective reads
+            # the histogram this feeds
+            self._scrape_shards()
         if self.dataplane is not None:
             # data-plane rollup first: the SLO engine's straggler/MFU
             # objectives read the verdict counters this evaluation feeds
@@ -738,6 +781,23 @@ class NotebookMetrics:
             values["metering_violations"] = float(mcons["violations"])
         self.tsdb.sample(clock.now(), values)
 
+    def _scrape_shards(self) -> None:
+        """Feed the notebook_shard_* families from the attached fleet:
+        per-replica gauges, fenced-rejection counter deltas, and any
+        handoff durations completed since the previous scrape."""
+        snap = self.shards.shard_snapshot()
+        for sid, rep in snap["replicas"].items():
+            self.shard_keys_owned.labels(sid).set(rep["keys_owned"])
+            self.shard_epoch.labels(sid).set(rep["epoch"])
+            self._feed_counter(self.shard_fenced_writes, sid,
+                               rep["fenced_rejections"])
+        for sid, replica in self.shards.replicas.items():
+            durations = replica.handoff_durations
+            fed = self._handoff_fed.get(sid, 0)
+            for d in durations[fed:]:
+                self.shard_handoff_duration.observe(d)
+            self._handoff_fed[sid] = len(durations)
+
     # -- fleet rollup (/debug/fleet) ------------------------------------------
     def fleet_snapshot(self) -> dict:
         """Per-namespace / per-shape health rollup from the cache's
@@ -782,6 +842,8 @@ class NotebookMetrics:
             }
         if self.dataplane is not None:
             out["dataplane"] = self.dataplane.snapshot()
+        if self.shards is not None:
+            out["shards"] = self.shards.shard_snapshot()
         if self.lifecycle is not None:
             # the tenants view: ready-time and stage-latency by namespace
             # (the seed signal for fairness/starvation gates), plus the

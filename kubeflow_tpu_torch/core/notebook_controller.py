@@ -13,7 +13,9 @@ annotation act on the whole gang.  After the status pass and the restart
 annotation, the self-healing engine (core/selfheal.py) runs its recovery
 pass over the gang, with the session-state store opened from
 `CHECKPOINT_STORE_URI` for its migrate verb.  Event re-emission lives in
-its own controller, as in the reference.
+its own controller, as in the reference.  Admission is the schema hook
+of api/validation.py (the reference's structural checks on `spec.gpu`),
+then a refusal of `spec.tpu`, which this port does not serve.
 
 With ENABLE_SLICE_SCHEDULER on, the gang scheduler and the tenancy layer
 (core/scheduler.py, core/preemption.py) own placement: a GPU notebook
@@ -42,11 +44,10 @@ from typing import Optional
 
 from ..api.types import (
     CONDITION_RECOVERY_EXHAUSTED,
-    PRIORITY_RANK,
-    InvalidError as SpecError,
     Notebook,
     notebook_status,
 )
+from ..api.validation import install_notebook_schema
 from ..common import reconcilehelper as rh
 from ..kube import (
     AdmissionDenied,
@@ -66,7 +67,7 @@ from ..kube import (
 )
 from ..utils import tracing
 from ..utils.clock import Clock
-from ..utils.config import CoreConfig, NotPortedError
+from ..utils.config import CoreConfig
 from . import constants as C
 from .metrics import NotebookMetrics
 from .scheduler import placement_covers, setup_scheduler
@@ -86,39 +87,14 @@ logger = logging.getLogger("kubeflow_tpu_torch.core")
 # per-attempt reconcile root span via the shared context stack
 _TRACER = tracing.get_tracer("kubeflow_tpu_torch.core.notebook")
 
-API_VERSIONS = ("v1alpha1", "v1beta1", "v1")
-
-
-def _admit_notebook(op: str, old: Optional[KubeObject],
-                    obj: KubeObject) -> None:
-    """The Notebook's validating admission: a served apiVersion, a valid
-    `spec.gpu` and `spec.replication`, and no part this port does not
-    serve (`spec.tpu`, a TPU slice)."""
-    group, _, version = obj.api_version.partition("/")
-    if group != "kubeflow.org" or version not in API_VERSIONS:
-        raise AdmissionDenied(
-            f"Notebook apiVersion {obj.api_version!r} not served")
-    spec = obj.body.get("spec") or {}
-    if spec.get("tpu"):
+def _refuse_tpu(op: str, old: Optional[KubeObject],
+                obj: KubeObject) -> None:
+    """What this port does not serve, after the schema hook
+    (api/validation.py) has admitted the CR: a TPU slice (`spec.tpu`)."""
+    if (obj.body.get("spec") or {}).get("tpu"):
         raise AdmissionDenied(
             "spec.tpu: this controller runs GPU gangs (spec.gpu); TPU "
             "slices are served by kubeflow_tpu")
-    nb = Notebook(obj.to_dict())
-    if nb.priority is not None and nb.priority not in PRIORITY_RANK:
-        raise AdmissionDenied(
-            f"invalid Notebook: spec.priority must be one of "
-            f"{sorted(PRIORITY_RANK)}, got {nb.priority!r}")
-    try:
-        if nb.gpu is not None:
-            nb.gpu.validate()
-        if nb.replication is not None:
-            if nb.gpu is None:
-                raise SpecError(
-                    "spec.replication requires spec.gpu (replicated CPU "
-                    "notebooks are not supported)")
-            nb.replication.validate()
-    except SpecError as e:
-        raise AdmissionDenied(f"invalid Notebook: {e}") from None
 
 
 def workload_config(cfg: CoreConfig) -> WorkloadConfig:
@@ -707,8 +683,9 @@ def setup_core_controllers(
     gang scheduler."""
     cfg = cfg or CoreConfig.from_env()
     api = mgr.api
+    install_notebook_schema(api)
     api.register_admission(AdmissionHook(
-        kinds=("Notebook",), handler=_admit_notebook,
+        kinds=("Notebook",), handler=_refuse_tpu,
         operations=("CREATE", "UPDATE"), mutating=False,
         name="notebook-gpu-admission"))
     # workqueue rate limiting from config (WORKQUEUE_* env vars)
@@ -778,6 +755,5 @@ def setup_core_controllers(
     return rec
 
 
-__all__ = ["EventReemitReconciler", "NotPortedError",
-           "NotebookReconciler", "setup_core_controllers",
-           "workload_config"]
+__all__ = ["EventReemitReconciler", "NotebookReconciler",
+           "setup_core_controllers", "workload_config"]

@@ -2,8 +2,8 @@
 runtime + fake data plane) that the GPU notebook controllers run against:
 the port's copy of kubeflow_tpu/kube, with the real-cluster backend:
 the patch verbs, fault plans, the wire apiserver (`wire.py`), the REST
-client (`client.py`), certs and leader election.  The sharded fleet
-(`kube/shard.py`) is not ported yet (`ROADMAP.md` queue 1 item 17)."""
+client (`client.py`), certs and leader election, and the sharded fleet
+(`shard.py`: the fenced shard map, its handoff and N manager replicas)."""
 
 from .cache import InformerCache
 from .cluster import FakeCluster, parse_quantity
@@ -44,6 +44,13 @@ from .meta import (
     new_uid,
     set_controller_reference,
 )
+from .shard import (
+    FencedApi,
+    HashRing,
+    ShardedFleet,
+    ShardedReplica,
+    ShardMember,
+)
 from .store import (
     AdmissionDenied,
     AdmissionHook,
@@ -68,9 +75,11 @@ __all__ = [
     "FaultPlan",
     "FaultRecord",
     "FaultRule",
+    "FencedApi",
     "FencingToken",
     "ForbiddenError",
     "GoneError",
+    "HashRing",
     "InformerCache",
     "InvalidError",
     "ItemExponentialBackoff",
@@ -85,6 +94,9 @@ __all__ = [
     "Request",
     "Result",
     "ServerError",
+    "ShardMember",
+    "ShardedFleet",
+    "ShardedReplica",
     "StaleEpochError",
     "WatchEvent",
     "WatchSpec",

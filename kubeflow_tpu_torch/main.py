@@ -21,10 +21,9 @@ Backends:
   protocol with the Notebook converter (`--audit-log PATH` appends its
   JSONL request trail), and `--fake-gpu-nodes N` adds N full H100 hosts
   labelled by `gpu/device_plugin.py:label_gpu_node`, so a CR sent over
-  the wire schedules.  The reference seeds the Notebook CRD under
-  `--serve-api` from `deploy/manifests.py`, which is not ported yet
-  (`ROADMAP.md` queue 1 item 18): until then /openapi serves the generic
-  model for Notebook.
+  the wire schedules.  Under `--serve-api` the store is seeded with the
+  port's Notebook CRD (`deploy/manifests.py:notebook_crd`), so /openapi
+  serves its field models, `spec.gpu` among them.
 
 The observability plane runs in every manager: the SLO engine, the
 data-plane telemetry rollup, the lifecycle ledger, the TSDB, the tenant
@@ -42,8 +41,10 @@ reconciliation lock the webhook stamped on it, and stamps one telemetry
 summary per worker for the data-plane rollup: the twin of
 `python -m kubeflow_tpu.main --demo`.
 
-Not ported yet (`ROADMAP.md` queue 1 item 17): the sharded fleet
-(`SHARD_COUNT` above 1).
+`build_sharded_fleet` is the active-active control plane (SHARD_COUNT
+replicas, kube/shard.py) over one in-memory ApiServer, with one
+lifecycle ledger, TSDB, metering ledger and diagnosis engine serving
+every replica.
 """
 
 from __future__ import annotations
@@ -71,6 +72,7 @@ from .kube import (
     KubeObject,
     LeaderElector,
     Manager,
+    ShardedFleet,
 )
 from .odh.controller import setup_odh_controllers
 from .odh.tls_profile import SecurityProfileWatcher, fetch_apiserver_tls_profile
@@ -530,6 +532,91 @@ def build_manager(
     return mgr, api, cluster, metrics
 
 
+def build_sharded_fleet(
+    core_cfg: Optional[CoreConfig] = None,
+    count: Optional[int] = None,
+    clock=None,
+):
+    """Active-active standalone control plane (SHARD_COUNT > 1): `count`
+    ShardedReplicas over one in-memory ApiServer, each running the full
+    core controller set against its fenced client (kube/shard.py), so a
+    deposed shard's late writes are rejected with a stale epoch instead
+    of racing the new owner.  Returns (fleet, api, cluster, metrics);
+    per-shard health lands in /debug/fleet via metrics.attach_shard()."""
+    core_cfg = core_cfg or CoreConfig.from_env()
+    count = count or core_cfg.shard_count
+    api = ApiServer(history_size=core_cfg.watch_history_size)
+    cluster = FakeCluster(api)
+    metrics = NotebookMetrics(api)
+    # ONE lifecycle ledger + TSDB across every replica: a notebook's
+    # attempts land on one timeline no matter which shard ran them, so a
+    # manager-id change between consecutive attempts reads as
+    # handoff/adoption wait (utils/lifecycle.py)
+    ledger = LifecycleLedger(
+        registry=metrics.registry,
+        max_notebooks=core_cfg.lifecycle_max_notebooks,
+        samples_per_stage=core_cfg.lifecycle_samples_per_stage,
+        tolerance=core_cfg.lifecycle_tolerance)
+    metrics.attach_lifecycle(ledger)
+    tsdb = TimeSeriesStore(
+        raw_capacity=core_cfg.tsdb_raw_capacity,
+        tier10_capacity=core_cfg.tsdb_tier10_capacity,
+        tier60_capacity=core_cfg.tsdb_tier60_capacity,
+        max_series=core_cfg.tsdb_max_series)
+    # clock=None falls back to the first replica manager's clock at feed
+    # time (setup_core_controllers attaches it to `metrics`)
+    metrics.attach_tsdb(tsdb, clock=clock)
+    # ONE metering ledger across every replica (same sharing rationale as
+    # the lifecycle ledger): tenant attribution survives shard handoffs
+    metering = TenantMeteringLedger(
+        clock, registry=metrics.registry,
+        recorder=EventRecorder(api, "tenant-metering"),
+        max_tenants=core_cfg.metering_max_tenants,
+        max_notebooks=core_cfg.metering_max_notebooks,
+        tolerance=core_cfg.metering_tolerance,
+        fairshare_factor=core_cfg.tenant_fairshare_factor,
+        top_k=core_cfg.tenant_top_k)
+    metrics.attach_metering(metering)
+    # ONE diagnosis engine across every replica (same sharing rationale):
+    # change points and verdicts read the fleet-wide fused timeline
+    diagnosis = DiagnosisEngine(
+        clock, registry=metrics.registry, lifecycle=ledger,
+        metering=metering, tsdb=tsdb, api=api)
+    metrics.attach_diagnosis(diagnosis)
+
+    def controllers(replica):
+        # replica.manager.api is the FencedApi: every controller write is
+        # epoch-checked against the committed shard map before it lands
+        replica.manager.lifecycle = ledger
+        replica.manager.manager_id = replica.shard_id
+        replica.manager.tsdb = tsdb
+        replica.manager.metering = metering
+        replica.manager.diagnosis = diagnosis
+        if metering.clock is None:
+            # clock=None build: the first replica's manager clock drives
+            # the accrual timestamps (same fallback as the TSDB feed)
+            metering.clock = replica.manager.clock
+        if diagnosis.clock is None:
+            diagnosis.clock = replica.manager.clock
+        if diagnosis.recorder is None:
+            # the first replica's flight recorder anchors trace->object
+            # resolution for alert annotation (each replica records its
+            # own attempts; explain() still works per replica via the
+            # shared ledger)
+            diagnosis.recorder = replica.manager.flight_recorder
+        setup_core_controllers(replica.manager, core_cfg, metrics,
+                               provisioner=cluster)
+        setup_culling(replica.manager, core_cfg, metrics=metrics)
+
+    fleet = ShardedFleet(
+        api, count=count, clock=clock, controller_factory=controllers,
+        lease_duration_s=core_cfg.shard_lease_duration_s)
+    metrics.attach_shard(fleet)
+    # membership epochs feed the diagnosis engine's discrete timeline
+    diagnosis.fleet = fleet
+    return fleet, api, cluster, metrics
+
+
 def build_real_backend(args):
     """KubeClient from --kubeconfig/--in-cluster with the qps/burst knobs
     (notebook-controller/main.go:71-89)."""
@@ -707,8 +794,16 @@ def main(argv: Optional[list[str]] = None) -> int:
                         "(there is no in-memory store to serve)")
     if args.serve_api >= 0 and not real:
         from .api.types import convert_notebook_dict
+        from .deploy.manifests import notebook_crd
         from .kube.wire import KubeApiWireServer
 
+        # the Notebook CRD object, so /openapi serves its field models
+        # (the wire server reads field schemas off stored CRDs, as a real
+        # apiserver does)
+        if api.try_get("CustomResourceDefinition", "",
+                       "notebooks.kubeflow.org") is None:
+            api.create(KubeObject.from_dict(
+                notebook_crd(conversion_webhook=False)))
         wire_server = KubeApiWireServer(
             api, host="127.0.0.1", port=args.serve_api,
             converter=convert_notebook_dict,

@@ -1,4 +1,5 @@
-"""Attention and the int4 dequant-matmul (kernel + plain version).
+"""Attention and the int4 dequant-matmul (kernel + plain version), and
+the control plane's diagnostics bundle (ops/diagnose.py, no torch).
 
 Exports are lazy (PEP 562), as in the reference's ops/__init__.py:
 importing this package imports no submodule.  Three of the reference's

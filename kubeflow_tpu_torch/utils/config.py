@@ -9,12 +9,11 @@ defaults and parses: among them the slice scheduler's gang gate, warm
 pool and tenancy layer (core/scheduler.py, core/preemption.py), the
 Istio VirtualService's switch, gateway and host, and the observability
 plane's: the SLO objectives and windows, the profiler, the data-plane
-rollup, the lifecycle and metering ledgers and the TSDB.  `from_env` refuses the
-env switch of any tier that is not ported (`NOT_PORTED_SWITCHES`); a
-tier's tuning knobs are not read, as the reference reads none while the
-tier is off.  Each field comes back with the `ROADMAP.md` item that ports
-its reader.  `OdhConfig` is the ODH plane's (odh/), with GPU_DEFAULT_IMAGE
-and the GPU image map as the twins of the reference's TPU ones.
+rollup, the lifecycle and metering ledgers and the TSDB, and the sharded
+fleet's (kube/shard.py: SHARD_COUNT, its lease and handoff objective)
+and the interleave checker's budget (testing/interleave.py).
+`OdhConfig` is the ODH plane's (odh/), with GPU_DEFAULT_IMAGE and the
+GPU image map as the twins of the reference's TPU ones.
 """
 
 from __future__ import annotations
@@ -77,48 +76,6 @@ def _float(env: Mapping[str, str], key: str, default: float) -> float:
         return float(v)
     except ValueError:
         return default
-
-
-class NotPortedError(ValueError):
-    """A part of the reference's control plane that this port does not
-    run yet was turned on; the message names its `ROADMAP.md` item."""
-
-
-def not_ported(what: str, item: int, module: str) -> str:
-    return (f"{what} is not ported to the GPU controller yet: "
-            f"ROADMAP.md queue 1 item {item} ({module})")
-
-
-def _true(v: str) -> bool:
-    return v.strip().lower() == "true"
-
-
-def _above(floor: float):
-    def on(v: str) -> bool:
-        try:
-            return float(v) > floor
-        except ValueError:
-            return False
-    return on
-
-
-# The env switches of the reference's tiers that this port does not run:
-# (env name, whether a value turns the tier on, ROADMAP.md queue 1 item,
-# the reference's module).  The shard-handoff objective reads
-# notebook_shard_handoff_duration_seconds, which only the sharded fleet
-# writes, so its SLO knob waits for the fleet.
-NOT_PORTED_SWITCHES = (
-    ("SLO_SHARD_HANDOFF_P99_S", _above(0), 17, "kubeflow_tpu/kube/shard.py"),
-    ("SHARD_COUNT", _above(1), 17, "kubeflow_tpu/kube/shard.py"),
-)
-
-
-def check_env(env: Mapping[str, str]) -> None:
-    """Refuse an env that turns on a tier this port does not run."""
-    for name, on, item, module in NOT_PORTED_SWITCHES:
-        v = env.get(name)
-        if v is not None and on(v):
-            raise NotPortedError(not_ported(f"{name}={v}", item, module))
 
 
 @dataclass
@@ -247,6 +204,20 @@ class CoreConfig:
     dataplane_mfu_target: float = 0.0           # DATAPLANE_MFU_TARGET
     slo_fleet_mfu: float = 0.0                  # SLO_FLEET_MFU
     slo_straggler_rate: float = 0.0             # SLO_STRAGGLER_RATE
+    # sharded control plane (kube/shard.py, main.build_sharded_fleet):
+    # shard_count replicas over a fenced ControlPlaneShardMap;
+    # shard_lease_duration_s is each member's lease (a dead replica is
+    # evicted once its lease ages past it).  slo_shard_handoff_p99_s
+    # bounds the handoff duration (commit -> last ack); <= 0 keeps the
+    # objective off.
+    shard_count: int = 1                        # SHARD_COUNT
+    shard_lease_duration_s: float = 15.0        # SHARD_LEASE_DURATION_S
+    slo_shard_handoff_p99_s: float = 0.0        # SLO_SHARD_HANDOFF_P99_S
+    # schedule-exploring model checker (testing/interleave.py): per-test
+    # exploration budget, distinct-schedule cap and wall cap, whichever
+    # bites first
+    interleave_max_schedules: int = 1200        # INTERLEAVE_MAX_SCHEDULES
+    interleave_budget_s: float = 60.0           # INTERLEAVE_BUDGET_S
     # lifecycle stage ledger (utils/lifecycle.py): event->ready
     # critical-path attribution behind /debug/criticalpath; the LRU of
     # ledgers, the per-stage p99 sample ring and the conservation gate.
@@ -275,7 +246,6 @@ class CoreConfig:
     @classmethod
     def from_env(cls, env: Optional[Mapping[str, str]] = None) -> "CoreConfig":
         env = env if env is not None else os.environ
-        check_env(env)
         return cls(
             enable_culling=_bool(env, "ENABLE_CULLING", False),
             cull_idle_time_min=_int(env, "CULL_IDLE_TIME", 1440),
@@ -350,6 +320,14 @@ class CoreConfig:
             dataplane_mfu_target=_float(env, "DATAPLANE_MFU_TARGET", 0.0),
             slo_fleet_mfu=_float(env, "SLO_FLEET_MFU", 0.0),
             slo_straggler_rate=_float(env, "SLO_STRAGGLER_RATE", 0.0),
+            shard_count=max(1, _int(env, "SHARD_COUNT", 1)),
+            shard_lease_duration_s=_float(
+                env, "SHARD_LEASE_DURATION_S", 15.0),
+            slo_shard_handoff_p99_s=_float(
+                env, "SLO_SHARD_HANDOFF_P99_S", 0.0),
+            interleave_max_schedules=max(1, _int(
+                env, "INTERLEAVE_MAX_SCHEDULES", 1200)),
+            interleave_budget_s=_float(env, "INTERLEAVE_BUDGET_S", 60.0),
             lifecycle_max_notebooks=max(1, _int(
                 env, "LIFECYCLE_MAX_NOTEBOOKS", 4096)),
             lifecycle_samples_per_stage=max(1, _int(
@@ -419,5 +397,4 @@ class OdhConfig:
         )
 
 
-__all__ = ["CoreConfig", "NOT_PORTED_SWITCHES", "NotPortedError",
-           "OdhConfig", "check_env", "detect_namespace", "not_ported"]
+__all__ = ["CoreConfig", "OdhConfig", "detect_namespace"]

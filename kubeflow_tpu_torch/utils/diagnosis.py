@@ -50,11 +50,10 @@ sample timestamps, never a wall clock), hold no locks during reconcile
 when a stream is absent — a missing component never raises.
 
 Served at ``/debug/explain?object=ns/name`` and ``/debug/changepoints``
-(loopback only) and summarized in ``/debug/fleet``.  ``export()`` is
-the section a diagnose bundle keeps (the reference's ``ops/diagnose``,
-which `ROADMAP.md` queue 1 item 20 ports), and both verdicts
-reconstruct offline from a bundle (``changepoints_from_bundle`` re-runs
-the detector over the bundle's raw curves).
+(loopback only), summarized in ``/debug/fleet``, and captured by
+``ops/diagnose`` (``export()`` is the bundle's section), so both
+verdicts reconstruct offline from a bundle (``changepoints_from_bundle``
+re-runs the detector over the bundle's raw curves).
 """
 
 from __future__ import annotations

@@ -1,7 +1,6 @@
 """Fleet SLO engine: objectives, multi-window burn rates, and alerts.
 
-The port's copy of kubeflow_tpu/utils/slo.py.  The sharded fleet's
-handoff objective waits for it (ROADMAP.md queue 1 item 17).
+The port's copy of kubeflow_tpu/utils/slo.py.
 
 The control plane has fleet-scale telemetry (latency histograms, error
 counters), but that gives no *verdicts*: nothing says whether the fleet is
@@ -205,6 +204,18 @@ def default_objectives(cfg) -> tuple[Objective, ...]:
             total_values=("hit", "miss"),
             description="warm-pool claims served from a pre-provisioned "
                         "slice"))
+    # sharded-control-plane objective (kube/shard.py handoff histogram):
+    # knob-disabled by default — it only means something when SHARD_COUNT
+    # > 1 runs an actual fleet.  A handoff that stalls (dead member not
+    # yet evicted, drain ack waiting out in-flight keys) lands in a fat
+    # bucket and burns this budget, firing the multi-window alert.
+    if cfg.slo_shard_handoff_p99_s > 0:
+        out.append(Objective(
+            name="shard_handoff", kind=KIND_LATENCY,
+            metric="notebook_shard_handoff_duration_seconds",
+            threshold_s=cfg.slo_shard_handoff_p99_s,
+            description="p99 shard-map handoff duration (membership "
+                        "commit -> completing ack)"))
     # data-plane objectives (core/telemetry.py verdict counters): both
     # knob-disabled by default — they only mean something on fleets whose
     # workers actually publish telemetry annotations

@@ -24,9 +24,8 @@ bundle.
 
 Timestamps are INJECTED (``sample(t, values)``): the store never reads a
 clock, so it is FakeClock-deterministic in tests.  Queryable at
-``/debug/timeline?series=...&tier=...``; ``dump()`` is the whole capture
-a diagnose bundle keeps (the reference's ``ops/diagnose``, which
-`ROADMAP.md` queue 1 item 20 ports), so a run's p99-vs-time curve is
+``/debug/timeline?series=...&tier=...`` and captured wholesale into the
+``ops/diagnose`` bundle via ``dump()``, so a run's p99-vs-time curve is
 reconstructable offline.
 """
 

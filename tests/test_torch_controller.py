@@ -15,10 +15,11 @@ under `CoreConfig(enable_self_healing=False)`:
 - the fake cluster places a gang only where its `nvidia.com/gpu` fit,
   and frees them when it stops;
 - `python -m kubeflow_tpu_torch.main --demo` runs in-process and serves
-  /healthz and /metrics; an env that turns on a part the port does not
-  run is refused with its ROADMAP item named, a replicated CR is
-  admitted, USE_ISTIO renders the reference's VirtualService, and the
-  env names the port reads parse as the reference's.  The self-healing engine is held to the reference's in
+  /healthz and /metrics; the switches of every tier parse into their
+  fields as the reference's (the sharded fleet's and the interleave
+  checker's among them), a replicated CR is admitted, USE_ISTIO renders
+  the reference's VirtualService, and the env names the port reads parse
+  as the reference's.  The self-healing engine is held to the reference's in
   tests/test_torch_selfheal.py, the replicated tier in
   tests/test_torch_replication.py.
 
@@ -48,13 +49,10 @@ from kubeflow_tpu_torch import main as port_main
 from kubeflow_tpu_torch.api.types import GPUSpec, Notebook, ReplicationSpec
 from kubeflow_tpu_torch.core import constants as C
 from kubeflow_tpu_torch.core.metrics import NotebookMetrics
-from kubeflow_tpu_torch.core.notebook_controller import (
-    NotPortedError,
-    setup_core_controllers,
-)
+from kubeflow_tpu_torch.core.notebook_controller import setup_core_controllers
 from kubeflow_tpu_torch.gpu import topology
 from kubeflow_tpu_torch.utils.clock import FakeClock
-from kubeflow_tpu_torch.utils.config import NOT_PORTED_SWITCHES, CoreConfig
+from kubeflow_tpu_torch.utils.config import CoreConfig
 
 NS = "user1"
 STOPPED_AT = "2023-11-14T22:30:00Z"
@@ -430,6 +428,9 @@ def test_main_demo_serves_health_and_metrics(monkeypatch, capsys,
     ("enable_self_healing", 12), ("enable_slice_scheduler", 13),
     ("use_istio", 15), ("spec.replication", 14)])
 def test_parts_not_ported_are_refused(knob, item):
+    """The parts the port once refused until their tier was ported
+    (queue 1 items 12-15): each is now taken, as the reference takes
+    it."""
     mgr = kube.Manager(kube.ApiServer(), clock=FakeClock())
     if knob == "enable_self_healing":
         # item 12 is ported: the switch is taken, and the reconciler runs
@@ -488,24 +489,22 @@ def test_parts_not_ported_are_refused(knob, item):
         rep = live.body["status"]["replication"]
         assert (rep["epoch"], rep["primary"]) == (1, 0)
         assert [n.name for n in mgr.api.list("Notebook")] == ["nb"]
-        return
-    with pytest.raises(NotPortedError,
-                       match=f"ROADMAP.md queue 1 item {item} "):
-        setup_core_controllers(mgr, CoreConfig(**{knob: True}))
-    assert mgr.pending_count() == 0
 
 
 _SWITCH_ON = {"ENABLE_PREEMPTION": "true", "ENABLE_CONTINUOUS_PROFILER": "true",
               "WARMPOOL_SHAPES": "h100-80gb:8", "SHARD_COUNT": "4"}
-# the env switches of the slice scheduler's tier (queue 1 item 13) and of
-# the observability plane (item 16), taken since they were ported: each
-# parses into its field
+# the env switches of the slice scheduler's tier (queue 1 item 13), of
+# the observability plane (item 16) and of the sharded fleet and the
+# interleave checker (items 17 and 21), taken since they were ported:
+# each parses into its field
 _TIER_SWITCHES = {"ENABLE_PREEMPTION": ("enable_preemption", True),
                   "WARMPOOL_SIZE": ("warmpool_size", 1),
                   "WARMPOOL_SHAPES": ("warmpool_shapes", "h100-80gb:8"),
                   "REPLICATION_MAX_LAG": ("replication_max_lag", 1),
                   "ENABLE_CONTINUOUS_PROFILER": (
                       "enable_continuous_profiler", True),
+                  "SHARD_COUNT": ("shard_count", 4),
+                  "INTERLEAVE_MAX_SCHEDULES": ("interleave_max_schedules", 1),
                   **{name: (field, 1.0) for name, field in (
                       ("SLO_PROMOTION_P99_S", "slo_promotion_p99_s"),
                       ("SLO_TIME_TO_READY_P99_S", "slo_time_to_ready_p99_s"),
@@ -518,23 +517,13 @@ _TIER_SWITCHES = {"ENABLE_PREEMPTION": ("enable_preemption", True),
                       ("SLO_FLEET_MFU", "slo_fleet_mfu"),
                       ("SLO_STRAGGLER_RATE", "slo_straggler_rate"),
                       ("SLO_TENANT_FAIRNESS", "slo_tenant_fairness"),
-                      ("DATAPLANE_MFU_TARGET", "dataplane_mfu_target"))}}
+                      ("DATAPLANE_MFU_TARGET", "dataplane_mfu_target"),
+                      ("SLO_SHARD_HANDOFF_P99_S", "slo_shard_handoff_p99_s"),
+                      ("SHARD_LEASE_DURATION_S", "shard_lease_duration_s"),
+                      ("INTERLEAVE_BUDGET_S", "interleave_budget_s"))}}
 _SWITCH_OFF = {"ENABLE_PREEMPTION": "false",
                "ENABLE_CONTINUOUS_PROFILER": "false", "WARMPOOL_SHAPES": "",
                "SHARD_COUNT": "1"}
-
-
-@pytest.mark.parametrize("name,item", [
-    (name, item) for name, _, item, _ in NOT_PORTED_SWITCHES])
-def test_env_switches_not_ported_are_refused(name, item):
-    """The env switch of a tier the port does not run is refused, with its
-    ROADMAP item named, when it turns the tier on; its off value is
-    taken."""
-    with pytest.raises(NotPortedError,
-                       match=f"^{name}=.* ROADMAP.md queue 1 item {item} "):
-        CoreConfig.from_env({name: _SWITCH_ON.get(name, "1")})
-    assert CoreConfig.from_env({name: _SWITCH_OFF.get(name, "0")}) \
-        == CoreConfig()
 
 
 @pytest.mark.parametrize("name", sorted(_TIER_SWITCHES))

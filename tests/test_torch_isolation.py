@@ -18,7 +18,9 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "kubeflow_tpu"}
 # modules the two tests must reach, among all the others they walk: the
 # serving entry points, the small models, the compile-check entry, the
 # GPU side of the controller contract, the controller itself, its
-# observability plane and its real-cluster backend
+# observability plane, its real-cluster backend, the sharded fleet, the
+# deploy manifests, the schema hook, the diagnose bundle and the
+# interleave checker
 EXPECTED = {"bench", "entry", "examples.llama13b_decode",
             "examples.serve_model", "examples.speculative_demo",
             "examples.train_llm", "models.generate", "models.mlp",
@@ -34,7 +36,9 @@ EXPECTED = {"bench", "entry", "examples.llama13b_decode",
             "kube.jsonpatch", "kube.strategicmerge", "kube.apply",
             "kube.faults", "kube.resources", "kube.wire", "kube.client",
             "kube.certs", "kube.leader", "kube.fixtures",
-            "odh.webhook_server", "examples.run_real_cluster"}
+            "odh.webhook_server", "examples.run_real_cluster", "kube.shard",
+            "deploy.manifests", "api.validation", "ops.diagnose",
+            "testing.interleave"}
 
 
 def _port_sources() -> list:
@@ -101,7 +105,9 @@ CONTROL_PLANE = ("main", "kube", "common.reconcilehelper",
                  "utils.profiler", "kube.jsonpatch", "kube.strategicmerge",
                  "kube.apply", "kube.faults", "kube.resources", "kube.wire",
                  "kube.client", "kube.certs", "kube.leader", "kube.fixtures",
-                 "odh.webhook_server", "examples.run_real_cluster")
+                 "odh.webhook_server", "examples.run_real_cluster",
+                 "kube.shard", "deploy.manifests", "api.validation",
+                 "ops.diagnose", "testing.interleave")
 
 
 def test_control_plane_imports_no_torch():

@@ -73,30 +73,23 @@ def _port_notebook(KubeObject):
     return Notebook
 
 
-def twin_modules(filename: str, keep: tuple = (),
-                 port_lines: Optional[dict] = None,
-                 port_globals: Optional[dict] = None) -> dict:
+def twin_modules(filename: str,
+                 port_lines: Optional[dict] = None) -> dict:
     """tests/`filename` executed once against each package: {side:
     module}.  The port's copy has `kubeflow_tpu` swapped for
-    `kubeflow_tpu_torch` except in the modules named in `keep` (data the
-    port reads from the reference, such as a rendered CRD), then each
-    line in `port_lines` replaced and `port_globals` added, and its
+    `kubeflow_tpu_torch`, then each line in `port_lines` replaced, and its
     `Notebook` is the reference's signature over the port's types."""
     src = (TESTS / filename).read_text()
     out = {}
     for side in SIDES:
         text = src
         if side == "port":
-            text = re.sub(r"\bkubeflow_tpu\b(?!\.(%s)\b)" % "|".join(
-                re.escape(k) for k in keep) if keep else r"\bkubeflow_tpu\b",
-                "kubeflow_tpu_torch", text)
+            text = re.sub(r"\bkubeflow_tpu\b", "kubeflow_tpu_torch", text)
             for old, new in (port_lines or {}).items():
                 assert old in text, old
                 text = text.replace(old, new)
         mod = types.ModuleType(f"twin_{side}_{Path(filename).stem}")
         mod.__file__ = str(TESTS / filename)
-        if side == "port":
-            mod.__dict__.update(port_globals or {})
         exec(compile(text, str(TESTS / filename), "exec"), mod.__dict__)
         if side == "port":
             mod.Notebook = _port_notebook(port_kube.KubeObject)
@@ -273,7 +266,7 @@ def run_twins(mods: dict, case: str, tmp_path: Path, record: tuple = (),
 
 APPLY = twin_modules("test_apply.py")
 SMP = twin_modules("test_strategicmerge.py")
-REALCLUSTER = twin_modules("test_realcluster.py", keep=("deploy",))
+REALCLUSTER = twin_modules("test_realcluster.py")
 RECORD = ("field_set", "leaf_paths", "strategic_merge", "diff",
           "apply_patch")
 # controllers on threads: the assertions hold, the write order is the

@@ -13,10 +13,13 @@ ConversionReview over HTTPS), `kube/leader.py` and `kube/fixtures.py`.
   tests/test_leader.py run as twins, as tests/test_torch_patch.py runs
   its reference cases: the reference's assertions on both packages, then
   every ApiServer's objects, audit log and verb counts equal, once uids
-  and wall-clock stamps are read as tokens.  The port's deploy/ is not
-  ported yet, so the CRD field models are fed the reference's rendered
-  CRD as data, and the leader's fencing case wraps the port's elector in
-  the reference's FencedApi (kube/shard.py comes with the sharded fleet).
+  and wall-clock stamps are read as tokens; the leader's fencing case
+  runs the port's FencedApi (kube/shard.py) over the port's elector.  The
+  CRD field models are served from each package's own rendered CRD
+  (deploy/manifests.py:notebook_crd): the reference's case asserts its
+  `spec.tpu` models, so the port's twin of it is a test of its own, which
+  finds `spec.gpu` and holds the rest of the served Notebook model to the
+  reference's.
   Cases whose controllers, informers or electors run on threads keep the
   assertions and compare no state: their write order is the scheduler's.
   The reference's TPU image swap has no GPU twin (a spec.gpu notebook
@@ -39,10 +42,12 @@ import os
 import signal
 import subprocess
 import sys
+import urllib.request
 
 import pytest
 from test_torch_patch import TESTS, case_ids, run_twins, twin_modules
 
+from kubeflow_tpu import kube as ref_kube
 from kubeflow_tpu.kube import ApiServer as RefApiServer
 from kubeflow_tpu.kube.fixtures import FixtureFailure as RefFixtureFailure
 from kubeflow_tpu.kube.fixtures import FixtureRunner as RefFixtureRunner
@@ -67,33 +72,16 @@ from kubeflow_tpu_torch.odh.webhook_server import (
 from kubeflow_tpu_torch.utils.clock import Clock
 from kubeflow_tpu_torch.utils.config import OdhConfig
 
-REALCLUSTER = twin_modules("test_realcluster.py", keep=("deploy",))
-
-
-def fenced_by_the_port(ref_fenced):
-    """The reference's FencedApi over the port's elector: its `_fence`,
-    counting the port's StaleEpochError (the reference's catches its
-    own class)."""
-    class FencedApi(ref_fenced):
-        def _fence(self) -> int:
-            try:
-                return self._authority.verify()
-            except kube.StaleEpochError:
-                self.rejected_total += 1
-                raise
-    return FencedApi
-
-
+REALCLUSTER = twin_modules("test_realcluster.py")
 LEADER = twin_modules("test_leader.py", port_lines={
-    "from kubeflow_tpu_torch.kube.shard import FencedApi":
-        "from kubeflow_tpu.kube.shard import FencedApi; "
-        "FencedApi = fenced_by_the_port(FencedApi)",
     # the module's Notebook: the reference's signature over the port's
-    "from kubeflow_tpu_torch.api.types import Notebook": "pass"},
-    port_globals={"fenced_by_the_port": fenced_by_the_port})
+    "from kubeflow_tpu_torch.api.types import Notebook": "pass"})
 # the reference's spec.tpu image swap, held by the spec.gpu admission
-# below; TestJsonPatch runs in tests/test_torch_patch.py
-NOT_TWINNED = {"TestAdmissionOverHttps::test_tpu_image_swap_via_https"}
+# below, and its spec.tpu field models, held by the port's CRD below;
+# TestJsonPatch runs in tests/test_torch_patch.py
+NOT_TWINNED = {"TestAdmissionOverHttps::test_tpu_image_swap_via_https",
+               "TestOpenApiCrdFieldModels::"
+               "test_notebook_spec_fields_served_from_crd"}
 REALCLUSTER_CASES = [c for c in case_ids(REALCLUSTER["reference"])
                      if not c.startswith("TestJsonPatch::")
                      and c not in NOT_TWINNED]
@@ -128,6 +116,53 @@ def test_case_counts():
     assert len(case_ids(LEADER["reference"])) == 11
     assert len(REALCLUSTER_CASES) == len(case_ids(REALCLUSTER["reference"])) \
         - 6 - len(NOT_TWINNED)
+
+
+# -- the Notebook CRD's field models --------------------------------------------
+
+
+def _served_notebook(api, crd: dict, server_cls) -> dict:
+    """The Notebook model /openapi/v2 serves once `crd` is stored."""
+    api.create(api_kube(api).KubeObject.from_dict(crd))
+    srv = server_cls(api).start()
+    try:
+        with urllib.request.urlopen(srv.url + "/openapi/v2",
+                                    timeout=5) as resp:
+            return json.loads(resp.read())["definitions"][
+                "kubeflow.org.v1.Notebook"]
+    finally:
+        srv.stop()
+
+
+def api_kube(api):
+    return kube if isinstance(api, kube.ApiServer) else ref_kube
+
+
+def test_notebook_spec_fields_served_from_the_ports_crd():
+    """The port's CRD (deploy/manifests.py) served as field models: the
+    `spec.gpu` block, `spec.priority` and `spec.replication`; the rest of
+    the Notebook model equal to what the reference serves from its own
+    CRD, whose accelerator block is `spec.tpu`."""
+    from kubeflow_tpu.deploy.manifests import notebook_crd as ref_crd
+    from kubeflow_tpu_torch.deploy.manifests import notebook_crd
+
+    ours = _served_notebook(kube.ApiServer(),
+                            notebook_crd(conversion_webhook=False),
+                            KubeApiWireServer)
+    ref = _served_notebook(RefApiServer(),
+                           ref_crd(conversion_webhook=False), RefWireServer)
+    props = ours["properties"]["spec"]["properties"]
+    assert set(props["gpu"]["properties"]) == {"accelerator", "count"}
+    assert props["gpu"]["properties"]["accelerator"]["enum"] == \
+        ["a100-80gb", "h100-80gb", "h200-141gb"]
+    assert props["priority"]["enum"] == ["low", "standard", "high"]
+    assert set(props["replication"]["properties"]) == \
+        {"replicas", "antiAffine"}
+    for side, blocks in ((ours, ("gpu", "priority", "replication")),
+                         (ref, ("tpu",))):
+        for block in blocks:
+            side["properties"]["spec"]["properties"].pop(block)
+    assert ours == ref
 
 
 # -- admission of a spec.gpu CR over HTTPS -------------------------------------
@@ -288,7 +323,8 @@ def test_kubeconfig_manager_with_leader_election_reaches_healthy(tmp_path):
 
 def test_serve_api_with_fake_gpu_nodes_and_audit_log(tmp_path):
     """`--serve-api 0 --fake-gpu-nodes 1 --audit-log PATH`: the standalone
-    store over the wire with the Notebook converter, one full H100 host,
+    store over the wire with the Notebook converter and the port's
+    Notebook CRD (its /openapi serves `spec.gpu`), one full H100 host,
     and the request trail."""
     clock = Clock()
     audit = tmp_path / "audit.jsonl"
@@ -304,6 +340,11 @@ def test_serve_api_with_fake_gpu_nodes_and_audit_log(tmp_path):
         url = next((line.strip().split("=", 1)[1] for line in proc.stdout
                     if line.startswith("WIRE_API=")), None)
         assert url, "no WIRE_API line"
+        with urllib.request.urlopen(url + "/openapi/v2", timeout=10) as r:
+            served = json.loads(r.read())["definitions"][
+                "kubeflow.org.v1.Notebook"]["properties"]["spec"]
+        assert set(served["properties"]["gpu"]["properties"]) == \
+            {"accelerator", "count"}
         client = KubeClient(RestConfig(server=url))
         (node,) = [n for n in client.list("Node")
                    if n.name.startswith("fake-gpu")]

@@ -432,7 +432,19 @@ non-zero without its result line):
    int4 and none in bf16 and int8, the bench's graphed warm-up call's
    greedy tokens against the eager loop's bit for bit (the eager call
    timed beside the bench's), and in bf16 a sampled call under the
-   graph (in range);
+   graph (in range); two timed calls a mode (the bench's own default is
+   three);
+   tools: the compute tools (kubeflow_tpu_torch/tools/) at their
+   smallest real settings, in this process: decode_profile's HBM read
+   probe (the best of 4 fp32-accumulated sums over 4 GiB of bf16), the
+   three bodies of kv_cache_probe over the BENCH_CHIP decode cache (10
+   layers x K, V of [16, 12, 384, 128] bf16) at TOOLS_KV_ITERS
+   iterations, each one captured CUDA graph, and one decode_ablate
+   window: batch 32 on decode_bench's bf16 model, its step against the
+   bench's bf16 step as the baseline.  Gates: every number finite and
+   positive; the probe at most 105% of the card's spec rate; each body's
+   moved bytes and the ablation's streamed bytes at most 105% of the
+   probed rate a second;
 14. speculative_demo: kubeflow_tpu_torch/examples/speculative_demo.py,
    the BENCH_CHIP-shaped target (vocabulary 1024) and its 2-layer draft
    trained 150 steps each on the affine stream (exactly 20/10/10 and
@@ -576,6 +588,9 @@ SPEC_MIN_ACCEPT = 0.9              # self-draft accept rate over its cap
 SPEC_PROFILED_NEW = 16             # new tokens of the profiled graphed call
 PROFILED_STEPS = 10                # decode steps under torch.profiler
 DECODE_BENCH_NEW = 256             # bench --decode: new tokens a call
+DECODE_BENCH_STEPS = 8             # bench --decode steps: 8 // 4 timed calls
+TOOLS_KV_ITERS = 32                # kv_cache_probe: iterations a graph
+TOOLS_MAX_SHARE = 1.05             # a rate's cap against its bandwidth
 VIT_STEPS = 5                      # bench --vit: steps a window
 DEMO_STEPS = 150                   # the speculative demo's training steps
 MOE_BATCH, MOE_COMPARE_BATCH = 16, 4
@@ -2495,7 +2510,9 @@ def decode_bench_phase(device, smi: str) -> dict:
     credited by the graph's replays; bf16 and int8 none), and the bench's
     graphed warm-up call against the eager loop on the same model and
     prompt, greedy tokens bit for bit.  For bf16 also one sampled call
-    (T 0.8, top-k 50, seeded generator) under the graph: in range."""
+    (T 0.8, top-k 50, seeded generator) under the graph: in range.  Each
+    mode takes DECODE_BENCH_STEPS // 4 timed calls.  The bf16 (decode
+    config, model) stays under "model" for the tools phase."""
     import torch
 
     from kubeflow_tpu_torch import bench
@@ -2508,7 +2525,8 @@ def decode_bench_phase(device, smi: str) -> dict:
     for quant in ("", "int8", "int4"):
         launch_counts.restore({k: 0 for k in launch_counts.snapshot()})
         record, (cfg, model, prompt, graphed) = bench.run_decode(
-            ["--decode"] + ([f"--{quant}"] if quant else []))
+            ["--decode", str(DECODE_BENCH_STEPS)]
+            + ([f"--{quant}"] if quant else []))
         launches = launch_counts.snapshot()
         calls = record["detail"]["timed_calls"] + 1
         expected = {k: 0 for k in launches}
@@ -2525,6 +2543,7 @@ def decode_bench_phase(device, smi: str) -> dict:
                                 device=device).manual_seed(SEED + 22))
             sampled = {"sampled_in_range": bool(
                 0 <= int(draw.min()) and int(draw.max()) < cfg.vocab_size)}
+            out["model"] = (cfg, model)      # the tools phase's ablation
         del model, graphed, eager
         torch.cuda.empty_cache()
         batch = record["detail"]["batch"]
@@ -2549,6 +2568,78 @@ def decode_bench_phase(device, smi: str) -> dict:
                                f"greedy tokens differ from the eager loop's, "
                                f"or sampled tokens are out of range")
     return out
+
+
+def tools_phase(device, smi: str, db: dict) -> dict:
+    """The compute tools at their smallest real settings: the HBM read
+    probe (tools/decode_profile.py), kv_cache_probe's three bodies at
+    TOOLS_KV_ITERS iterations a graph, and decode_ablate's batch-32
+    window on decode_bench's bf16 model (`db["model"]`, freed here)
+    against the bench's bf16 step.  Gates: finite positive numbers, the
+    probe within 105% of the spec rate, every moved or streamed rate
+    within 105% of the probe's."""
+    import torch
+
+    from kubeflow_tpu_torch.runtime.roofline import GPU_PEAKS
+    from kubeflow_tpu_torch.tools import (
+        decode_ablate,
+        decode_profile,
+        kv_cache_probe,
+    )
+
+    name = torch.cuda.get_device_name(0)
+    cfg, model = db.pop("model")
+    bench = db["bf16"]["record"]["detail"]
+    batch, prompt_len, new = (bench["batch"], bench["prompt_len"],
+                              bench["new_tokens"])
+    t0 = time.perf_counter()
+    hbm = decode_profile.measure_hbm_read_gbps(device)
+    probe_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kv = kv_cache_probe.probe(kv_cache_probe.SHAPE, TOOLS_KV_ITERS, hbm,
+                              device, name, smi)
+    kv_s = time.perf_counter() - t0
+    w, kv_bytes = decode_ablate.streamed_bytes(cfg, batch)
+    baseline = {"step_ms": batch / db["bf16"]["tok_s"] * 1e3,
+                "weight_mb": w / 1e6, "kv_mb": kv_bytes / 1e6}
+    t0 = time.perf_counter()
+    ablation = decode_ablate.time_cfg(
+        "batch x2", cfg, 2 * batch, prompt_len, new, hbm, device, name, smi,
+        windows=1, baseline=baseline, model=model)
+    ablate_s = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    spec = GPU_PEAKS[name].hbm_gbps
+    res = {"phase": "tools", "hbm_read_gbps": hbm, "spec_gbps": spec,
+           "hbm_share_of_spec": hbm / spec,
+           "kv_probe": {x["measurement"]: {
+               k: x[k] for k in ("ms_per_iter", "cache_equiv_gbps",
+                                 "moved_gbps", "moved_share_of_hbm")}
+               for x in kv if x["measurement"] != "ideal"},
+           "ablation": {k: ablation[k] for k in (
+               "batch", "tok_s", "step_ms", "effective_gbps", "delta_ms",
+               "removed_ms")},
+           "baseline_step_ms": baseline["step_ms"],
+           "seconds": {"probe": probe_s, "kv_probe": kv_s,
+                       "ablation": ablate_s},
+           "nvidia_smi": smi}
+    emit(res)
+    numbers = [hbm, ablation["tok_s"], ablation["step_ms"],
+               ablation["effective_gbps"]] + [
+        x[k] for x in kv if x["measurement"] != "ideal"
+        for k in ("ms_per_iter", "moved_gbps")]
+    if not all(math.isfinite(x) and x > 0 for x in numbers):
+        raise RuntimeError(f"tools: a number is not finite and positive: "
+                           f"{numbers}")
+    rates = {f"kv {x['measurement']}": x["moved_gbps"] for x in kv
+             if x["measurement"] != "ideal"}
+    rates["ablation"] = ablation["effective_gbps"]
+    over = {k: v for k, v in rates.items() if v > TOOLS_MAX_SHARE * hbm}
+    if hbm > TOOLS_MAX_SHARE * spec or over:
+        raise RuntimeError(f"tools: the probe's {hbm} GB/s against the "
+                           f"spec's {spec}, or rates above "
+                           f"{TOOLS_MAX_SHARE} x the probe: {over}")
+    return res
 
 
 def vit_phase(device, smi: str) -> dict:
@@ -6635,6 +6726,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     l13 = timed("llama13b", llama13b_phase, device, smi)
     db = timed("decode_bench", decode_bench_phase, device, smi)
+    timed("tools", tools_phase, device, smi, db)
     tr = timed("train", train_phase, device, device_name, flash_results,
                flush)
     # the wire step's processes run beside gemma_train's device-bound steps

@@ -18,11 +18,16 @@ ranks of each of the six axes, dense and MoE fp32, plus int4 dense at
 data 2, exactly the greedy tokens of the reference's `generate` on a
 mesh of 2 host devices with the same axis populated, on both ranks; at
 data 2 also a batch of 3 (which does not split) and a MoE tree under the
-"sort" dispatch, both decoded whole on every rank."""
+"sort" dispatch, both decoded whole on every rank.  The compute tools'
+byte counts (decode traffic, the ablations' streamed bytes, the KV
+probe's cache) and the sweeps' spec -> config mapping equal the
+reference's ci/ scripts' exactly."""
 
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +36,7 @@ import pytest
 import torch
 
 from kubeflow_tpu.models import quant as jquant
+from kubeflow_tpu.models.configs import BENCH_CHIP as JBENCH_CHIP
 from kubeflow_tpu.models.configs import LLAMA2_7B as JLLAMA2_7B
 from kubeflow_tpu.models.configs import TINY as JTINY
 from kubeflow_tpu.models.generate import decode_config as jdecode_config
@@ -45,7 +51,7 @@ from kubeflow_tpu.parallel.sharding import rules_for_mesh as jrules_for_mesh
 from kubeflow_tpu.runtime import roofline as jroofline
 from kubeflow_tpu_torch import dryrun
 from kubeflow_tpu_torch.models import quant
-from kubeflow_tpu_torch.models.configs import LLAMA2_7B, TINY
+from kubeflow_tpu_torch.models.configs import BENCH_CHIP, LLAMA2_7B, TINY
 from kubeflow_tpu_torch.models.convert import params_from_flax, to_tensor
 from kubeflow_tpu_torch.models.generate import (
     DecodeStep,
@@ -59,6 +65,13 @@ from kubeflow_tpu_torch.models.speculative import rewind
 from kubeflow_tpu_torch.ops import attention
 from kubeflow_tpu_torch.parallel.mesh import MeshConfig
 from kubeflow_tpu_torch.runtime import roofline
+from kubeflow_tpu_torch.tools import (
+    decode_ablate,
+    decode_profile,
+    kv_cache_probe,
+    longctx_sweep,
+    mfu_sweep,
+)
 
 
 def _cfg(port: bool, **kw):
@@ -669,3 +682,80 @@ def test_llama13b_and_demo_configs_match_reference_scripts():
     assert dataclasses.asdict(target) == dataclasses.asdict(jtarget)
     assert dataclasses.asdict(draft) == dataclasses.asdict(
         jtarget.with_(num_layers=2))
+
+
+# -- the compute tools (kubeflow_tpu_torch/tools/) against ci/ ----------------
+# The reference's tools are scripts outside its package, loaded by path.
+# Their byte counts and the sweep's spec -> config mapping must be equal
+# exactly: a tool that counts other bytes than the reference's would put
+# the card's numbers on another scale.
+
+CI = Path(__file__).resolve().parent.parent / "ci"
+
+
+def _ci(name: str):
+    spec = importlib.util.spec_from_file_location(f"ci_{name}",
+                                                  CI / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _reference_ablations() -> list:
+    """ci/decode_ablate.py:main's five configs, as it builds them."""
+    base = jdecode_config(JBENCH_CHIP).with_(max_seq_len=128 + 256)
+    return [(base, 16), (base.with_(num_kv_heads=6), 16),
+            (base.with_(vocab_size=16_000), 16),
+            (base.with_(num_layers=5), 16), (base, 32)]
+
+
+@pytest.mark.parametrize("i", range(5))
+def test_tool_byte_counts_match_reference(i):
+    ref_cfg, ref_batch = _reference_ablations()[i]
+    name, cfg, batch = decode_ablate.ablations(BENCH_CHIP, 16, 384)[i]
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg), name
+    assert batch == ref_batch
+    assert decode_ablate.streamed_bytes(cfg, batch) == \
+        _ci("decode_ablate").streamed_bytes(ref_cfg, ref_batch)
+    assert decode_profile.decode_traffic_bytes(cfg, batch) == \
+        _ci("decode_profile").decode_traffic_bytes(ref_cfg, ref_batch)
+
+
+def test_kv_probe_bytes_match_reference():
+    ref = _ci("kv_cache_probe")
+    cfg = decode_ablate.ablations(BENCH_CHIP, 16, 384)[0][1]
+    assert kv_cache_probe.SHAPE == (ref.LAYERS, ref.B, ref.KVH, ref.S,
+                                    ref.D) == (
+        cfg.num_layers, 16, cfg.num_kv_heads, cfg.max_seq_len, cfg.head_dim)
+    assert kv_cache_probe.ITERS == ref.ITERS
+    assert kv_cache_probe.cache_bytes(kv_cache_probe.SHAPE) == ref.BYTES \
+        == roofline.decode_kv_bytes(cfg, 16)
+
+
+def _reference_run_one_config(spec: dict) -> tuple:
+    """ci/mfu_sweep.py:run_one's reading of a spec, up to its
+    `BENCH_CHIP.with_(**spec)`."""
+    spec = dict(spec)
+    batch = spec.pop("batch", 24)
+    seq = spec.pop("seq", 2048)
+    num_steps = spec.pop("num_steps", 10)
+    mu_dtype = spec.pop("mu_dtype", None)
+    return JBENCH_CHIP.with_(**spec), batch, seq, num_steps, mu_dtype
+
+
+def _grid(name: str) -> list:
+    if name == "reference":
+        ref = _ci("mfu_sweep")
+        return [{**ref.BASE, **s} for stage in ref.STAGES for s in stage]
+    tool = mfu_sweep if name == "mfu_sweep" else longctx_sweep
+    return [{**tool.BASE, **s} for _, specs, _ in tool.STAGES
+            for s in specs]
+
+
+@pytest.mark.parametrize("grid", ["mfu_sweep", "longctx_sweep", "reference"])
+def test_sweep_configs_match_reference(grid):
+    for spec in _grid(grid):
+        cfg, *rest = mfu_sweep.sweep_config(spec)
+        ref_cfg, *ref_rest = _reference_run_one_config(spec)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg), spec
+        assert rest == ref_rest, spec

@@ -27,8 +27,10 @@ process is launched."""
 
 from __future__ import annotations
 
+import contextlib
 import random
 import re
+import types
 
 import pytest
 from test_torch_patch import case_ids, run_twins, twin_modules
@@ -161,13 +163,49 @@ class Side:
                 "routes": sorted(r.name for r in routes)}
 
 
-def _soak(side: Side) -> dict:
-    # the controllers' backoff jitter draws from the global generator:
-    # each side draws the same numbers, and the caller's state comes back
-    saved = random.getstate()
-    random.seed(SOAK_SEED)
+@contextlib.contextmanager
+def _on_the_side_clock(side: Side):
+    """Take the soak's wall-clock sources off the wall, onto the side's
+    FakeClock.
+
+    - The tracer's clock.
+    - The store stamps creation and deletion times with the real clock at
+      one-second resolution, and the fake kubelet copies a pod's creation
+      stamp into its container's `startedAt`, which the notebook's status
+      mirrors: a recreated pod that lands in another wall second forces
+      one more status write (a get and an update of the Notebook).
+    - `retry_on_conflict` sleeps in wall time with jitter from the
+      process-wide `random`: each side draws from its own seeded
+      generator, and the wait passes on its FakeClock."""
     side.tracing.set_clock(side.clock)
     try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(side.kube.store, "now_iso", side.clock.now_iso)
+            mp.setattr(side.kube.errors, "random", random.Random(SOAK_SEED))
+            mp.setattr(side.kube.errors, "time",
+                       types.SimpleNamespace(sleep=side.clock.sleep))
+            yield
+    finally:
+        side.tracing.set_clock(None)
+
+
+def _first_difference(ref: dict, ours: dict) -> str:
+    """The first round and key that differ, or the verbs that do."""
+    for i, (a, b) in enumerate(zip(ref["rounds"], ours["rounds"])):
+        for key in a:
+            if a[key] != b.get(key):
+                return f"round {i}, {key}: reference {a[key]!r}, port " \
+                       f"{b.get(key)!r}"
+    if len(ref["rounds"]) != len(ours["rounds"]):
+        return f"rounds: {len(ref['rounds'])} != {len(ours['rounds'])}"
+    a, b = dict(ref["verbs"]), dict(ours["verbs"])
+    return "verbs (reference, port): " + ", ".join(
+        f"{v}: {a.get(v)}, {b.get(v)}" for v in sorted(a.keys() | b.keys())
+        if a.get(v) != b.get(v))
+
+
+def _soak(side: Side) -> dict:
+    with _on_the_side_clock(side):
         side.create("soak", "user1")
         rng = random.Random(SOAK_SEED)
         rounds = []
@@ -193,14 +231,11 @@ def _soak(side: Side) -> dict:
                 "steady": side.steady("soak")})
         return {"rounds": rounds,
                 "verbs": sorted(side.api.verb_counts().items())}
-    finally:
-        side.tracing.set_clock(None)
-        random.setstate(saved)
 
 
 def test_random_fault_soak_converges_as_the_reference():
     ref, ours = _soak(Side(False)), _soak(Side(True))
-    assert ours == ref
+    assert ours == ref, _first_difference(ref, ours)
     assert sum(len(r["faults"]) for r in ours["rounds"]) > SOAK_ROUNDS
     for r in ours["rounds"]:
         assert r["dropped"] == []

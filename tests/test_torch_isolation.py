@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: neither its package nor chip_smoke.py
-imports JAX, flax, optax or the reference package, in the source or at
+imports JAX, flax, optax, the reference package or the reference's `ci/`
+tools, in the source or at
 run time.  Its subpackages export the reference's names lazily: every
 name resolves, and importing a subpackage imports none of its
 modules."""
@@ -14,13 +15,14 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "kubeflow_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "kubeflow_tpu", "ci"}
 # modules the two tests must reach, among all the others they walk: the
 # serving entry points, the small models, the compile-check entry, the
 # GPU side of the controller contract, the controller itself, its
 # observability plane, its real-cluster backend, the sharded fleet, the
-# deploy manifests, the schema hook, the diagnose bundle and the
-# interleave checker
+# deploy manifests, the schema hook, the diagnose bundle, the
+# interleave checker, the canonical end-to-end script and the compute
+# tools
 EXPECTED = {"bench", "entry", "examples.llama13b_decode",
             "examples.serve_model", "examples.speculative_demo",
             "examples.train_llm", "models.generate", "models.mlp",
@@ -38,7 +40,10 @@ EXPECTED = {"bench", "entry", "examples.llama13b_decode",
             "kube.certs", "kube.leader", "kube.fixtures",
             "odh.webhook_server", "examples.run_real_cluster", "kube.shard",
             "deploy.manifests", "api.validation", "ops.diagnose",
-            "testing.interleave"}
+            "testing.interleave", "examples.run_stack",
+            "tools.decode_profile", "tools.kv_cache_probe",
+            "tools.decode_ablate", "tools.llama7b_decode", "tools.mfu_sweep",
+            "tools.longctx_sweep"}
 
 
 def _port_sources() -> list:
@@ -107,7 +112,7 @@ CONTROL_PLANE = ("main", "kube", "common.reconcilehelper",
                  "kube.client", "kube.certs", "kube.leader", "kube.fixtures",
                  "odh.webhook_server", "examples.run_real_cluster",
                  "kube.shard", "deploy.manifests", "api.validation",
-                 "ops.diagnose", "testing.interleave")
+                 "ops.diagnose", "testing.interleave", "examples.run_stack")
 
 
 def test_control_plane_imports_no_torch():

@@ -510,7 +510,20 @@ non-zero without its result line):
    it, serves the port's Notebook CRD at /openapi/v2 with `spec.gpu`
    {accelerator, count}.  Its `shard` line prints the step's seconds, the
    handoff's FakeClock seconds, the fenced writes, the overlaps and the
-   bundles' bytes.
+   bundles' bytes.  Then the fleet step (`fleet_step`): the port's
+   convergence benchmark (kubeflow_tpu_torch/loadtest/convergence.py)
+   runs 200 gangs of this card's own shape (`spec.gpu {this card, 1}`)
+   on one worker and again on eight, held to the `gang` section of
+   loadtest/budgets/apiserver_call_budget.json: budget met, the two
+   final states identical, zero writes from a converged fleet, zero
+   conservation violations; then 200 CPU notebooks over a 3-shard fleet
+   with a kill and a rejoin (zero cross-process overlaps, zero
+   data-plane writes at steady state, zero conservation violations);
+   then the conformance profile without its fixtures (`python -m
+   kubeflow_tpu_torch.conformance`'s `run_profile`: the goldens equal,
+   and every behaviour check passes against a manager booted with
+   `--serve-api 0 --fake-gpu-nodes 4` under USE_ISTIO).  Its `fleet`
+   line prints each part's seconds.
 
 It prints one JSON line per kernel shape and per slice, then a "kernels"
 line (each kernel's launches on its main path, and beside them the
@@ -3752,10 +3765,96 @@ def shard_step(device_name: str, gpus: int) -> dict:
     return res
 
 
+# the fleet step: this many gangs of the card's own shape, compared
+# against the same fleet on this many workers, and this many CPU
+# notebooks over this many shards
+FLEET_COUNT, FLEET_COMPARE_WORKERS = 200, 8
+FLEET_SHARDED_COUNT, FLEET_SHARDS = 200, 3
+
+
+def fleet_step(device_name: str) -> dict:
+    """The port's fleet load generators and conformance profile (see the
+    module docstring, phase 18's fleet step).  Runs in the wire step's
+    process, after the shard step: FakeClock fleets and one manager
+    process, no card memory."""
+    from kubeflow_tpu_torch.conformance.__main__ import run_profile
+    from kubeflow_tpu_torch.gpu import topology
+    from kubeflow_tpu_torch.loadtest import convergence
+
+    t0 = time.perf_counter()
+    gpu = f"{topology.accelerator_from_device_name(device_name)}:1"
+    budget_path = (ROOT / "kubeflow_tpu_torch" / "loadtest" / "budgets"
+                   / "apiserver_call_budget.json")
+    budget = json.loads(budget_path.read_text())
+    # the benchmark and the profile print their critical-path tables and PASS lines; keep
+    # them off this script's output and show their tail on a failure
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
+        t = time.perf_counter()
+        fleet, failures = convergence.run_fleet_gated(
+            FLEET_COUNT, 1, gpu, FLEET_COMPARE_WORKERS, budget)
+        fleet_s = time.perf_counter() - t
+        t = time.perf_counter()
+        sharded = convergence.run_sharded_fleet(FLEET_SHARDED_COUNT,
+                                                FLEET_SHARDS)
+        sharded_s = time.perf_counter() - t
+        t = time.perf_counter()
+        profile = run_profile(fixtures=False)
+        profile_s = time.perf_counter() - t
+    tail = log.getvalue().splitlines()[-30:]
+    problems = [f"budget: {f}" for f in failures]
+    if not fleet["compare"]["state_identical"]:
+        problems.append("1-worker and 8-worker states differ")
+    if fleet["steady_write_verbs"] != 0:
+        problems.append(f"steady writes {fleet['steady_write_verbs']}")
+    if fleet["criticalpath"]["conservation"]["violations"] or \
+            fleet["tenants"]["conservation"]["violations"]:
+        problems.append("fleet conservation violations")
+    if sharded["cross_process_overlaps"] or \
+            sharded["steady_data_plane_writes"] or \
+            sharded["criticalpath"]["conservation"]["violations"]:
+        problems.append("sharded fleet: overlaps, steady writes or "
+                        "conservation violations")
+    if not (profile["ok"] and profile["goldens"] and profile["behavior"] == [
+            "cpu_lifecycle", "served_versions", "gpu_topology",
+            "istio_routing"]):
+        problems.append(f"conformance: {profile}")
+    if problems:
+        raise RuntimeError("fleet step: " + "; ".join(problems)
+                           + "\n" + "\n".join(tail))
+    return {
+        "gpu": gpu, "count": FLEET_COUNT,
+        "budget": str(budget_path.relative_to(ROOT)),
+        "budget_ok": fleet["budget_ok"],
+        "state_identical": fleet["compare"]["state_identical"],
+        "compare_workers": FLEET_COMPARE_WORKERS,
+        "steady_write_verbs": fleet["steady_write_verbs"],
+        "reconciles_per_notebook": fleet["reconciles_per_notebook"],
+        "writes_per_notebook": fleet["writes_per_notebook"],
+        "wall_s": fleet["wall_s"], "compare_wall_s": fleet["compare"]["wall_s"],
+        "p99_event_to_reconcile_s": fleet["p99_event_to_reconcile_s"],
+        "conservation_violations":
+            fleet["criticalpath"]["conservation"]["violations"]
+            + fleet["tenants"]["conservation"]["violations"],
+        "sharded": {k: sharded[k] for k in (
+            "count", "shards", "epoch", "killed_shard", "keys_owned",
+            "cross_process_overlaps", "steady_data_plane_writes",
+            "fenced_rejections", "wall_s", "handoff_wall_s",
+            "p99_event_to_reconcile_s", "binding_stage")},
+        "sharded_conservation_violations":
+            sharded["criticalpath"]["conservation"]["violations"],
+        "conformance": {k: profile[k] for k in (
+            "goldens", "behavior", "ok", "seconds")},
+        "fleet_s": fleet_s, "sharded_s": sharded_s,
+        "conformance_s": profile_s, "step_s": time.perf_counter() - t0,
+    }
+
+
 def _wire_step_process(device_name: str, gpus: int, queue) -> None:
-    """wire_step, then shard_step, in a spawned process: ("ok", the wire
-    step's result with the shard step's under "shard") or ("error",
-    traceback) on `queue`."""
+    """wire_step, then shard_step and fleet_step, in a spawned process:
+    ("ok", the wire step's result with the shard step's under "shard"
+    and the fleet step's under "fleet") or ("error", traceback) on
+    `queue`."""
     import tempfile
     import traceback
 
@@ -3764,6 +3863,7 @@ def _wire_step_process(device_name: str, gpus: int, queue) -> None:
         with tempfile.TemporaryDirectory(prefix="wire-step-") as tmp:
             res = wire_step(device_name, gpus, Path(tmp))
         res["shard"] = shard_step(device_name, gpus)
+        res["fleet"] = fleet_step(device_name)
         queue.put(("ok", res))
     except BaseException:
         queue.put(("error", traceback.format_exc()))
@@ -6735,8 +6835,10 @@ def main() -> int:
                   smi, flash_results, flush)
     wire = timed("wire", finish_wire_step, wire_started)
     shard = wire.pop("shard")
+    fleet = wire.pop("fleet")
     emit({"phase": "wire", "nvidia_smi": smi, **wire})
     emit({"step": "shard", "nvidia_smi": smi, **shard})
+    emit({"step": "fleet", "nvidia_smi": smi, **fleet})
     del flush
     long_context = timed("long_context", long_context_phase, device)
     mt = timed("moe_train", moe_train_phase, device, device_name)

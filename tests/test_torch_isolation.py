@@ -43,7 +43,10 @@ EXPECTED = {"bench", "entry", "examples.llama13b_decode",
             "testing.interleave", "examples.run_stack",
             "tools.decode_profile", "tools.kv_cache_probe",
             "tools.decode_ablate", "tools.llama7b_decode", "tools.mfu_sweep",
-            "tools.longctx_sweep"}
+            "tools.longctx_sweep", "loadtest.convergence",
+            "loadtest.start_notebooks", "conformance.goldens",
+            "conformance.behavior", "conformance.metrics",
+            "conformance.manager", "conformance.__main__"}
 
 
 def _port_sources() -> list:
@@ -112,7 +115,15 @@ CONTROL_PLANE = ("main", "kube", "common.reconcilehelper",
                  "kube.client", "kube.certs", "kube.leader", "kube.fixtures",
                  "odh.webhook_server", "examples.run_real_cluster",
                  "kube.shard", "deploy.manifests", "api.validation",
-                 "ops.diagnose", "testing.interleave", "examples.run_stack")
+                 "ops.diagnose", "testing.interleave", "examples.run_stack",
+                 "loadtest.convergence", "loadtest.start_notebooks",
+                 "conformance.goldens", "conformance.behavior",
+                 "conformance.metrics", "conformance.manager",
+                 "conformance.__main__")
+# the fleet load generators and the conformance profile: no torch, and (as
+# everywhere in the port) nothing of the reference or JAX
+DRIVERS = tuple(m for m in CONTROL_PLANE
+                if m.split(".")[0] in ("loadtest", "conformance"))
 
 
 def test_control_plane_imports_no_torch():
@@ -124,6 +135,19 @@ def test_control_plane_imports_no_torch():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]", proc.stdout
+
+
+def test_load_and_conformance_modules_import_neither_torch_nor_the_reference():
+    code = "".join(f"import kubeflow_tpu_torch.{m}\n" for m in DRIVERS)
+    code += ("import sys\n"
+             f"roots = {sorted(FORBIDDEN | {'torch'})!r}\n"
+             "print(sorted(n for n in sys.modules "
+             "if n.split('.')[0] in roots))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]", proc.stdout
+    assert len(DRIVERS) == 7
 
 
 # the reference's package exports (kubeflow_tpu/{models,ops,parallel}/

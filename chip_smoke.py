@@ -523,7 +523,19 @@ non-zero without its result line):
    kubeflow_tpu_torch.conformance`'s `run_profile`: the goldens equal,
    and every behaviour check passes against a manager booted with
    `--serve-api 0 --fake-gpu-nodes 4` under USE_ISTIO).  Its `fleet`
-   line prints each part's seconds.
+   line prints each part's seconds.  Then the soak step (`soak_step`):
+   the seven lanes of `python -m kubeflow_tpu_torch.chaos` (the twin of
+   ci/chaos_soak.sh: the random fault soak, self-healing recovery with
+   its exhaustion case, checkpoint migration, preemption, the fleet SLO
+   soak, the sharded fleet's kill and rejoin, and replica failover) on
+   gangs of this card's accelerator, at the script's seed, rounds, 8
+   workers and the strict sanitizer, but the preemption, fleet SLO and
+   failover lanes, which are not steady on eight workers, on one
+   (SOAK_ONE_WORKER), every soak's assertions held (a SoakFailure fails
+   the run).  Its `soak` line prints per lane its workers and the
+   rounds, seconds, kills, promotions, fenced writes, restarts, the
+   attempt at which the exhaustion case exhausted, the alerts fired and
+   resolved, and the seed.
 
 It prints one JSON line per kernel shape and per slice, then a "kernels"
 line (each kernel's launches on its main path, and beside them the
@@ -3850,11 +3862,61 @@ def fleet_step(device_name: str) -> dict:
     }
 
 
+# what the soak line prints of each lane's counts
+SOAK_KEYS = ("kills", "promotions", "fenced_writes", "restarts",
+             "exhausted_at", "alerts_fired", "alerts_resolved")
+# lanes the step runs on one worker, not on eight: with one FakeClock
+# shared by every worker, their assertions depend on how the workers'
+# threads interleave, in the reference's lanes too (ROADMAP.md §3): the
+# fleet SLO soak's lagged attempt is not always the slowest
+# (tests/test_chaos.py:1625, :1627), a preemption victim's pods can
+# outlive the resume (:1024, :1026), and a failover round's baseline can
+# miss Healthy within its bounded drive (:1268)
+SOAK_ONE_WORKER = ("preemption", "fleet_slo", "failover")
+
+
+def soak_step(device_name: str) -> dict:
+    """The seeded chaos soaks' seven lanes (see the module docstring,
+    phase 18's soak step).  Runs in the wire step's process, after the
+    fleet step: FakeClock soaks on this card's gangs, no card memory.
+    Raises the first SoakFailure."""
+    import logging
+
+    from kubeflow_tpu_torch.chaos import __main__ as chaos
+    from kubeflow_tpu_torch.chaos import soaks
+    from kubeflow_tpu_torch.gpu import topology
+
+    t0 = time.perf_counter()
+    accelerator = topology.accelerator_from_device_name(device_name)
+    # the script's defaults, whatever this process's environment holds
+    cfg = chaos.settings({})
+    stack = soaks.port_stack(accelerator)
+    # the injected faults log every failed attempt; keep them off stderr
+    log = logging.getLogger("kubeflow_tpu_torch")
+    level = log.level
+    log.setLevel(logging.CRITICAL)
+    lanes = {}
+    try:
+        for lane in chaos.LANES:
+            res = chaos.run_lane(lane, dict(cfg, workers=1)
+                                 if lane in SOAK_ONE_WORKER else cfg, stack)
+            lanes[lane] = {"rounds": res["rounds"],
+                           "seconds": res["seconds"],
+                           "workers": res["workers"],
+                           **{k: res["counts"].get(k) for k in SOAK_KEYS}}
+    finally:
+        log.setLevel(level)
+    return {"accelerator": accelerator, "seed": cfg["seed"],
+            "workers": cfg["workers"], "strict": cfg["strict"],
+            "one_worker": list(SOAK_ONE_WORKER), "lanes": lanes,
+            "step_s": time.perf_counter() - t0}
+
+
 def _wire_step_process(device_name: str, gpus: int, queue) -> None:
-    """wire_step, then shard_step and fleet_step, in a spawned process:
-    ("ok", the wire step's result with the shard step's under "shard"
-    and the fleet step's under "fleet") or ("error", traceback) on
-    `queue`."""
+    """wire_step, then shard_step, fleet_step and soak_step, in a spawned
+    process: ("ok", the wire step's result with the shard step's under
+    "shard", the fleet step's under "fleet" and the soak step's under
+    "soak") or ("error", traceback) on `queue`."""
     import tempfile
     import traceback
 
@@ -3864,6 +3926,7 @@ def _wire_step_process(device_name: str, gpus: int, queue) -> None:
             res = wire_step(device_name, gpus, Path(tmp))
         res["shard"] = shard_step(device_name, gpus)
         res["fleet"] = fleet_step(device_name)
+        res["soak"] = soak_step(device_name)
         queue.put(("ok", res))
     except BaseException:
         queue.put(("error", traceback.format_exc()))
@@ -6836,9 +6899,11 @@ def main() -> int:
     wire = timed("wire", finish_wire_step, wire_started)
     shard = wire.pop("shard")
     fleet = wire.pop("fleet")
+    soak = wire.pop("soak")
     emit({"phase": "wire", "nvidia_smi": smi, **wire})
     emit({"step": "shard", "nvidia_smi": smi, **shard})
     emit({"step": "fleet", "nvidia_smi": smi, **fleet})
+    emit({"step": "soak", "nvidia_smi": smi, **soak})
     del flush
     long_context = timed("long_context", long_context_phase, device)
     mt = timed("moe_train", moe_train_phase, device, device_name)

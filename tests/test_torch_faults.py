@@ -10,29 +10,36 @@ watch-stream drops and history resets.
   then every plan's log (rule, action, verb, kind, object, sequence),
   every ApiServer's objects, audit log and verb counts equal, once uids
   and wall-clock stamps are read as tokens.
-- A convergence soak of tests/test_chaos.py::TestChaosSoak: its 20
-  rounds of `random_fault_plan` from its seed, each with a perturbation,
-  on the reference's `spec.tpu` slice of 4 hosts (v5e 4x4) and the port's
+- The convergence soak of tests/test_chaos.py::TestChaosSoak, through
+  `kubeflow_tpu_torch.chaos.soaks.chaos_soak`: its 20 rounds of
+  `random_fault_plan` from its seed, each with a perturbation, on the
+  reference's `spec.tpu` slice of 4 hosts (v5e 4x4) and the port's
   `spec.gpu` gang of 4 hosts (32 H100s), with the ODH plane on.  Every
-  plan's log (the workers' NetworkPolicy read under the port's device
-  word), the perturbations, the steady state after each round and the
-  apiserver's verb counts must be equal.
+  plan's log, the perturbations, the steady state after each round, the
+  ledgers' conservation and the apiserver's verb counts must be equal,
+  once device names are read as one token.
 - The diagnosis engine's `explain` on a notebook whose Service creates a
   real plan failed with 503s: the cause is the fault injection, its
   evidence names the plan's rule, and the two packages' answers are
   equal once trace and span ids are read as one token.
 
-The clocks are fake and the plans seeded, so no tolerance applies.  No
-process is launched."""
+It also holds what tests/test_torch_chaos.py and
+tests/test_torch_chaos_obs.py share: the reference's soak stack
+(`ref_stack`), each side's clocks (`run_soak`), the tokens (`canon`) and
+`_first_difference`.  The clocks are fake and the plans seeded, so no
+tolerance applies.  No process is launched."""
 
 from __future__ import annotations
 
 import contextlib
+import json
 import random
 import re
 import types
+from pathlib import Path
 
 import pytest
+import yaml
 from test_torch_patch import case_ids, run_twins, twin_modules
 
 from kubeflow_tpu import kube as ref_kube
@@ -52,6 +59,7 @@ from kubeflow_tpu.utils.config import CoreConfig as RefConfig
 from kubeflow_tpu.utils.config import OdhConfig as RefOdhConfig
 from kubeflow_tpu_torch import kube
 from kubeflow_tpu_torch.api.types import GPUSpec, Notebook
+from kubeflow_tpu_torch.chaos import soaks
 from kubeflow_tpu_torch.core import constants
 from kubeflow_tpu_torch.core.notebook_controller import setup_core_controllers
 from kubeflow_tpu_torch.odh import constants as odh_constants
@@ -78,15 +86,11 @@ CENTRAL_NS = "opendatahub"
 HOSTS = 4
 # tests/test_chaos.py's defaults
 SOAK_SEED, SOAK_ROUNDS = 20260804, 20
-# tests/test_chaos.py's FAULT_KINDS
-FAULT_KINDS = ("Notebook", "StatefulSet", "Pod", "Service", "HTTPRoute",
-               "NetworkPolicy", "ConfigMap", "Secret", "ServiceAccount",
-               "Event")
 
 
 class Side:
-    """One package's soak stack: the core and ODH controllers on a
-    FakeClock over a cluster with room for one 4-host gang."""
+    """One package's stack for `explain`: the core and ODH controllers on
+    a FakeClock over a cluster with room for one 4-host gang."""
 
     def __init__(self, port: bool):
         self.port = port
@@ -127,41 +131,6 @@ class Side:
                 annotations=annotations).obj)
         self.mgr.run_until_idle()
 
-    def perturb(self, rng: random.Random, name: str) -> str:
-        """tests/test_chaos.py's TestChaosSoak._perturb, exempt from the
-        plan."""
-        api, kind = self.api, rng.choice(
-            ["kill_pod", "fail_pod", "delete_route", "touch", "none"])
-        with api.fault_exempt():
-            if kind == "kill_pod":
-                api.delete("Pod", "user1", f"{name}-{rng.randrange(HOSTS)}")
-            elif kind == "fail_pod":
-                self.cluster.fail_pod("user1",
-                                      f"{name}-{rng.randrange(HOSTS)}")
-            elif kind == "delete_route":
-                api.delete("HTTPRoute", CENTRAL_NS, f"nb-user1-{name}")
-            elif kind == "touch":
-                nb = api.get("Notebook", "user1", name)
-                nb.metadata.annotations["chaos/touch"] = str(rng.random())
-                api.update(nb)
-            if kind == "fail_pod":
-                nb = api.get("Notebook", "user1", name)
-                nb.metadata.annotations[
-                    self.C.ANNOTATION_NOTEBOOK_RESTART] = "true"
-                api.update(nb)
-        return kind
-
-    def steady(self, name: str) -> dict:
-        status = self.api.get("Notebook", "user1", name).body.get(
-            "status", {})
-        routes = self.api.list(
-            "HTTPRoute", namespace=CENTRAL_NS,
-            label_selector={self.OC.NOTEBOOK_NAME_LABEL: name,
-                            self.OC.NOTEBOOK_NAMESPACE_LABEL: "user1"})
-        return {"readyReplicas": status.get("readyReplicas"),
-                "sliceHealth": status.get("sliceHealth"),
-                "routes": sorted(r.name for r in routes)}
-
 
 @contextlib.contextmanager
 def _on_the_side_clock(side: Side):
@@ -189,52 +158,154 @@ def _on_the_side_clock(side: Side):
         side.tracing.set_clock(None)
 
 
-def _first_difference(ref: dict, ours: dict) -> str:
-    """The first round and key that differ, or the verbs that do."""
-    for i, (a, b) in enumerate(zip(ref["rounds"], ours["rounds"])):
-        for key in a:
-            if a[key] != b.get(key):
-                return f"round {i}, {key}: reference {a[key]!r}, port " \
-                       f"{b.get(key)!r}"
-    if len(ref["rounds"]) != len(ours["rounds"]):
-        return f"rounds: {len(ref['rounds'])} != {len(ours['rounds'])}"
-    a, b = dict(ref["verbs"]), dict(ours["verbs"])
-    return "verbs (reference, port): " + ", ".join(
-        f"{v}: {a.get(v)}, {b.get(v)}" for v in sorted(a.keys() | b.keys())
-        if a.get(v) != b.get(v))
+# -- what the soak twins share --------------------------------------------
+
+ROOT = Path(__file__).resolve().parent.parent
 
 
-def _soak(side: Side) -> dict:
+def ref_stack() -> types.SimpleNamespace:
+    """The reference's control plane as a `chaos.soaks` stack: its gangs
+    are v5e 4x4 slices (4 hosts of 4 chips), a notebook of several gangs
+    a notebook of several slices."""
+    import kubeflow_tpu.ops.diagnose as ref_diagnose
+    from kubeflow_tpu import main as ref_main
+    from kubeflow_tpu.api.types import ReplicationSpec
+    from kubeflow_tpu.core import metrics as ref_metrics
+    from kubeflow_tpu.core import preemption as ref_preemption
+    from kubeflow_tpu.core import sessionstate as ref_sessionstate
+    from kubeflow_tpu.core import telemetry as ref_telemetry
+    from kubeflow_tpu.models.configs import LLAMA2_350M
+    from kubeflow_tpu.utils import lifecycle as ref_lifecycle
+    from kubeflow_tpu.utils import metering as ref_metering
+    from kubeflow_tpu.utils import profiler as ref_profiler
+    from kubeflow_tpu.utils import slo as ref_slo
+    from kubeflow_tpu.utils import tsdb as ref_tsdb
+
+    def gang_notebook(name, ns, hosts, gangs=1, priority=None,
+                      replication=None, annotations=None):
+        assert hosts in (0, HOSTS), hosts
+        nb = RefNotebook.new(
+            name, ns, tpu=TPUSpec("v5e", "4x4", gangs) if hosts else None,
+            annotations=annotations, replication=replication)
+        if priority is not None:
+            nb.obj.spec["priority"] = priority
+        return nb.obj
+
+    def gang_demand(hosts, gangs):
+        shape = TPUSpec("v5e", "4x4", gangs).shape
+        return shape, gangs * float(shape.chips)
+
+    return types.SimpleNamespace(
+        kube=ref_kube, C=ref_constants, OC=ref_odh_constants,
+        CoreConfig=RefConfig, OdhConfig=RefOdhConfig,
+        setup_core_controllers=ref_setup, setup_odh_controllers=ref_odh,
+        metrics=ref_metrics, placement_units=ref_metrics.placement_chips,
+        FakeClock=RefFakeClock,
+        FlightRecorder=ref_flightrecorder.FlightRecorder,
+        tracing=ref_tracing, lifecycle=ref_lifecycle,
+        metering=ref_metering, sessionstate=ref_sessionstate,
+        preemption=ref_preemption, slo=ref_slo, profiler=ref_profiler,
+        diagnose=ref_diagnose, diagnosis=ref_diagnosis, tsdb=ref_tsdb,
+        telemetry=ref_telemetry, serve_http=ref_main.serve_http,
+        build_sharded_fleet=ref_main.build_sharded_fleet,
+        LLAMA2_350M=LLAMA2_350M, ReplicationSpec=ReplicationSpec,
+        knowledge=lambda: yaml.safe_load(
+            (ROOT / "chaos" / "knowledge" / "workbenches.yaml").read_text()),
+        fleet_budget=lambda: json.loads(
+            (ROOT / "ci" / "fleet_budget.json").read_text()),
+        telemetry_kw={"num_chips": 4},
+        gang_notebook=gang_notebook,
+        add_gang_nodes=lambda cluster, hosts, pool=None:
+            cluster.add_tpu_slice_nodes("tpu-v5-lite-podslice", "4x4",
+                                        hosts, 4, pool=pool),
+        gang_demand=gang_demand, view=RefNotebook)
+
+
+class CurrentClock:
+    """The FakeClock a soak made last.  A soak makes a clock for each
+    environment it builds; the store's stamps, the tracer and the conflict
+    retries read whichever is current."""
+
+    def __init__(self, cls):
+        self.cls = cls
+        self.clock = cls()
+
+    def make(self):
+        self.clock = self.cls()
+        return self.clock
+
+    def now(self) -> float:
+        return self.clock.now()
+
+    def monotonic(self) -> float:
+        return self.clock.monotonic()
+
+    def now_iso(self) -> str:
+        return self.clock.now_iso()
+
+    def sleep(self, seconds: float) -> None:
+        self.clock.sleep(seconds)
+
+
+def run_soak(fn, port: bool, rounds=None) -> dict:
+    """`fn` of `chaos.soaks` on one side's stack with one worker, every
+    wall-clock source on the side's FakeClocks."""
+    stack = soaks.port_stack() if port else ref_stack()
+    clock = CurrentClock(stack.FakeClock)
+    stack.FakeClock = clock.make
+    side = types.SimpleNamespace(kube=stack.kube, tracing=stack.tracing,
+                                 clock=clock)
     with _on_the_side_clock(side):
-        side.create("soak", "user1")
-        rng = random.Random(SOAK_SEED)
-        rounds = []
-        for _ in range(SOAK_ROUNDS):
-            plan = side.kube.random_fault_plan(
-                rng.randrange(2**31), kinds=FAULT_KINDS, clock=side.clock)
-            side.api.install_fault_plan(plan)
-            perturbation = side.perturb(rng, "soak")
-            with side.api.fault_exempt():
-                side.mgr.enqueue_all()
-            side.mgr.settle(max_seconds=7200.0)
-            side.api.clear_fault_plan()
-            with side.api.fault_exempt():
-                side.mgr.enqueue_all()
-            side.mgr.settle(max_seconds=7200.0)
-            rounds.append({
-                "perturbation": perturbation,
-                # the workers' NetworkPolicy is named for the device
-                "faults": [(r.rule, r.action, r.verb, r.kind, r.namespace,
-                            r.name.replace("-tpu-workers", "-gpu-workers"),
-                            r.seq) for r in plan.log],
-                "dropped": sorted(map(str, side.mgr.dropped_errors)),
-                "steady": side.steady("soak")})
-        return {"rounds": rounds,
-                "verbs": sorted(side.api.verb_counts().items())}
+        return fn(stack, SOAK_SEED, rounds, workers=1)
+
+
+_TOKENS = (
+    (re.compile(r"\b[0-9a-f]{8}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{4}-"
+                r"[0-9a-f]{12}\b"), "<uid>"),
+    (re.compile(r"(?<![\d.])\b[0-9a-f]{16}(?:[0-9a-f]{16})?\b"), "<id>"),
+    (re.compile(r"127\.0\.0\.1:\d+"), "127.0.0.1:<port>"),
+    (re.compile(r"-[tg]pu-"), "-<device>-"),
+)
+
+
+def canon(record: dict) -> dict:
+    """A soak's record with uids, trace and span ids, HTTP ports and the
+    device word of `-tpu-`/`-gpu-` names read as tokens; wall-clock
+    readings (`wall`) are held on each side and never compared."""
+    text = json.dumps({k: v for k, v in record.items() if k != "wall"},
+                      sort_keys=True, default=str)
+    for pattern, token in _TOKENS:
+        text = pattern.sub(token, text)
+    return json.loads(text)
+
+
+def _first_difference(ref, ours, path: str = "record") -> str:
+    """Where two records first differ: the round and key, as a path."""
+    if isinstance(ref, dict) and isinstance(ours, dict):
+        for key in list(ref) + [k for k in ours if k not in ref]:
+            if key not in ref or key not in ours:
+                return f"{path}.{key}: only in the " + (
+                    "port" if key in ours else "reference")
+            if ref[key] != ours[key]:
+                return _first_difference(ref[key], ours[key],
+                                         f"{path}.{key}")
+    if isinstance(ref, list) and isinstance(ours, list):
+        for i, (a, b) in enumerate(zip(ref, ours)):
+            if a != b:
+                return _first_difference(a, b, f"{path}[{i}]")
+        if len(ref) != len(ours):
+            return f"{path}: {len(ref)} items != {len(ours)}"
+    return f"{path}: reference {ref!r}, port {ours!r}"
+
+
+def twins(fn, rounds=None) -> tuple:
+    """`fn` on both stacks, each record read through `canon`."""
+    return (canon(run_soak(fn, False, rounds)),
+            canon(run_soak(fn, True, rounds)))
 
 
 def test_random_fault_soak_converges_as_the_reference():
-    ref, ours = _soak(Side(False)), _soak(Side(True))
+    ref, ours = twins(soaks.chaos_soak, SOAK_ROUNDS)
     assert ours == ref, _first_difference(ref, ours)
     assert sum(len(r["faults"]) for r in ours["rounds"]) > SOAK_ROUNDS
     for r in ours["rounds"]:
@@ -242,6 +313,8 @@ def test_random_fault_soak_converges_as_the_reference():
         assert r["steady"]["readyReplicas"] == HOSTS
         assert r["steady"]["sliceHealth"] in ("Healthy", "Stopped")
         assert len(r["steady"]["routes"]) == 1
+    assert ours["lifecycle"]["violations"] == 0
+    assert ours["metering"]["violations"] == 0
 
 
 # -- explain names a real plan's faults ----------------------------------------

@@ -21,8 +21,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "kubeflow_tpu", "ci"}
 # GPU side of the controller contract, the controller itself, its
 # observability plane, its real-cluster backend, the sharded fleet, the
 # deploy manifests, the schema hook, the diagnose bundle, the
-# interleave checker, the canonical end-to-end script and the compute
-# tools
+# interleave checker, the canonical end-to-end script, the compute
+# tools, the fleet load drivers and the chaos soaks
 EXPECTED = {"bench", "entry", "examples.llama13b_decode",
             "examples.serve_model", "examples.speculative_demo",
             "examples.train_llm", "models.generate", "models.mlp",
@@ -46,7 +46,8 @@ EXPECTED = {"bench", "entry", "examples.llama13b_decode",
             "tools.longctx_sweep", "loadtest.convergence",
             "loadtest.start_notebooks", "conformance.goldens",
             "conformance.behavior", "conformance.metrics",
-            "conformance.manager", "conformance.__main__"}
+            "conformance.manager", "conformance.__main__",
+            "chaos.knowledge", "chaos.soaks", "chaos.__main__"}
 
 
 def _port_sources() -> list:
@@ -119,11 +120,12 @@ CONTROL_PLANE = ("main", "kube", "common.reconcilehelper",
                  "loadtest.convergence", "loadtest.start_notebooks",
                  "conformance.goldens", "conformance.behavior",
                  "conformance.metrics", "conformance.manager",
-                 "conformance.__main__")
-# the fleet load generators and the conformance profile: no torch, and (as
-# everywhere in the port) nothing of the reference or JAX
+                 "conformance.__main__", "chaos", "chaos.knowledge",
+                 "chaos.soaks", "chaos.__main__")
+# the fleet load generators, the conformance profile and the chaos soaks:
+# no torch, and (as everywhere in the port) nothing of the reference or JAX
 DRIVERS = tuple(m for m in CONTROL_PLANE
-                if m.split(".")[0] in ("loadtest", "conformance"))
+                if m.split(".")[0] in ("loadtest", "conformance", "chaos"))
 
 
 def test_control_plane_imports_no_torch():
@@ -147,7 +149,36 @@ def test_load_and_conformance_modules_import_neither_torch_nor_the_reference():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]", proc.stdout
-    assert len(DRIVERS) == 7
+    assert len(DRIVERS) == 11
+
+
+def test_chaos_knowledge_reads_only_the_package(monkeypatch):
+    """The knowledge model is read from the port's own package, whatever
+    the working directory: no path outside kubeflow_tpu_torch/ is
+    opened."""
+    import builtins
+    import io
+    import pathlib
+
+    from kubeflow_tpu_torch.chaos import knowledge
+
+    opened = []
+    real_open, real_io_open = builtins.open, io.open
+
+    def spy(real):
+        def opener(file, *args, **kwargs):
+            opened.append(pathlib.Path(file).resolve())
+            return real(file, *args, **kwargs)
+        return opener
+
+    monkeypatch.setattr(builtins, "open", spy(real_open))
+    monkeypatch.setattr(io, "open", spy(real_io_open))
+    monkeypatch.chdir(ROOT / "chaos")
+    model = knowledge.load()
+    assert model["steady_state"][1]["applies_to"] == "gpu"
+    assert opened, "the model was read without opening a file"
+    package = ROOT / "kubeflow_tpu_torch"
+    assert all(p.is_relative_to(package) for p in opened), opened
 
 
 # the reference's package exports (kubeflow_tpu/{models,ops,parallel}/
